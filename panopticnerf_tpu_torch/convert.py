@@ -1,4 +1,4 @@
-"""Flax parameter tree (as numpy arrays) -> the port's `state_dict`.
+"""Flax parameter tree (as numpy arrays) <-> the port's `state_dict`.
 
 The tree is the flax `PanopticNeRF` params — nested dicts, or the flat
 `{"coarse/trunk_0/kernel": array}` form that tools/export_torch_params.py
@@ -50,3 +50,25 @@ def load_npz(path: str) -> dict:
     """A converted-checkpoint `.npz` -> state_dict."""
     with np.load(path) as z:
         return params_from_flax({k: z[k] for k in z.files})
+
+
+def params_to_flax(state_dict) -> dict:
+    """The inverse of `params_from_flax`: state_dict -> the flat
+    {"coarse/trunk_0/kernel": float32 array (in, out), ...} form."""
+    flat = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            flat["/".join(path + ["kernel"])] = np.ascontiguousarray(arr.T)
+        elif leaf == "bias":
+            flat["/".join(path + ["bias"])] = arr.copy()
+        else:
+            raise KeyError(f"unexpected state_dict entry {key!r}")
+    return flat
+
+
+def save_npz(path: str, state_dict) -> None:
+    """Write a state_dict as a converted-checkpoint `.npz` (what `load_npz`
+    and the evaluation read)."""
+    np.savez(path, **params_to_flax(state_dict))

@@ -3,7 +3,10 @@
 All views — images, poses, pseudo-labels, depth, padded per-view primitive
 tables and evaluation ground truth — live as tensors on one device. The
 evaluation path reads whole views from it (`view_rays`, `view_primitives`);
-the train-batch samplers of the reference are not ported yet.
+the training step draws grouped ray batches from it (`sample_ray_batch`)
+and intersects them group by group (`batch_intervals`, kernel A2 on the
+card). Only grouped batches (`data.views_per_batch` G > 0) are ported: the
+fully mixed batch needs the per-ray intersection, not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +16,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from panopticnerf_tpu_torch.ops.intersect import Primitives
+from panopticnerf_tpu_torch.ops.intersect import (
+    Primitives,
+    RayIntervals,
+    intersect_groups,
+    intersect_groups_plain,
+)
 from panopticnerf_tpu_torch.ops.rays import gen_rays_perspective
 
 
@@ -37,6 +45,106 @@ class DeviceDataset(NamedTuple):
     cam_model: Optional[torch.Tensor] = None  # (V,) int32: 0 = perspective, 1 = fisheye
     fisheye: Optional[torch.Tensor] = None    # (V, 7)
     valid_mask: Optional[torch.Tensor] = None  # (V, H, W) bool
+
+
+class RayBatch(NamedTuple):
+    rays_o: torch.Tensor    # (N, 3)
+    rays_d: torch.Tensor    # (N, 3)
+    rgb: torch.Tensor       # (N, 3) float32 in [0, 1]
+    pseudo: torch.Tensor    # (N,) int32
+    depth: torch.Tensor     # (N,) float32
+    view: torch.Tensor      # (N,) source view index
+    valid: torch.Tensor     # (N,) bool
+
+
+class BatchDraws(NamedTuple):
+    """The random indices of one ray batch (for replaying a reference's
+    draws): `group` (G,) positions in `view_ids`, `u` / `v` (N,) pixel
+    column / row."""
+
+    group: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+
+
+def sample_ray_batch(ds: DeviceDataset, view_ids: torch.Tensor, n_rays: int,
+                     views_per_batch: int,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[BatchDraws] = None) -> RayBatch:
+    """Draw a grouped ray batch on the dataset's device.
+
+    G = `views_per_batch` views are drawn from the pool `view_ids` (T,)
+    (with replacement), and each contributes a contiguous group of N / G
+    rays through uniformly drawn pixels. The indices come from `generator`
+    (a generator on the dataset's device), or from `draws`.
+    """
+    if views_per_batch <= 0:
+        raise NotImplementedError(
+            "data.views_per_batch 0 (fully mixed batches) needs the per-ray "
+            "intersection, which is not ported yet")
+    if n_rays % views_per_batch:
+        raise ValueError(f"data.n_rays={n_rays} must be divisible by "
+                         f"data.views_per_batch={views_per_batch}")
+    h, w = ds.images.shape[1:3]
+    dev = ds.images.device
+    g = views_per_batch
+    if draws is None:
+        group = torch.randint(0, view_ids.shape[0], (g,), generator=generator, device=dev)
+        u = torch.randint(0, w, (n_rays,), generator=generator, device=dev)
+        v = torch.randint(0, h, (n_rays,), generator=generator, device=dev)
+    else:
+        group, u, v = (x.to(dev, torch.long) for x in draws)
+    vi = torch.repeat_interleave(view_ids.to(dev, torch.long)[group], n_rays // g)
+
+    rgb = ds.images[vi, v, u].to(torch.float32) / 255.0
+    pseudo = ds.pseudo[vi, v, u]
+    depth = ds.depth[vi, v, u]
+    valid = (ds.valid_mask[vi, v, u] if ds.valid_mask is not None
+             else torch.ones(n_rays, dtype=torch.bool, device=dev))
+
+    uv = torch.stack([u, v], dim=-1).to(torch.float32) + 0.5
+    c2w = ds.c2w[vi]                                           # (N, 3, 4)
+    dirs_cam = _pixel_dirs(ds, vi, uv)
+    d = torch.sum(c2w[:, :, :3] * dirs_cam[:, None, :], dim=-1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    o = c2w[:, :, 3].contiguous()
+    return RayBatch(rays_o=o, rays_d=d, rgb=rgb, pseudo=pseudo, depth=depth,
+                    view=vi, valid=valid)
+
+
+def _pixel_dirs(ds: DeviceDataset, vi: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Per-ray camera-frame directions (N, 3) of perspective views."""
+    if ds.cam_model is not None:
+        raise NotImplementedError("fisheye views are not ported yet")
+    K = ds.K[vi]                                               # (N, 3, 3)
+    x = (uv[:, 0] - K[:, 0, 2]) / K[:, 0, 0]
+    y = (uv[:, 1] - K[:, 1, 2]) / K[:, 1, 1]
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def batch_intervals(ds: DeviceDataset, batch: RayBatch, near: float, far: float,
+                    k: int, views_per_batch: int, use_kernel: bool = True) -> RayIntervals:
+    """Intersect a grouped batch against each group's view table: G tables
+    gathered once, then `intersect_groups` (kernel A2 on CUDA tensors) — or,
+    with `use_kernel` False (`render.use_pallas_intersect false`), its plain
+    version on any device. -> RayIntervals (N, K)."""
+    if views_per_batch <= 0:
+        raise NotImplementedError(
+            "batch_intervals with data.views_per_batch 0 needs "
+            "intersect_rays_per_ray, which is not ported yet")
+    g = views_per_batch
+    n = batch.rays_o.shape[0]
+    gv = batch.view.reshape(g, n // g)[:, 0]                   # (G,) group views
+    gprims = Primitives(
+        world_to_prim=ds.prim_w2p[gv], semantic=ds.prim_sem[gv],
+        instance=ds.prim_inst[gv], valid=ds.prim_valid[gv],
+        cut_planes=ds.prim_planes[gv] if ds.prim_planes is not None else None,
+    )
+    ro = batch.rays_o.reshape(g, n // g, 3)
+    rd = batch.rays_d.reshape(g, n // g, 3)
+    fn = intersect_groups if use_kernel else intersect_groups_plain
+    iv = fn(ro, rd, gprims, near, far, k)
+    return RayIntervals(*[x.reshape(n, *x.shape[2:]) for x in iv])
 
 
 def view_rays(ds: DeviceDataset, view: int):

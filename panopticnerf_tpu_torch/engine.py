@@ -1,10 +1,16 @@
-"""Evaluation entry point (port of the `run_evaluate` path of
-`panopticnerf_tpu/engine.py`).
+"""Training and evaluation entry points (port of `panopticnerf_tpu/engine.py`).
 
-`run_evaluate` builds the dataset on a device, restores a converted
-checkpoint, renders every evaluated view (intersection kernel, then the
-tiled render) and scores PSNR / mIoU / PQ. Training, visualisation and the
-throughput probe are not ported yet.
+`run_train` trains from `init_params` on a device: the step loop with one
+stacked readback of the step's stats every `train.log_interval` steps, and
+at the end the params as `<model_dir>/torch/<exp_name>_<step>.npz`.
+`run_evaluate` builds the dataset on a device, restores such a checkpoint,
+renders every evaluated view (intersection kernel, then the tiled render)
+and scores PSNR / mIoU / PQ.
+
+Not ported yet (ROADMAP Queue 1.4 / 1.6): resume, warm start
+(`train.init_from`), the in-training evaluation cadence and save_best, the
+SIGTERM checkpoint, the recorder, streaming, visualisation and the
+throughput probe.
 """
 
 from __future__ import annotations
@@ -17,12 +23,18 @@ import numpy as np
 import torch
 
 from panopticnerf_tpu_torch.config import Config
-from panopticnerf_tpu_torch.convert import load_npz
+from panopticnerf_tpu_torch.convert import load_npz, save_npz
 from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
 from panopticnerf_tpu_torch.eval import make_evaluator
-from panopticnerf_tpu_torch.models import make_network
+from panopticnerf_tpu_torch.models import init_params, make_network
 from panopticnerf_tpu_torch.ops.intersect import intersect_rays
 from panopticnerf_tpu_torch.render import SceneBounds, render_image_rays
+from panopticnerf_tpu_torch.train import (
+    eval_state_dict,
+    lr_at,
+    make_train_state,
+    make_train_step,
+)
 
 
 def checkpoint_path(cfg: Config) -> tuple[str, int]:
@@ -111,3 +123,52 @@ def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
     log(ev.summary_table(names))
     res.update(step=step, views=views, render_seconds=seconds)
     return res
+
+
+def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = None,
+              log=print) -> dict:
+    """Train from `init_params` (seed train.seed) for `max_steps` steps
+    (default train.epochs * train.ep_iter), then write the params (the EMA
+    when tracked) to `<model_dir>/torch/<exp_name>_<steps>.npz`.
+
+    Returns `state`, `losses` (every step's loss_total, read back once at
+    the end), `windows` ((steps, seconds) between log readbacks, host clock
+    through the readback's synchronisation), `metrics` (the last log
+    line's stats), `checkpoint` and `steps`.
+    """
+    dev = torch.device(device)
+    ds, train_ids, _ = make_dataset(cfg, dev)
+    model = make_network(cfg, dev)
+    init_params(model, torch.Generator(dev).manual_seed(cfg.train.seed))
+    state = make_train_state(cfg, model)
+    step_fn = make_train_step(cfg, model)
+    view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
+    generator = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
+    tc = cfg.train
+    total = max_steps if max_steps is not None else tc.epochs * tc.ep_iter
+
+    losses, windows, metrics = [], [], {}
+    _sync(dev)
+    t0, s0 = time.perf_counter(), 0
+    for step in range(total):
+        stats = step_fn(state, ds, view_ids, generator)
+        losses.append(stats["loss_total"])
+        if (step + 1) % tc.log_interval == 0 or step + 1 == total:
+            names = sorted(stats)
+            vals = torch.stack([stats[k].float() for k in names]).cpu().numpy()  # one readback
+            dt = time.perf_counter() - t0
+            windows.append((step + 1 - s0, dt))
+            metrics = dict(zip(names, vals.tolist()))
+            metrics["rays_per_sec"] = (step + 1 - s0) * cfg.data.n_rays / dt
+            log(f"step {step + 1}/{total}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                        zip(names, vals.tolist()))
+                + f", lr {lr_at(cfg, step):.3e}, {metrics['rays_per_sec']:.0f} rays/s, "
+                f"{1000.0 * dt / (step + 1 - s0):.2f} ms/step")
+            t0, s0 = time.perf_counter(), step + 1
+    root = os.path.join(cfg.model_dir, "torch")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"{cfg.exp_name}_{total}.npz")
+    save_npz(path, eval_state_dict(state))
+    log(f"wrote {path}")
+    return {"state": state, "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
+            "windows": windows, "metrics": metrics, "checkpoint": path, "steps": total}

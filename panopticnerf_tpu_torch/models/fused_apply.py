@@ -1,0 +1,103 @@
+"""Field apply of the training step with the fused trunk (port of
+`panopticnerf_tpu/models/pallas_apply.py`, mode "trunk").
+
+The 8x256 trunk runs through `ops.mlp_train.fused_trunk_train` (kernels
+B / B' on the card); the heads stay plain PyTorch ops rounded as the
+reference's XLA heads round them:
+- one concatenated [feature | sem_hidden | sigma] product, rounded, then
+  the bias added (both in the compute dtype);
+- `sem_out` on the ReLU of the sem_hidden slice;
+- the colour branch as feat @ Wch[:W] + d_enc @ Wch[W:] + b, each step
+  rounded in that order, then the sigmoid in float32.
+A small proposal coarse field (model.coarse_trunk_depth/width) runs its
+trunk as the plain flax chain. Modes "hybrid" and "field" need kernels C
+and C', which are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.nn import functional as F
+
+from panopticnerf_tpu_torch.config import ModelConfig
+from panopticnerf_tpu_torch.models.nerf import PanopticNeRF, _dense, coarse_field_cfg
+from panopticnerf_tpu_torch.ops.encoding import positional_encoding
+from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
+
+
+def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
+                      viewdirs: Optional[torch.Tensor], level: int = 0,
+                      mode: str = "trunk"):
+    """Same contract as `PanopticNeRF.forward` (scene-normalised pts)."""
+    if mode != "trunk":
+        raise NotImplementedError(
+            f"model.pallas_mode {mode!r} needs the fused field kernels C / C' "
+            "(ops/pallas_field_train.py), which are not ported yet; use 'trunk'")
+    net = model.fine if (level == 1 and model.has_fine) else model.coarse
+    eff = coarse_field_cfg(cfg, model.has_fine) if level == 0 else cfg
+    small_coarse = eff is not cfg
+    c = eff
+    dt = getattr(torch, c.compute_dtype)
+    shape = pts.shape[:-1]
+    x_enc = positional_encoding(pts.reshape(-1, 3), c.xyz_freqs).to(dt)
+
+    d_enc = None
+    if c.use_viewdirs and viewdirs is not None:
+        d = torch.broadcast_to(viewdirs, pts.shape).reshape(-1, 3)
+        d_enc = positional_encoding(d, c.dir_freqs).to(dt)
+
+    layers = [getattr(net, f"trunk_{i}") for i in range(c.trunk_depth)]
+    if small_coarse:
+        h = x_enc
+        for i, layer in enumerate(layers):
+            h = torch.relu(_dense(h, layer, dt))
+            if i in c.skips:
+                h = torch.cat([h, x_enc], dim=-1)
+    else:
+        # flax concatenates after layer s, so the layer consuming [h, x] is s + 1
+        kernel_skips = tuple(s + 1 for s in c.skips if s + 1 < c.trunk_depth)
+        h = fused_trunk_train(x_enc, [layer.weight.t() for layer in layers],
+                              [layer.bias for layer in layers], kernel_skips).to(dt)
+
+    heads = [net.feature] + ([net.sem_hidden] if c.use_semantic else []) + [net.sigma]
+    w_cat = torch.cat([m.weight for m in heads]).to(dt)
+    b_cat = torch.cat([m.bias for m in heads]).to(dt)
+    hw = F.linear(h, w_cat) + b_cat
+    width = c.trunk_width
+    sigma = hw[..., -1].float()
+    sem = None
+    if c.use_semantic:
+        s = torch.relu(hw[..., width:width + width // 2])
+        sem = _dense(s, net.sem_out, dt).float()
+    feat = hw[..., :width]
+    if d_enc is not None:
+        w_ch = net.color_hidden.weight.to(dt)
+        pre = (F.linear(feat, w_ch[:, :width]) + F.linear(d_enc, w_ch[:, width:])
+               + net.color_hidden.bias.to(dt))
+    else:
+        pre = _dense(feat, net.color_hidden, dt)
+    r = torch.relu(pre)
+    rgb = torch.sigmoid(_dense(r, net.color_out, dt).float())
+    sigma = sigma.reshape(shape)
+    rgb = rgb.reshape(*shape, 3)
+    if sem is not None:
+        sem = sem.reshape(*shape, c.num_classes)
+    return sigma, rgb, sem
+
+
+class FusedTrainAdapter:
+    """Drop-in for `PanopticNeRF` in `render_rays` (called as
+    `adapter(pts, viewdirs, level=...)`) that runs the fused field on the
+    model's own parameters, so gradients reach them as they would through
+    the plain model."""
+
+    def __init__(self, model: PanopticNeRF, cfg_model: ModelConfig, mode: str = "trunk"):
+        self.model = model
+        self.cfg = cfg_model
+        self.mode = mode
+
+    def __call__(self, pts, viewdirs, level: int = 0):
+        return fused_field_apply(self.model, self.cfg, pts, viewdirs, level=level,
+                                 mode=self.mode)

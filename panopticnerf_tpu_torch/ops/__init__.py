@@ -5,6 +5,8 @@ from panopticnerf_tpu_torch.ops.intersect import (
     Primitives,
     RayIntervals,
     fixed_map_from_weights,
+    intersect_groups,
+    intersect_groups_plain,
     intersect_rays,
     intersect_rays_plain,
     labeled_containment,
@@ -18,7 +20,9 @@ from panopticnerf_tpu_torch.ops.rays import (
     pixel_dirs_perspective,
     rays_from_dirs,
 )
+from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
 from panopticnerf_tpu_torch.ops.sampling import (
+    guided_split,
     guided_z,
     merge_sorted,
     merge_z,
@@ -29,7 +33,8 @@ from panopticnerf_tpu_torch.ops.sampling import (
 __all__ = [
     "BIG", "CompositeOut", "Primitives", "RayIntervals", "composite",
     "compute_weights", "fixed_map_from_weights", "full_image_uv",
-    "gen_rays_perspective", "guided_z", "intersect_rays",
+    "fused_trunk_train", "gen_rays_perspective", "guided_split", "guided_z",
+    "intersect_groups", "intersect_groups_plain", "intersect_rays",
     "intersect_rays_plain", "labeled_containment", "merge_sorted", "merge_z",
     "pixel_dirs_perspective", "posenc_dim", "positional_encoding",
     "ray_box_intervals", "rays_from_dirs", "sample_pdf",

@@ -43,27 +43,49 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{h}.so")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its keyed build exists; returns the path."""
-    so = library_path(name)
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+def _finish(name: str, so: str, tmp: str, cmd: list, proc: subprocess.Popen) -> None:
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) for {name}.cu:\n"
-                               f"{res.stdout}\n{res.stderr}")
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n{out}\n{err}")
         with open(so[:-3] + ".log", "w") as f:
-            f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            f.write(" ".join(cmd) + "\n" + out + err)
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return so
+
+
+def build_all(names) -> dict:
+    """Compile every csrc/<name>.cu whose keyed build is missing, one nvcc
+    process per source, all started together. Returns {name: path}."""
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name, so in paths.items() if not os.path.exists(so)]
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+    running = []
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+            running.append((name, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        while running:
+            name, tmp, cmd, proc = running.pop(0)
+            _finish(name, paths[name], tmp, cmd, proc)
+    finally:
+        for _, tmp, _, proc in running:  # after a failure: stop the rest
+            proc.kill()
+            proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its keyed build exists; returns the path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,12 +7,13 @@ cut planes. A ray keeps its K nearest-entry intervals, each carrying the
 primitive's (semantic, instance) ids; misses are t_in = t_out = BIG with
 label -1 and mask False.
 
-`intersect_rays` is the entry point. On a CUDA tensor it launches the
-hand-written kernel (`ops/intersect_cuda.py`, `csrc/intersect.cu`); on a CPU
-tensor it runs `intersect_rays_plain`, the kernel's plain PyTorch version,
-written in the kernel's arithmetic order (the kernel is built without FMA
-contraction), so that on the card the two agree bit for bit. Any other
-device raises.
+`intersect_rays` (one table, the evaluation path) and `intersect_groups`
+(G view groups of M rays, one table per group, the training path) are the
+entry points. On a CUDA tensor they launch the hand-written kernel
+(`ops/intersect_cuda.py`, `csrc/intersect.cu`); on a CPU tensor they run
+the plain PyTorch versions, written in the kernel's arithmetic order (the
+kernel is built without FMA contraction), so that on the card the two agree
+bit for bit. Any other device raises.
 """
 
 from __future__ import annotations
@@ -160,6 +161,33 @@ def intersect_rays(rays_o, rays_d, prims: Primitives, near: float, far: float,
     if rays_o.device.type == "cpu":
         return intersect_rays_plain(rays_o, rays_d, prims, near, far, k)
     raise ValueError(f"intersect_rays: no implementation for device {rays_o.device}")
+
+
+def intersect_groups_plain(rays_o, rays_d, prims: Primitives, near: float,
+                           far: float, k: int) -> RayIntervals:
+    """Plain version of the grouped kernel: `intersect_rays_plain` per group.
+    rays (G, M, 3); `prims` fields carry a leading G. -> RayIntervals (G, M, K)."""
+    outs = []
+    for g in range(rays_o.shape[0]):
+        prims_g = Primitives(*[None if a is None else a[g] for a in prims])
+        outs.append(intersect_rays_plain(rays_o[g], rays_d[g], prims_g, near, far, k))
+    return RayIntervals(*[torch.stack(x) for x in zip(*outs)])
+
+
+def intersect_groups(rays_o, rays_d, prims: Primitives, near: float, far: float,
+                     k: int) -> RayIntervals:
+    """(G, M, 3) rays x G primitive tables -> RayIntervals (G, M, K).
+
+    CUDA tensors launch the grouped kernel (a failure raises; nothing falls
+    back), CPU tensors run the plain version.
+    """
+    if rays_o.device.type == "cuda":
+        from panopticnerf_tpu_torch.ops.intersect_cuda import intersect_groups_cuda
+
+        return intersect_groups_cuda(rays_o, rays_d, prims, near, far, k)
+    if rays_o.device.type == "cpu":
+        return intersect_groups_plain(rays_o, rays_d, prims, near, far, k)
+    raise ValueError(f"intersect_groups: no implementation for device {rays_o.device}")
 
 
 def samples_in_intervals(z: torch.Tensor, iv: RayIntervals) -> torch.Tensor:

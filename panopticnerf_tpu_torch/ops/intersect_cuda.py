@@ -1,11 +1,15 @@
 """Wrapper of the CUDA intersection kernel (`csrc/intersect.cu`).
 
-Replaces the TPU kernel `intersect_rays_pallas` of
-`panopticnerf_tpu/ops/pallas_intersect.py`; same contract as
-`ops.intersect.intersect_rays_plain`, its plain version. The library is
-built with nvcc on first use (`ops/_nvcc.py`) and bound through ctypes; the
-kernel launches on PyTorch's current stream and does not synchronise.
-`intersect_rays_cuda.launches` counts the launches.
+Two wrappers over the one kernel, each replacing a TPU kernel of
+`panopticnerf_tpu/ops/pallas_intersect.py`:
+- `intersect_rays_cuda` (A1, `intersect_rays_pallas`): one table, G = 1;
+  plain version `ops.intersect.intersect_rays_plain`;
+- `intersect_groups_cuda` (A2, `intersect_groups_pallas`): G view groups,
+  one table each (the kernel reads its group's table by `blockIdx.y`);
+  plain version `ops.intersect.intersect_groups_plain`.
+The library is built with nvcc on first use (`ops/_nvcc.py`) and bound
+through ctypes; the kernel launches on PyTorch's current stream and does
+not synchronise. Each wrapper's `.launches` counts its own launches.
 """
 
 from __future__ import annotations
@@ -47,36 +51,35 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def intersect_rays_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
-                        prims: Primitives, near: float, far: float,
-                        k: int) -> RayIntervals:
-    """(N, 3) CUDA rays x one primitive table -> RayIntervals (N, K)."""
+def _launch(rays_o: torch.Tensor, rays_d: torch.Tensor, prims: Primitives,
+            near: float, far: float, k: int) -> RayIntervals:
+    """rays (G, M, 3), tables with a leading G -> RayIntervals (G, M, K)."""
     dev = rays_o.device
     if dev.type != "cuda":
-        raise ValueError(f"intersect_rays_cuda needs CUDA tensors, got {dev}")
-    n = rays_o.shape[0]
-    p = prims.world_to_prim.shape[0]
-    f = 0 if prims.cut_planes is None else prims.cut_planes.shape[1]
+        raise ValueError(f"the intersection kernel needs CUDA tensors, got {dev}")
+    g, m = rays_o.shape[:2]
+    p = prims.world_to_prim.shape[1]
+    f = 0 if prims.cut_planes is None else prims.cut_planes.shape[2]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     smem = p * (12 + 4 * f) * 4 + 3 * p * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"primitive table of P={p}, F={f} needs {smem} bytes "
                          f"of shared memory (> {SMEM_LIMIT})")
-    _check("rays_o", rays_o, torch.float32, (n, 3), dev)
-    _check("rays_d", rays_d, torch.float32, (n, 3), dev)
-    _check("world_to_prim", prims.world_to_prim, torch.float32, (p, 3, 4), dev)
-    _check("semantic", prims.semantic, torch.int32, (p,), dev)
-    _check("instance", prims.instance, torch.int32, (p,), dev)
-    _check("valid", prims.valid, torch.bool, (p,), dev)
+    _check("rays_o", rays_o, torch.float32, (g, m, 3), dev)
+    _check("rays_d", rays_d, torch.float32, (g, m, 3), dev)
+    _check("world_to_prim", prims.world_to_prim, torch.float32, (g, p, 3, 4), dev)
+    _check("semantic", prims.semantic, torch.int32, (g, p), dev)
+    _check("instance", prims.instance, torch.int32, (g, p), dev)
+    _check("valid", prims.valid, torch.bool, (g, p), dev)
     if f:
-        _check("cut_planes", prims.cut_planes, torch.float32, (p, f, 4), dev)
+        _check("cut_planes", prims.cut_planes, torch.float32, (g, p, f, 4), dev)
 
-    t_in = torch.empty((n, k), dtype=torch.float32, device=dev)
-    t_out = torch.empty((n, k), dtype=torch.float32, device=dev)
-    sem = torch.empty((n, k), dtype=torch.int32, device=dev)
-    inst = torch.empty((n, k), dtype=torch.int32, device=dev)
-    mask = torch.empty((n, k), dtype=torch.bool, device=dev)
+    t_in = torch.empty((g, m, k), dtype=torch.float32, device=dev)
+    t_out = torch.empty((g, m, k), dtype=torch.float32, device=dev)
+    sem = torch.empty((g, m, k), dtype=torch.int32, device=dev)
+    inst = torch.empty((g, m, k), dtype=torch.int32, device=dev)
+    mask = torch.empty((g, m, k), dtype=torch.bool, device=dev)
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -84,13 +87,38 @@ def intersect_rays_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
             rays_o.data_ptr(), rays_d.data_ptr(), prims.world_to_prim.data_ptr(),
             prims.semantic.data_ptr(), prims.instance.data_ptr(),
             prims.valid.data_ptr(), prims.cut_planes.data_ptr() if f else None,
-            1, n, p, f, k, float(near), float(far),
+            g, m, p, f, k, float(near), float(far),
             t_in.data_ptr(), t_out.data_ptr(), sem.data_ptr(), inst.data_ptr(),
             mask.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error {err}")
-    intersect_rays_cuda.launches += 1
     return RayIntervals(t_in=t_in, t_out=t_out, semantic=sem, instance=inst, mask=mask)
 
 
+def intersect_rays_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                        prims: Primitives, near: float, far: float,
+                        k: int) -> RayIntervals:
+    """(N, 3) CUDA rays x one primitive table -> RayIntervals (N, K)
+    (kernel A1: replaces `intersect_rays_pallas`)."""
+    if rays_o.dim() != 2:
+        raise ValueError(f"rays_o must be (N, 3), got {tuple(rays_o.shape)}")
+    one = Primitives(*[None if a is None else a[None] for a in prims])
+    out = _launch(rays_o[None], rays_d[None], one, near, far, k)
+    intersect_rays_cuda.launches += 1
+    return RayIntervals(*[x[0] for x in out])
+
+
+def intersect_groups_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                          prims: Primitives, near: float, far: float,
+                          k: int) -> RayIntervals:
+    """(G, M, 3) CUDA rays x G primitive tables (grid.y = G) ->
+    RayIntervals (G, M, K) (kernel A2: replaces `intersect_groups_pallas`)."""
+    if rays_o.dim() != 3:
+        raise ValueError(f"rays_o must be (G, M, 3), got {tuple(rays_o.shape)}")
+    out = _launch(rays_o, rays_d, prims, near, far, k)
+    intersect_groups_cuda.launches += 1
+    return out
+
+
 intersect_rays_cuda.launches = 0
+intersect_groups_cuda.launches = 0

@@ -6,8 +6,10 @@ tie rules are the reference's:
 - `merge_sorted` is a stable merge that puts `a` ahead of equal `b`;
 - interval / bin selection counts `u >= cdf` (searchsorted right).
 
-Random draws come from an explicit `torch.Generator` (only with
-`perturb`); the evaluation path is deterministic and draws nothing.
+Random draws (only with `perturb`) come from an explicit `torch.Generator`,
+or are handed in pre-drawn (`u`, `u_in` / `u_bg`): the parity tests feed
+both packages the same uniforms, since a `torch.Generator` cannot give
+`jax.random`'s bits. The evaluation path is deterministic and draws nothing.
 """
 
 from __future__ import annotations
@@ -25,16 +27,25 @@ def _linspace01(num: int, device) -> torch.Tensor:
     return torch.arange(num, dtype=torch.float32, device=device) / (num - 1)
 
 
-def _uniform(n: int, s: int, generator: Optional[torch.Generator], device):
+def _uniform(n: int, s: int, generator: Optional[torch.Generator], device,
+             u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(n, s) uniforms in [0, 1): the pre-drawn `u` when given (checked for
+    shape), else a fresh draw from `generator`."""
+    if u is not None:
+        if tuple(u.shape) != (n, s):
+            raise ValueError(f"pre-drawn uniforms have shape {tuple(u.shape)}, expected {(n, s)}")
+        return u
     return torch.rand((n, s), generator=generator, device=device)
 
 
 def stratified_z(n_rays: int, n_samples: int, near, far, perturb: bool,
-                 device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Uniform stratified depths in [near, far]. near/far: scalar or (N, 1)."""
+                 device, generator: Optional[torch.Generator] = None,
+                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Uniform stratified depths in [near, far]. near/far: scalar or (N, 1).
+    With `perturb`, `u` (N, S) are pre-drawn jitter uniforms."""
     t = _linspace01(n_samples + 1, device)[:-1]                # (S,) bin starts
     if perturb:
-        u = _uniform(n_rays, n_samples, generator, device)
+        u = _uniform(n_rays, n_samples, generator, device, u)
     else:
         u = torch.full((n_rays, n_samples), 0.5, device=device)
     frac = t[None, :] + u / n_samples                          # (N, S) in [0, 1)
@@ -59,19 +70,31 @@ def _union_segments(iv: RayIntervals):
     return seg_in, seg_len
 
 
+def guided_split(n_samples: int, bg_frac: float) -> tuple[int, int]:
+    """(in-interval, background) sample counts of `guided_z`."""
+    s_bg = max(int(round(n_samples * bg_frac)), 1) if bg_frac > 0 else 0
+    return n_samples - s_bg, s_bg
+
+
 def guided_z(iv: RayIntervals, n_samples: int, near: float, far: float,
              perturb: bool, bg_frac: float = 0.25,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             u_in: Optional[torch.Tensor] = None,
+             u_bg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stratified samples inside the union of a ray's intervals (+ background).
 
     ceil((1-bg_frac)*S) samples go over the union arc length by inverse CDF;
     the rest are stratified over [near, far]. Rays that hit nothing fall
     back to full-range stratified samples. Output (N, S), sorted.
+
+    With `perturb`, ONE (N, S_in) uniform draw (`u_in`, or drawn from
+    `generator`) is both the in-interval jitter and the no-hit fallback's
+    jitter, as in the reference (one key there); `u_bg` (N, S_bg) jitters
+    the background samples.
     """
     n = iv.t_in.shape[0]
     dev = iv.t_in.device
-    s_bg = max(int(round(n_samples * bg_frac)), 1) if bg_frac > 0 else 0
-    s_in = n_samples - s_bg
+    s_in, s_bg = guided_split(n_samples, bg_frac)
 
     seg_in, seg_len = _union_segments(iv)                      # (N, K)
     cdf = torch.cumsum(seg_len, dim=-1)
@@ -80,7 +103,8 @@ def guided_z(iv: RayIntervals, n_samples: int, near: float, far: float,
 
     base = _linspace01(s_in + 1, dev)[:-1][None, :]            # (1, S_in)
     if perturb:
-        jitter = _uniform(n, s_in, generator, dev) / s_in
+        u_in = _uniform(n, s_in, generator, dev, u_in)
+        jitter = u_in / s_in
     else:
         jitter = 0.5 / s_in
     u = (base + jitter) * total                                # (N, S_in)
@@ -91,19 +115,21 @@ def guided_z(iv: RayIntervals, n_samples: int, near: float, far: float,
     cdf_prev = torch.cat([torch.zeros_like(cdf[:, :1]), cdf[:, :-1]], dim=-1)
     z_in = torch.gather(seg_in, 1, idx) + (u - torch.gather(cdf_prev, 1, idx))
 
-    z_fallback = stratified_z(n, s_in, near, far, perturb, dev, generator)
+    z_fallback = stratified_z(n, s_in, near, far, perturb, dev, u=u_in)
     z_in = torch.where(any_hit[:, None], z_in, z_fallback)
     if s_bg > 0:
-        z_bg = stratified_z(n, s_bg, near, far, perturb, dev, generator)
+        z_bg = stratified_z(n, s_bg, near, far, perturb, dev, generator, u=u_bg)
         return merge_sorted(z_in, z_bg)
     return z_in
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_importance: int,
-               perturb: bool, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               perturb: bool, generator: Optional[torch.Generator] = None,
+               u_fine: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Hierarchical fine sampling: inverse CDF over coarse weights.
 
     bins (N, B+1) depth bin edges; weights (N, B) unnormalised mass per bin.
+    With `perturb`, `u_fine` (N, n_importance) are pre-drawn jitter uniforms.
     Returns (N, n_importance) depths, monotone in u.
     """
     n, b = weights.shape
@@ -115,7 +141,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_importance: int,
 
     if perturb:
         base = _linspace01(n_importance + 1, dev)[:-1]
-        u = base[None] + _uniform(n, n_importance, generator, dev) / n_importance
+        u = base[None] + _uniform(n, n_importance, generator, dev, u_fine) / n_importance
     else:
         u = _linspace01(n_importance + 2, dev)[1:-1]
         u = u[None].expand(n, n_importance).contiguous()

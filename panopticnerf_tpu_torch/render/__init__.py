@@ -1,4 +1,5 @@
 from panopticnerf_tpu_torch.render.renderer import (
+    RenderDraws,
     RenderOut,
     SceneBounds,
     eval_render_cfg,
@@ -6,5 +7,5 @@ from panopticnerf_tpu_torch.render.renderer import (
     render_rays,
 )
 
-__all__ = ["RenderOut", "SceneBounds", "eval_render_cfg", "render_image_rays",
+__all__ = ["RenderDraws", "RenderOut", "SceneBounds", "eval_render_cfg", "render_image_rays",
            "render_rays"]

@@ -2,10 +2,14 @@
 
 `render_rays` renders a ray batch: guided (or stratified) coarse depths ->
 coarse field -> compositing -> inverse-CDF fine depths -> fine field ->
-compositing, with the fixed semantic field composited K-factored. Only the
-evaluation branch (`train=False`: no jitter, no density noise) is ported so
-far. `render_image_rays` renders a whole view as a loop over tiles of
-`render.ray_tile` rays.
+compositing, with the fixed semantic field composited K-factored. The
+training branch (`train=True`) adds the stratified jitter (`render.perturb`)
+and the density noise (`render.raw_noise_std`), keeps the coarse RenderOut
+and the per-sample extras for the losses, and stops the gradient through
+the coarse weights that place the fine samples. Its random numbers come
+from a `torch.Generator` or, for replaying a reference's draws, from a
+`RenderDraws`. `render_image_rays` renders a whole view as a loop over
+tiles of `render.ray_tile` rays.
 """
 
 from __future__ import annotations
@@ -37,6 +41,23 @@ class SceneBounds(NamedTuple):
     scale: torch.Tensor   # () world-to-unit multiplier
 
 
+class RenderDraws(NamedTuple):
+    """Pre-drawn random numbers of one training render (N rays).
+
+    `coarse`: (N, S_in) uniforms of the guided coarse depths, the jitter and
+    the no-hit fallback alike (or (N, S) of the stratified depths without
+    primitives); `bg`: (N, S_bg) background jitter; `fine`: (N, n_importance)
+    inverse-CDF jitter; `noise_coarse` / `noise_fine`: standard normals
+    shaped like each level's sigma (only with render.raw_noise_std > 0).
+    """
+
+    coarse: Optional[torch.Tensor] = None
+    bg: Optional[torch.Tensor] = None
+    fine: Optional[torch.Tensor] = None
+    noise_coarse: Optional[torch.Tensor] = None
+    noise_fine: Optional[torch.Tensor] = None
+
+
 class RenderOut(NamedTuple):
     rgb: torch.Tensor                     # (N, 3)
     depth: torch.Tensor                   # (N,)
@@ -56,10 +77,17 @@ class RenderOut(NamedTuple):
 
 
 def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
-                     iv: Optional[RayIntervals], num_classes: int, white_bkgd: bool):
+                     iv: Optional[RayIntervals], num_classes: int, white_bkgd: bool,
+                     noise_std: float = 0.0, noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]     # (N, S, 3)
     pts = (pts - bounds.center) * bounds.scale
     sigma, rgb, sem = model(pts, rays_d[:, None, :], level=level)
+    if noise_std > 0:
+        # classic NeRF density-noise regulariser (reference raw_noise_std)
+        if noise is None:
+            noise = torch.randn(sigma.shape, generator=generator, device=sigma.device)
+        sigma = sigma + noise_std * noise
 
     inside_iv = inside_lab = cnt = None
     if iv is not None:
@@ -74,21 +102,31 @@ def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
 
 
 def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
-                iv: Optional[RayIntervals] = None, train: bool = True) -> RenderOut:
-    """Render a batch of rays (N, 3) with the intervals `iv` (N, K)."""
-    if train:
-        raise NotImplementedError("the training branch of render_rays is not ported yet")
+                iv: Optional[RayIntervals] = None, train: bool = True,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RenderDraws] = None) -> RenderOut:
+    """Render a batch of rays (N, 3) with the intervals `iv` (N, K).
+
+    `model` is called as model(pts, viewdirs, level=...). With `train`, the
+    random numbers come from `draws` where given, else from `generator`.
+    """
     rc = cfg.render
     n = rays_o.shape[0]
     dev = rays_o.device
     num_classes = cfg.model.num_classes
+    perturb = rc.perturb and train
+    noise_std = rc.raw_noise_std if train else 0.0
+    dr = draws if draws is not None else RenderDraws()
 
     if iv is not None and rc.use_primitives:
-        z = sampling.guided_z(iv, rc.n_samples, rc.near, rc.far, False, rc.bg_sample_frac)
+        z = sampling.guided_z(iv, rc.n_samples, rc.near, rc.far, perturb, rc.bg_sample_frac,
+                              generator=generator, u_in=dr.coarse, u_bg=dr.bg)
     else:
-        z = sampling.stratified_z(n, rc.n_samples, rc.near, rc.far, False, dev)
+        z = sampling.stratified_z(n, rc.n_samples, rc.near, rc.far, perturb, dev,
+                                  generator=generator, u=dr.coarse)
     out_c, sem_c, lab_c, cnt_c = _composite_level(
-        model, rays_o, rays_d, z, bounds, 0, iv, num_classes, rc.white_bkgd)
+        model, rays_o, rays_d, z, bounds, 0, iv, num_classes, rc.white_bkgd,
+        noise_std, dr.noise_coarse, generator)
 
     def pack(out, sem_samples, inside_k, cnt, z_used, coarse=None):
         return RenderOut(
@@ -108,13 +146,15 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     # --- hierarchical fine pass: bins are the coarse midpoints, masses the
     # interior coarse weights ---
     z_mid = 0.5 * (z[:, 1:] + z[:, :-1])                        # (N, S-1)
-    w_interior = out_c.weights[:, 1:-1]                         # (N, S-2)
-    z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, False)
+    w_interior = out_c.weights[:, 1:-1].detach()                # (N, S-2), no gradient
+    z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, perturb,
+                                 generator=generator, u_fine=dr.fine)
     z_all = sampling.merge_z(z, z_fine)
-    if 0 < rc.eval_keep_samples < z_all.shape[1]:
+    if not train and 0 < rc.eval_keep_samples < z_all.shape[1]:
         raise NotImplementedError("render.eval_keep_samples is not ported yet")
     out_f, sem_f, lab_f, cnt_f = _composite_level(
-        model, rays_o, rays_d, z_all, bounds, 1, iv, num_classes, rc.white_bkgd)
+        model, rays_o, rays_d, z_all, bounds, 1, iv, num_classes, rc.white_bkgd,
+        noise_std, dr.noise_fine, generator)
     coarse = pack(out_c, sem_c, lab_c, cnt_c, z)
     return pack(out_f, sem_f, lab_f, cnt_f, z_all, coarse=coarse)
 

@@ -1,0 +1,194 @@
+"""Training step, optimizer and schedules (port of `panopticnerf_tpu/train/step.py`).
+
+`make_train_step(cfg, model)` returns `step(state, ds, view_ids, generator,
+draws=None) -> stats`: grouped ray batch -> intervals (kernel A2 on the
+card) -> training render (kernels B / B' for both 8x256 trunks when
+`model.use_pallas`) -> losses -> backward -> Adam, in place on `state`.
+The optimizer follows optax's definitions, which the reference uses:
+- `exponential_decay`, not staircased: the update at count t uses
+  lr * rate ** (t / max_steps);
+- Adam with b1 0.9, b2 0.999, eps 1e-8 (eps_root 0), or AdamW when
+  train.weight_decay > 0;
+- `clip_by_global_norm` when train.grad_clip > 0;
+- an EMA of the params with warmup min(decay, (1 + t) / (10 + t)).
+Stats are 0-dim device tensors; the step never reads them back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from panopticnerf_tpu_torch.config import Config
+from panopticnerf_tpu_torch.data.dataset import (
+    BatchDraws,
+    DeviceDataset,
+    batch_intervals,
+    sample_ray_batch,
+)
+from panopticnerf_tpu_torch.models.nerf import PanopticNeRF
+from panopticnerf_tpu_torch.render.renderer import RenderDraws, SceneBounds, render_rays
+from panopticnerf_tpu_torch.train.loss import compute_losses
+
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its float32 parameters are the params), the optimizer,
+    the number of updates taken, and the EMA of the params (None when
+    train.ema_decay is 0)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    ema: Optional[dict] = None
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """Every random number of one step, for replaying a reference's draws."""
+
+    batch: BatchDraws
+    render: RenderDraws
+
+
+def lr_at(cfg: Config, count: int) -> float:
+    """optax.exponential_decay(lr, max_steps, rate) at `count`."""
+    tc = cfg.train
+    rate = tc.lr_decay_rate if tc.lr_decay_rate > 0 else 1.0
+    return tc.lr * rate ** (count / max(tc.max_steps, 1))
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    tc = cfg.train
+    if tc.weight_decay > 0:
+        return torch.optim.AdamW(params, lr=lr_at(cfg, 0), betas=ADAM_BETAS, eps=ADAM_EPS,
+                                 weight_decay=tc.weight_decay, foreach=True)
+    return torch.optim.Adam(params, lr=lr_at(cfg, 0), betas=ADAM_BETAS, eps=ADAM_EPS,
+                            foreach=True)
+
+
+def make_train_state(cfg: Config, model: torch.nn.Module) -> TrainState:
+    ema = None
+    if cfg.train.ema_decay > 0:
+        ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()), ema=ema)
+
+
+@torch.no_grad()
+def ema_update(state: TrainState, decay: float) -> None:
+    """One warmup-corrected EMA step (t = the post-update step count)."""
+    if state.ema is None:
+        return
+    t = float(state.step)
+    d = min(decay, (1.0 + t) / (10.0 + t))
+    for k, p in state.model.state_dict().items():
+        state.ema[k].mul_(d).add_(p, alpha=1.0 - d)
+
+
+def eval_state_dict(state: TrainState) -> dict:
+    """Weights every evaluation renders with (the EMA when tracked)."""
+    return state.model.state_dict() if state.ema is None else state.ema
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float, g_norm: torch.Tensor) -> None:
+    """optax.clip_by_global_norm, in place: g / |g| * max_norm where
+    |g| >= max_norm."""
+    scale = torch.where(g_norm < max_norm, torch.ones_like(g_norm), max_norm / g_norm)
+    torch._foreach_mul_(grads, scale)
+
+
+def weight_th_schedule(cfg: Config, step: int) -> float:
+    """Pseudo-filter threshold at `step`: linear anneal from loss.weight_th
+    to loss.weight_th_final over [weight_th_anneal_start * max_steps,
+    max_steps] (the static loss.weight_th when weight_th_final < 0)."""
+    lc = cfg.loss
+    if lc.weight_th_final < 0:
+        return lc.weight_th
+    a0 = int(lc.weight_th_anneal_start * cfg.train.max_steps)
+    frac = float(np.clip((step - a0) / max(cfg.train.max_steps - a0, 1), 0.0, 1.0))
+    return lc.weight_th + frac * (lc.weight_th_final - lc.weight_th)
+
+
+def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
+    """The update of the step from the params' .grad: global norm, clip,
+    lr(t), Adam / AdamW, step count, EMA. Returns the unclipped global norm."""
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    grads = [p.grad for p in params if p.grad is not None]
+    g_norm = global_norm(grads)
+    if cfg.train.grad_clip > 0:
+        clip_by_global_norm(grads, cfg.train.grad_clip, g_norm)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr_at(cfg, state.step)
+    state.optimizer.step()
+    state.step += 1
+    ema_update(state, cfg.train.ema_decay)
+    return g_norm
+
+
+def resolve_train_model(cfg: Config, model: PanopticNeRF):
+    """The field the step renders with: the fused-trunk adapter when
+    model.use_pallas (kernels B / B' on the card), else the model itself
+    (the flax-placement plain field)."""
+    if cfg.model.use_pallas:
+        from panopticnerf_tpu_torch.models.fused_apply import FusedTrainAdapter
+
+        return FusedTrainAdapter(model, cfg.model, mode=cfg.model.pallas_mode)
+    return model
+
+
+def make_train_step(cfg: Config, model: PanopticNeRF):
+    """-> step(state, ds, view_ids, generator, draws=None) -> stats dict.
+
+    `view_ids` (T,) is the pool of training views; `generator` (on the
+    dataset's device) draws the batch and the render's jitter unless
+    `draws` (a StepDraws) supplies them.
+    """
+    field = resolve_train_model(cfg, model)
+    g = cfg.data.views_per_batch
+    if g <= 0:
+        raise NotImplementedError(
+            "data.views_per_batch 0 needs the per-ray intersection, not ported yet")
+    if cfg.data.n_rays % g:
+        raise ValueError(f"data.n_rays={cfg.data.n_rays} must be divisible by "
+                         f"data.views_per_batch={g}")
+    sem_gate = cfg.train.pretrain == "nerf"
+    agree_start_step = int(cfg.loss.agree_start * cfg.train.max_steps)
+
+    def step(state: TrainState, ds: DeviceDataset, view_ids: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[StepDraws] = None) -> dict:
+        t = state.step
+        batch = sample_ray_batch(ds, view_ids, cfg.data.n_rays, g, generator,
+                                 draws.batch if draws is not None else None)
+        iv = None
+        if cfg.render.use_primitives:
+            iv = batch_intervals(ds, batch, cfg.render.near, cfg.render.far,
+                                 cfg.data.max_intervals, g,
+                                 use_kernel=cfg.render.use_pallas_intersect)
+        sem_scale = 0.0 if sem_gate and t < cfg.train.pretrain_steps else 1.0
+        agree_on = 1.0 if cfg.loss.agree_filter and t >= agree_start_step else 0.0
+        out = render_rays(field, batch.rays_o, batch.rays_d,
+                          SceneBounds(ds.bounds_center, ds.bounds_scale), cfg, iv=iv,
+                          train=True, generator=generator,
+                          draws=draws.render if draws is not None else None)
+        loss, stats = compute_losses(out, batch, cfg, sem_scale=sem_scale,
+                                     agree_on=agree_on, weight_th=weight_th_schedule(cfg, t))
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        g_norm = apply_gradients(state, cfg)
+        stats = {k: v.detach() for k, v in stats.items()}
+        stats["grad_norm"] = g_norm.detach()
+        return stats
+
+    return step

@@ -130,3 +130,124 @@ def test_tiny_render_cuda_matches_cpu(cuda_device):
             else:
                 assert torch.equal(b.cpu(), a), name
     assert intersect_rays_cuda.launches == before + 2
+
+
+def test_grouped_intersect_kernel_matches_plain(cuda_device):
+    """Kernel A2 (the grouped wrapper, grid.y = G) against the per-group
+    plain version: bit-equal, as for A1; its own launch counter."""
+    from panopticnerf_tpu_torch.ops.intersect import intersect_groups, intersect_groups_plain
+    from panopticnerf_tpu_torch.ops.intersect_cuda import intersect_groups_cuda
+
+    rng = np.random.default_rng(11)
+    scenes, rays = [], []
+    for _ in range(4):
+        scene, centers = random_boxes(rng, 12, 4, 2)
+        scenes.append(scene)
+        rays.append(random_rays(rng, 300, centers, n_zero=4))
+    stack = lambda i: np.stack([s[i] for s in scenes])
+    prims = _to(cuda_device, *(stack(i) for i in range(5)))
+    ro = torch.from_numpy(np.stack([r[0] for r in rays])).to(cuda_device)
+    rd = torch.from_numpy(np.stack([r[1] for r in rays])).to(cuda_device)
+    before = intersect_groups_cuda.launches
+    out = intersect_groups(ro, rd, prims, 0.5, 40.0, 8)
+    ref = intersect_groups_plain(ro, rd, prims, 0.5, 40.0, 8)
+    torch.cuda.synchronize()
+    assert intersect_groups_cuda.launches == before + 1
+    assert out.t_in.shape == (4, 300, 8)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        intersect_groups_cuda(ro[0], rd[0], prims, 0.5, 40.0, 8)
+
+
+def _trunk_case(device, n, width, layers, skips, seed):
+    from panopticnerf_tpu_torch.ops.mlp_train import F_PAD, pack_trunk
+
+    rng = np.random.default_rng(seed)
+    f = 63
+    ws = [torch.from_numpy(rng.normal(size=((f if i == 0 else width + (f if i in skips else 0)),
+                                             width)).astype(np.float32) * np.sqrt(2.0 / width))
+          for i in range(layers)]
+    bs = [torch.from_numpy(rng.normal(size=(width,)).astype(np.float32) * 0.1)
+          for _ in range(layers)]
+    wp, bp = pack_trunk([w.to(device) for w in ws], [b.to(device) for b in bs], skips,
+                        torch.bfloat16)
+    x = np.zeros((n, F_PAD), np.float32)
+    x[:, :f] = rng.uniform(-1, 1, (n, f))
+    xp = torch.from_numpy(x).to(device, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(device)
+    return xp, wp, bp, g
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("n,width,layers,skips", [
+    (1, 256, 8, (5,)), (100, 256, 8, (5,)), (333, 256, 8, ()), (1000, 64, 3, (2,)),
+    (4096, 128, 4, (1, 3)), (20000, 256, 8, (5,))])
+def test_trunk_kernels_match_plain(cuda_device, n, width, layers, skips):
+    """Kernels B and B' against their plain versions on the same packed
+    inputs. The card sums in another order, so bf16 roundings flip in a
+    few places: relative Frobenius error <= 5e-3 for each output."""
+    from panopticnerf_tpu_torch.ops.mlp_train import trunk_backward_plain, trunk_forward_plain
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xp, wp, bp, g = _trunk_case(cuda_device, n, width, layers, skips, n + width)
+    acts = trunk_forward_cuda(xp, wp, bp, skips)
+    acts_ref = trunk_forward_plain(xp, wp, bp, skips)
+    torch.cuda.synchronize()
+    assert _rel(acts, acts_ref) <= 5e-3
+    got = trunk_backward_cuda(xp, acts, g, wp, skips)
+    ref = trunk_backward_plain(xp, acts, g, wp, skips)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dW", "db"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= 5e-3, (name, _rel(a, b))
+
+
+def test_trunk_function_counts_launches(cuda_device):
+    """fused_trunk_train on CUDA tensors goes through B and B' once each."""
+    from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+
+    rng = np.random.default_rng(2)
+    ws = [torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1).to(cuda_device)
+          .requires_grad_() for s in [(63, 64), (64, 64), (127, 64)]]
+    bs = [torch.zeros(64, device=cuda_device, requires_grad=True) for _ in range(3)]
+    x = torch.from_numpy(rng.uniform(-1, 1, (500, 63)).astype(np.float32)).to(cuda_device)
+    f0, b0 = trunk_forward_cuda.launches, trunk_backward_cuda.launches
+    out = fused_trunk_train(x.to(torch.bfloat16), ws, bs, (2,))
+    out.sum().backward()
+    assert (trunk_forward_cuda.launches, trunk_backward_cuda.launches) == (f0 + 1, b0 + 1)
+    assert out.dtype == torch.float32 and out.shape == (500, 64)
+    assert all(w.grad is not None and w.grad.dtype == torch.float32 for w in ws)
+    with pytest.raises(TypeError):  # the kernels take bf16 only
+        fused_trunk_train(x, ws, bs, (2,))
+
+
+def test_trunk_wrappers_reject_bad_inputs(cuda_device):
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+
+    xp, wp, bp, g = _trunk_case(cuda_device, 64, 64, 3, (2,), 0)
+    with pytest.raises(ValueError):
+        trunk_forward_cuda(xp.cpu(), wp, bp, (2,))
+    with pytest.raises(TypeError):
+        trunk_forward_cuda(xp.float(), wp, bp, (2,))
+    with pytest.raises(ValueError):  # layer 0 cannot be a skip layer
+        trunk_forward_cuda(xp, wp, bp, (0,))
+    with pytest.raises(ValueError):
+        trunk_forward_cuda(xp[:, :32].contiguous(), wp, bp, (2,))
+    with pytest.raises(ValueError):
+        trunk_forward_cuda(xp.t().contiguous().t(), wp, bp, (2,))
+    _, wp96, bp96, _ = _trunk_case(cuda_device, 64, 96, 2, (), 0)
+    with pytest.raises(ValueError):  # width the kernels do not take
+        trunk_forward_cuda(xp, wp96, bp96, ())
+    acts = trunk_forward_cuda(xp, wp, bp, (2,))
+    with pytest.raises(TypeError):
+        trunk_backward_cuda(xp, acts, g.to(torch.bfloat16), wp, (2,))
+    with pytest.raises(ValueError):
+        trunk_backward_cuda(xp, acts[:2], g, wp, (2,))
