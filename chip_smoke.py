@@ -2,16 +2,17 @@
 """GPU smoke test of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version, runs the port's evaluation of the
 committed flagship checkpoint against the JAX package's recorded scores,
-replays one recorded JAX training step, and trains the flagship for 200
-steps through the kernels.
+replays one recorded JAX training step in each field mode, and trains the
+flagship through the kernels in each mode.
 
     python3 chip_smoke.py          # from the repo root, on a machine with one NVIDIA GPU
 
 Phases (any failure raises; the exit code is then non-zero and no result
 line is printed):
   1. card, power limit, torch / CUDA / nvcc versions;
-  2. build of csrc/intersect.cu and csrc/mlp_train.cu, one nvcc each, run
-     together (timed; ptxas registers / shared memory / spills);
+  2. build of csrc/intersect.cu, csrc/mlp_train.cu and csrc/field_train.cu,
+     one nvcc each, run together (timed; ptxas registers / shared memory /
+     spills);
   3. kernel vs plain version on every synthetic_flagship view
      (N = 33,088 rays, P = 32, K = 16, F = 0) and on a cut-plane case
      (F = 8 seeded half-spaces through each box centre): share of
@@ -30,14 +31,27 @@ line is printed):
      coarse and fine trunk weights, on the encodings of real sample points
      of a training batch: max abs and relative Frobenius error of out, dW,
      db, dx; kernel and plain times;
-  8. one full-width training step from the checkpoint with the JAX step's
-     recorded draws (artifacts/torch/synthetic_flagship_10000_jax_step.*):
-     loss terms, grad_norm, per-leaf gradient cosines, first-update signs;
-  9. the training main path: `engine.run_train` for 200 steps from
-     `init_params` (seeded) into a temporary model_dir: ms/step, rays/s,
-     peak memory, falling finite loss, launch counts A2 = steps and
-     B = B' = 2 x steps; then `run_evaluate` on the checkpoint it wrote.
-The last two lines are the kernels' JSON and `{"ok": true, "device": ...}`.
+  8. kernels C / C' (whole field forward / backward) vs their plain
+     versions at the same point counts, weights and encodings: sigma, rgb
+     logits, sem, every saved activation, every packed dW / db block, dx
+     and dd, with dW in bf16 (mode field) and in float32 (mode hybrid),
+     each against its own ceiling; C' with its recompute (as mode hybrid
+     runs it) against plain C' on the plain forward's activations, and bit
+     for bit against C' on C's; kernel and plain times;
+  9. one full-width training step from the checkpoint with the JAX step's
+     recorded draws (artifacts/torch/synthetic_flagship_10000_jax_step.*),
+     in model.pallas_mode trunk, field and hybrid, each against the JAX
+     record of its mode: loss terms, grad_norm, per-leaf gradient cosines,
+     first-update signs;
+ 10. the training main path in each mode: `engine.run_train` from
+     `init_params` (seeded) into a temporary model_dir, 100 steps in mode
+     trunk, 200 in field, 100 in hybrid: ms/step, rays/s, peak memory,
+     falling finite loss, exact launch counts (A2 = steps; trunk: B = B' =
+     2 x steps; field: C = C' = 2 x steps; hybrid: C' = 2 x steps; every
+     other count 0); then `run_evaluate` on the checkpoint it wrote.
+The last two lines are the kernels' JSON (with each kernel's bound on the
+card, computed from this run's shapes and the work of the function the TPU
+kernel computes) and `{"ok": true, "device": ...}`.
 """
 
 import json
@@ -55,12 +69,19 @@ CFG_FILE = os.path.join(REPO, "configs", "synthetic_flagship.yaml")
 REF_JSON = os.path.join(REPO, "artifacts", "torch", "synthetic_flagship_10000_jax_eval.json")
 STEP_NPZ = os.path.join(REPO, "artifacts", "torch", "synthetic_flagship_10000_jax_step.npz")
 STEP_JSON = os.path.join(REPO, "artifacts", "torch", "synthetic_flagship_10000_jax_step.json")
+MODES = ("trunk", "field", "hybrid")
 KERNEL_SOURCE = "panopticnerf_tpu_torch/csrc/intersect.cu"
 KERNEL_REPLACES = "panopticnerf_tpu/ops/pallas_intersect.py:222"
 A2_REPLACES = "panopticnerf_tpu/ops/pallas_intersect.py:294"
 TRUNK_SOURCE = "panopticnerf_tpu_torch/csrc/mlp_train.cu"
 B_REPLACES = "panopticnerf_tpu/ops/pallas_mlp_train.py:186"
 B2_REPLACES = "panopticnerf_tpu/ops/pallas_mlp_train.py:217"
+FIELD_SOURCE = "panopticnerf_tpu_torch/csrc/field_train.cu"
+C_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:310"
+C2_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:345"
+PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
+PEAK_F32 = 67e12          # float32 outside the tensor cores
+PEAK_BYTES = 3.35e12      # HBM3 bytes/s
 MAX_FLIP_SHARE = 1e-3     # share of (ray, slot) entries allowed to differ
 MAX_DT = 1e-4             # |dt| allowed where kernel and plain agree
 TOL = {"psnr": 0.1, "miou": 0.005, "pq": 0.01}  # vs the JAX reference
@@ -74,7 +95,22 @@ MAX_TRUNK_REL = 2e-3
 STEP_REL = 1e-2           # loss terms and grad_norm, relative
 MIN_COSINE = 0.995        # per-leaf gradient cosine
 MIN_SIGN_SHARE = 0.99     # entries whose first Adam update has JAX's sign
-TRAIN_STEPS = 200
+# C / C' vs plain, relative Frobenius error, per output, from the readings
+# at both N (NVIDIA H100 80GB HBM3, 700 W) with room on both sides. sigma
+# and the sums behind sem, dd and every db stay f32 in both versions (read
+# at most 1.1e-4, 4.5e-4, 2.1e-5, 2.2e-4): a kernel that rounded them to
+# bf16 would read ~1e-3 and fail. The rgb logits carry the bf16 flips of r
+# (read 1.1e-3); the bf16 outputs (saved activations, dx) flip in places
+# (read at most 5.6e-4); dW read 1.07e-3 stored as bf16 and 3.4e-4 as
+# float32, where a bf16 rounding (mode hybrid must not round) reads ~1e-3.
+# "rec": C' with its own recompute against plain C' on the plain forward's
+# activations, where the two forwards' bf16 flips move ReLU masks of the
+# colour branch (read at most 1.03e-2, dW of the colour hidden layer at
+# N = 131,072); a wrong op reads ~1e-1 or more. That C' equals C' on C's
+# activations bit for bit, so the ceilings above hold it as well.
+FIELD_REL = {"sigma": 5e-4, "sem": 8e-4, "rgb": 3e-3, "dd": 5e-4, "db": 5e-4,
+             "bf16 out": 2e-3, "dW bf16": 3e-3, "dW f32": 7e-4, "rec": 3e-2}
+TRAIN_STEPS = {"trunk": 100, "field": 200, "hybrid": 100}
 
 
 def check(cond, msg):
@@ -128,6 +164,76 @@ def rel_err(a, b):
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
 
 
+def nbytes(*tensors):
+    """Bytes of the tensors (nested tuples and None allowed)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(flops, moved, peak=PEAK_BF16):
+    """(ms, "operations" | "bytes"): the least time the card could take, the
+    larger of flops over the peak rate for their type and the bytes moved
+    (each input read once, each output written once) over HBM's rate."""
+    t_ops, t_bytes = 1e3 * flops / peak, 1e3 * moved / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def trunk_shapes(x_dim, width, layers, skips):
+    """(in, out) of each trunk layer, unpadded (skips in the kernel convention)."""
+    return [(x_dim if i == 0 else width + (x_dim if i in skips else 0), width)
+            for i in range(layers)]
+
+
+def field_shapes(dims):
+    """(in, out) of every Dense of the whole field, unpadded: the trunk, the
+    head block [sem_hidden | sigma | feature], the colour branch, sem_out."""
+    w = dims.width
+    shapes = trunk_shapes(dims.x_dim, w, dims.layers, dims.skips)
+    shapes += [(w, (dims.sem_hidden if dims.use_sem else 0) + 1 + w),
+               (w + dims.d_dim, dims.color_width), (dims.color_width, 3)]
+    return shapes + ([(dims.sem_hidden, dims.num_classes)] if dims.use_sem else [])
+
+
+def dense_bound(npts, shapes, point_bytes, backward=False, dw_bytes=2):
+    """bound() of the function a TPU kernel computes over a chain of bf16
+    Dense layers (`shapes`, unpadded), from its own work and I/O: 2 x in x
+    out tensor-core operations per point forward, twice that backward (dW
+    and g W^T, no recompute); `point_bytes` per point of inputs and outputs,
+    plus the bf16 weights read, and the f32 biases read (forward) or dW
+    (`dw_bytes` each) and the f32 db written (backward). What the port's
+    design adds (padding, saved activations) is not the function's work."""
+    macs = sum(i * o for i, o in shapes)
+    biases = sum(o for _, o in shapes)
+    params = 2 * macs + (dw_bytes * macs + 4 * biases if backward else 4 * biases)
+    return bound((4.0 if backward else 2.0) * npts * macs, npts * point_bytes + params)
+
+
+def field_ceiling(name):
+    """FIELD_REL's ceiling for an output of field_phase ('sigma', 'dx/bf16',
+    'dwp/f32', 'dhb/rec', ...)."""
+    out, _, tag = name.partition("/")
+    if tag == "rec":
+        return FIELD_REL["rec"]
+    if out in ("sigma", "sem", "rgb", "dd"):
+        return FIELD_REL[out]
+    if out in ("dbp", "dhb", "dbso", "dbch", "dbco"):
+        return FIELD_REL["db"]
+    if out in ("dwp", "dhw", "dwso", "dwch", "dwco"):
+        return FIELD_REL["dW bf16" if tag == "bf16" else "dW f32"]
+    return FIELD_REL["bf16 out"]  # saved activations, dx
+
+
+# f32 operations of one (ray, primitive) slab test: the affine transform of
+# the ray (33), three slabs (21), the interval (4) and the top-K insertion
+# (~16 compares); an estimate, far below the bytes the intersection writes.
+SLAB_OPS = 75
+
+
 def ptxas_summary(log_path):
     """'kernel: R registers, static smem S B, spills' lines from nvcc's
     -Xptxas -v log (the kernels' dynamic shared memory is set at launch)."""
@@ -135,9 +241,8 @@ def ptxas_summary(log_path):
     for line in open(log_path):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?\d+(trunk_\w+?)(ILi(\d+)EE)?E.*$",
-                          lambda k: k.group(1) + (f"<{k.group(3)}>" if k.group(3) else ""),
-                          m.group(1))
+            k = re.search(r"\d+((?:trunk|field|reduce)_[a-z_]+?)(?:ILi(\d+)E|I|E)", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spills {m.group(1)}/{m.group(2)} B"
@@ -189,18 +294,20 @@ def a2_phase(cfg, ds, train_ids, dev, intersect_cuda):
     run_p = lambda: intersect_groups_plain(ro, rd, prims, near, far, k)
     plain_ms, kernel_ms = time_ms(run_p), time_ms(run_k)
     plain_ms2, kernel_ms2 = time_ms(run_p), time_ms(run_k)
+    p = prims.world_to_prim.shape[1]
+    bnd = bound(n * p * SLAB_OPS, nbytes(ro, rd, tuple(prims), tuple(run_k())), PEAK_F32)
     print(f"A2 at G={g}, M={n // g}, K={k}: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
-          f"plain {plain_ms:.4f} / {plain_ms2:.4f} ms (median of 20, plain-kernel-plain-kernel)")
-    return max_dt, kernel_ms, plain_ms
+          f"plain {plain_ms:.4f} / {plain_ms2:.4f} ms (median of 20, plain-kernel-plain-kernel); "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return max_dt, kernel_ms, plain_ms, bnd
 
 
-def trunk_phase(cfg, ds, train_ids, model, dev):
-    """Kernels B / B' vs plain at the step's point counts, with the
-    checkpoint's trunk weights on the encodings of real sample points."""
+def sample_encodings(cfg, ds, train_ids, model, dev):
+    """x_enc and d_enc (bf16) of the coarse and fine sample points of one
+    training batch rendered with the checkpoint: {field: (x_enc, d_enc)},
+    131,072 and 262,144 points at the flagship."""
     from panopticnerf_tpu_torch.data.dataset import batch_intervals, sample_ray_batch
-    from panopticnerf_tpu_torch.ops import mlp_train as mt
     from panopticnerf_tpu_torch.ops.encoding import positional_encoding
-    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
     from panopticnerf_tpu_torch.render import SceneBounds, render_rays
 
     g, n = cfg.data.views_per_batch, cfg.data.n_rays
@@ -211,14 +318,33 @@ def trunk_phase(cfg, ds, train_ids, model, dev):
         out = render_rays(model, batch.rays_o, batch.rays_d,
                           SceneBounds(ds.bounds_center, ds.bounds_scale), cfg, iv=iv,
                           train=True, generator=gen)
-    res = {}
+    enc = {}
     for field, z in (("coarse", out.coarse.z), ("fine", out.z)):
-        net = getattr(model, field)
         pts = batch.rays_o[:, None] + batch.rays_d[:, None] * z[..., None]
         pts = (pts - ds.bounds_center) * ds.bounds_scale
-        x_enc = positional_encoding(pts.reshape(-1, 3), cfg.model.xyz_freqs).to(torch.bfloat16)
+        dirs = torch.broadcast_to(batch.rays_d[:, None], pts.shape)
+        enc[field] = tuple(
+            positional_encoding(v.reshape(-1, 3), f).to(torch.bfloat16)
+            for v, f in ((pts, cfg.model.xyz_freqs), (dirs, cfg.model.dir_freqs)))
+    return enc
+
+
+def kernel_skips(cfg):
+    return tuple(s + 1 for s in cfg.model.skips if s + 1 < cfg.model.trunk_depth)
+
+
+def trunk_phase(cfg, enc, model, dev):
+    """Kernels B / B' vs plain at the step's point counts, with the
+    checkpoint's trunk weights on the encodings of real sample points."""
+    from panopticnerf_tpu_torch.ops import mlp_train as mt
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+
+    gen = torch.Generator(dev).manual_seed(5)
+    res = {}
+    for field, (x_enc, _) in enc.items():
+        net = getattr(model, field)
         layers = [getattr(net, f"trunk_{i}") for i in range(cfg.model.trunk_depth)]
-        skips = tuple(s + 1 for s in cfg.model.skips if s + 1 < cfg.model.trunk_depth)
+        skips = kernel_skips(cfg)
         wp, bp = mt.pack_trunk([m.weight.t() for m in layers], [m.bias for m in layers],
                                skips, torch.bfloat16)
         xp = mt.pad_x(x_enc)
@@ -247,27 +373,148 @@ def trunk_phase(cfg, ds, train_ids, model, dev):
         t["fwd_plain2"] = time_ms(lambda: mt.trunk_forward_plain(xp, wp, bp, skips), reps=5, warmup=1)
         t["bwd2"] = time_ms(lambda: trunk_backward_cuda(xp, acts, gout, wp, skips), reps=5, warmup=1)
         t["bwd_plain2"] = time_ms(lambda: mt.trunk_backward_plain(xp, acts, gout, wp, skips), reps=5, warmup=1)
+        # the TPU function's own work: x_enc (bf16) -> the last activation
+        # (bf16); backward x_enc and the f32 upstream g -> dx, dW, db
+        width, x_dim = wp.shape[-1], x_enc.shape[1]
+        shapes = trunk_shapes(x_dim, width, wp.shape[0], skips)
+        t["fwd_bound"] = dense_bound(npts, shapes, 2 * x_dim + 2 * width)
+        t["bwd_bound"] = dense_bound(npts, shapes, 4 * x_dim + 4 * width, backward=True)
         res[(field, "t")] = t
         print(f"B/B' vs plain, {field} trunk, N={npts}: " + "; ".join(line))
         print(f"  times (ms, median of 5, plain-kernel-kernel-plain): B {t['fwd']:.3f} / "
               f"{t['fwd2']:.3f}, plain {t['fwd_plain']:.3f} / {t['fwd_plain2']:.3f}; "
               f"B' {t['bwd']:.3f} / {t['bwd2']:.3f}, plain {t['bwd_plain']:.3f} / "
-              f"{t['bwd_plain2']:.3f}")
+              f"{t['bwd_plain2']:.3f}; bounds B {t['fwd_bound'][0]:.3f} ({t['fwd_bound'][1]}), "
+              f"B' {t['bwd_bound'][0]:.3f} ({t['bwd_bound'][1]}); B writes every layer's "
+              f"activation, {nbytes(acts) / 1e9:.3f} GB ({1e3 * nbytes(acts) / PEAK_BYTES:.3f} "
+              f"ms at HBM's rate; the function writes the last only)")
         del acts, acts_ref, got, ref
     return res
 
 
-def step_phase(cfg, ds, dev):
-    """One flagship step from the 10k checkpoint with the JAX step's draws."""
+def field_phase(cfg, enc, model, dev):
+    """Kernels C / C' vs plain at the step's point counts, with the
+    checkpoint's coarse and fine weights on the encodings of real sample
+    points; C' on C's saved activations with dW in bf16 (mode field) and
+    float32 (mode hybrid), and C' with its own recompute (saved None, as
+    mode hybrid runs it)."""
+    from panopticnerf_tpu_torch.ops import field_train as ft
+    from panopticnerf_tpu_torch.ops.field_train_cuda import field_backward_cuda, field_forward_cuda
+    from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
+
+    gen = torch.Generator(dev).manual_seed(7)
+    c = cfg.model
+    res = {}
+    for field, (x_enc, d_enc) in enc.items():
+        dims = ft.FieldDims(x_dim=x_enc.shape[1], d_dim=d_enc.shape[1], width=c.trunk_width,
+                            sem_hidden=c.trunk_width // 2, color_width=c.color_width,
+                            num_classes=c.num_classes, layers=c.trunk_depth,
+                            skips=kernel_skips(cfg), use_sem=c.use_semantic)
+        pk = ft.pack_field(ft._leaf_params(getattr(model, field), dims), dims, torch.bfloat16)
+        npts = x_enc.shape[0]
+        xp = ft.pad_cols(x_enc, F_PAD, npts, x_enc)
+        dp = ft.pad_cols(d_enc, ft.D_PAD, npts, x_enc)
+        g_out = torch.randn((npts, 4), generator=gen, device=dev) * 1e-3
+        g_sem = torch.randn((npts, dims.num_classes), generator=gen, device=dev) * 1e-3
+        out, sem, saved = field_forward_cuda(xp, dp, pk, dims)
+        r_out, r_sem, r_saved = ft.field_forward_plain(xp, dp, pk, dims)
+        errs = {"sigma": (out[:, 0], r_out[:, 0]), "rgb": (out[:, 1:], r_out[:, 1:]),
+                "sem": (sem, r_sem)}
+        errs.update({k: (a, b) for k, a, b in zip(saved._fields, saved, r_saved) if a is not None})
+        # C' on C's saved activations, dW in bf16 and in float32, against
+        # plain C' on the same activations; then C' with its own recompute
+        # (saved None, float32 dW: mode hybrid's call) against plain C' on
+        # the plain forward's activations
+        grads = {}
+        for tag, dwt, sv, sv_ref in (("bf16", torch.bfloat16, saved, saved),
+                                     ("f32", torch.float32, saved, saved),
+                                     ("rec", torch.float32, None, r_saved)):
+            got = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, sv, dwt)
+            ref = ft.field_backward_plain(xp, dp, g_out, g_sem, pk, dims, sv_ref, dwt)
+            grads[tag] = got
+            errs[f"dx/{tag}"], errs[f"dd/{tag}"] = (got[0], ref[0]), (got[1], ref[1])
+            errs.update({f"d{k}/{tag}": (a, b) for k, a, b in zip(got[2]._fields, got[2], ref[2])
+                         if a is not None})
+        torch.cuda.synchronize()
+        # the recompute runs C itself, so it must give C' on C's activations exactly
+        same = all(torch.equal(a, b) for a, b in
+                   zip((*grads["rec"][:2], *grads["rec"][2]), (*grads["f32"][:2], *grads["f32"][2]))
+                   if a is not None)
+        stats = {}
+        for name, (a, b) in errs.items():
+            check(bool(torch.isfinite(a.float()).all()), f"C/C' {field}: non-finite {name}")
+            stats[name] = (float((a.float() - b.float()).abs().max()), rel_err(a, b))
+        print(f"C/C' vs plain, {field} field, N={npts} (max|d|, relative Frobenius error; "
+              f"/rec: C' with its recompute vs plain on the plain forward):")
+        names = list(stats)
+        for i in range(0, len(names), 6):
+            print("  " + "; ".join(f"{k} {stats[k][0]:.2e} {stats[k][1]:.2e}"
+                                   for k in names[i:i + 6]))
+        print(f"  C' with its recompute equals C' on C's saved activations bit for bit: {same}")
+        for name, (_, r) in stats.items():
+            lim = field_ceiling(name)
+            check(r <= lim, f"C/C' {field} N={npts}: {name} rel err {r} > {lim}")
+        check(same, f"C' {field} N={npts}: the recompute differs from C' on C's activations")
+        t = {}
+        fwd_k = lambda: field_forward_cuda(xp, dp, pk, dims)
+        fwd_p = lambda: ft.field_forward_plain(xp, dp, pk, dims)
+        bwd_k = lambda: field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, saved, torch.bfloat16)
+        bwd_p = lambda: ft.field_backward_plain(xp, dp, g_out, g_sem, pk, dims, saved,
+                                                torch.bfloat16)
+        rec_k = lambda: field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, None, torch.float32)
+        rec_p = lambda: ft.field_backward_plain(xp, dp, g_out, g_sem, pk, dims,
+                                                ft.field_forward_plain(xp, dp, pk, dims)[2],
+                                                torch.float32)
+        for key, fn in (("fwd_plain", fwd_p), ("fwd", fwd_k), ("bwd_plain", bwd_p), ("bwd", bwd_k),
+                        ("rec_plain", rec_p), ("rec", rec_k), ("rec2", rec_k),
+                        ("rec_plain2", rec_p), ("bwd2", bwd_k), ("bwd_plain2", bwd_p),
+                        ("fwd2", fwd_k), ("fwd_plain2", fwd_p)):
+            t[key] = time_ms(fn, reps=5, warmup=1)
+        # the TPU functions' own work: x_enc, d_enc (bf16) -> sigma, rgb
+        # logits, sem (f32); backward x_enc, d_enc and the f32 upstream g ->
+        # dx, dd (bf16), dW, db (the recompute computes the same function)
+        shapes = field_shapes(dims)
+        io_in = 2 * (dims.x_dim + dims.d_dim)
+        io_out = 4 * (4 + (dims.num_classes if dims.use_sem else 0))
+        t["fwd_bound"] = dense_bound(npts, shapes, io_in + io_out)
+        t["bwd_bound"] = dense_bound(npts, shapes, 2 * io_in + io_out, backward=True)
+        t["rec_bound"] = dense_bound(npts, shapes, 2 * io_in + io_out, backward=True, dw_bytes=4)
+        res[field] = {"errs": stats, "t": t}
+        print(f"  times (ms, median of 5, interleaved): C {t['fwd']:.3f} / {t['fwd2']:.3f}, plain "
+              f"{t['fwd_plain']:.3f} / {t['fwd_plain2']:.3f}, bound {t['fwd_bound'][0]:.3f} "
+              f"({t['fwd_bound'][1]}); C' {t['bwd']:.3f} / {t['bwd2']:.3f}, plain "
+              f"{t['bwd_plain']:.3f} / {t['bwd_plain2']:.3f}, bound {t['bwd_bound'][0]:.3f} "
+              f"({t['bwd_bound'][1]}); C' with recompute, f32 dW {t['rec']:.3f} / "
+              f"{t['rec2']:.3f}, plain {t['rec_plain']:.3f} / {t['rec_plain2']:.3f}, bound "
+              f"{t['rec_bound'][0]:.3f} ({t['rec_bound'][1]}); C writes "
+              f"{nbytes(saved) / 1e9:.3f} GB of saved activations ("
+              f"{1e3 * nbytes(saved) / PEAK_BYTES:.3f} ms at HBM's rate, which C' reads back: "
+              f"a cost of the design, not of the function)")
+        del out, sem, saved, r_out, r_sem, r_saved, grads, got, ref, errs
+    return res
+
+
+def with_mode(cfg, mode):
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, pallas_mode=mode))
+
+
+def step_phase(cfg, ds, dev, mode):
+    """One flagship step from the 10k checkpoint in `mode` with the JAX
+    step's draws, against the JAX record of the same mode."""
     from panopticnerf_tpu_torch.convert import load_npz, params_to_flax
     from panopticnerf_tpu_torch.data.dataset import BatchDraws
     from panopticnerf_tpu_torch.models import make_network
     from panopticnerf_tpu_torch.render import RenderDraws
     from panopticnerf_tpu_torch.train import StepDraws, make_train_state, make_train_step
 
-    with open(STEP_JSON) as fh:
+    cfg = with_mode(cfg, mode)
+    suffix = "" if mode == "trunk" else f"_{mode}"
+    with open(STEP_JSON[:-5] + suffix + ".json") as fh:
         ref = json.load(fh)
-    z = np.load(STEP_NPZ)
+    z = np.load(STEP_NPZ)                       # the draws (the same in every mode)
+    zg = np.load(STEP_NPZ[:-4] + suffix + ".npz")  # this mode's gradients and update signs
     model = make_network(cfg, dev)
     model.load_state_dict(load_npz(os.path.join(REPO, "artifacts", "torch",
                                                 "synthetic_flagship_10000.npz")))
@@ -280,14 +527,16 @@ def step_phase(cfg, ds, dev):
                                   t("noise_fine")))
     view_ids = torch.from_numpy(z["view_ids"]).to(dev)
     stats = {k: float(v) for k, v in step(state, ds, view_ids, None, draws).items()}
+    worst = 0.0
     for key, want in sorted(ref["stats"].items()):
         got = stats[key]
         r = abs(got - want) / max(abs(want), 1e-12)
-        print(f"  step {key}: port {got:.6f}  JAX {want:.6f}  rel {r:.2e}")
+        print(f"  step ({mode}) {key}: port {got:.6f}  JAX {want:.6f}  rel {r:.2e}")
         check(np.isfinite(got), f"step {key} not finite")
         if key.startswith("loss_") or key == "grad_norm":
             check(r <= STEP_REL or abs(got - want) <= 1e-6,
-                  f"step {key} off the JAX record ({r:.3e} > {STEP_REL})")
+                  f"step ({mode}) {key} off the JAX record ({r:.3e} > {STEP_REL})")
+            worst = max(worst, r if abs(got - want) > 1e-6 else 0.0)
     # a leaf no loss reaches (the coarse semantic head) has no .grad; JAX's is 0
     grads = params_to_flax({k: torch.zeros_like(p) if p.grad is None else p.grad
                             for k, p in model.named_parameters()})
@@ -295,62 +544,66 @@ def step_phase(cfg, ds, dev):
     cos_min, agree, total = 1.0, 0, 0
     for name in sorted(grads):
         a = grads[name].astype(np.float64).ravel()
-        b = z[f"grad_dir/{name}"].astype(np.float64).ravel()
+        b = zg[f"grad_dir/{name}"].astype(np.float64).ravel()
         na, nb = np.linalg.norm(a), np.linalg.norm(b)
         cos = 1.0 if na == nb == 0 else float(a @ b / max(na * nb, 1e-30))
         cos_min = min(cos_min, cos)
         if cos < MIN_COSINE:
             print(f"  leaf {name}: gradient cosine {cos:.5f}")
         s = np.sign(new[name]).astype(np.int8).ravel()
-        agree += int((s == z[f"update_sign/{name}"].ravel()).sum())
+        agree += int((s == zg[f"update_sign/{name}"].ravel()).sum())
         total += s.size
-    print(f"one flagship step vs JAX: min per-leaf gradient cosine {cos_min:.5f} over "
-          f"{len(grads)} leaves; first Adam update sign agrees on {agree} of {total} entries "
-          f"({agree / total:.4f})")
-    check(cos_min >= MIN_COSINE, f"gradient cosine {cos_min} < {MIN_COSINE}")
+    print(f"one flagship step ({mode}) vs JAX: loss terms / grad_norm rel <= {worst:.2e}; "
+          f"min per-leaf gradient cosine {cos_min:.5f} over {len(grads)} leaves; first Adam "
+          f"update sign agrees on {agree} of {total} entries ({agree / total:.4f})")
+    check(cos_min >= MIN_COSINE, f"({mode}) gradient cosine {cos_min} < {MIN_COSINE}")
     check(agree / total >= MIN_SIGN_SHARE,
-          f"first-update sign agreement {agree / total} < {MIN_SIGN_SHARE}")
+          f"({mode}) first-update sign agreement {agree / total} < {MIN_SIGN_SHARE}")
     return stats, cos_min, agree / total
 
 
-def train_phase(cfg, dev, engine):
-    """The training main path through A2, B and B'; then an evaluation of
-    the checkpoint it wrote."""
+def train_phase(cfg, dev, engine, mode):
+    """The training main path in `mode` (A2 and B / B', or C / C', or C');
+    then an evaluation of the checkpoint it wrote."""
     import dataclasses
 
-    from panopticnerf_tpu_torch.ops import intersect_cuda, mlp_train_cuda
+    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
 
+    counters = {"A2": intersect_cuda.intersect_groups_cuda,
+                "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
+                "C": field_train_cuda.field_forward_cuda,
+                "C'": field_train_cuda.field_backward_cuda}
+    steps = TRAIN_STEPS[mode]
     with tempfile.TemporaryDirectory() as tmp:
-        tcfg = dataclasses.replace(cfg, model_dir=tmp)
+        tcfg = dataclasses.replace(with_mode(cfg, mode), model_dir=tmp)
         torch.cuda.reset_peak_memory_stats(dev)
-        intersect_cuda.intersect_groups_cuda.launches = 0
-        mlp_train_cuda.trunk_forward_cuda.launches = 0
-        mlp_train_cuda.trunk_backward_cuda.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
-        res = engine.run_train(tcfg, dev, max_steps=TRAIN_STEPS, log=lambda *a: None)
+        res = engine.run_train(tcfg, dev, max_steps=steps, log=lambda *a: None)
         wall = time.perf_counter() - t0
-        launches = {"A2": intersect_cuda.intersect_groups_cuda.launches,
-                    "B": mlp_train_cuda.trunk_forward_cuda.launches,
-                    "B'": mlp_train_cuda.trunk_backward_cuda.launches}
+        launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         losses = res["losses"]
         ms = [1000.0 * s / k for k, s in res["windows"][1:]]  # the first window warms up
         ms_step = float(np.median(ms))
         first, last = float(losses[:20].mean()), float(losses[-20:].mean())
-        print(f"run_train: {TRAIN_STEPS} steps of {cfg.data.n_rays} rays in {wall:.2f} s; "
+        print(f"run_train ({mode}): {steps} steps of {cfg.data.n_rays} rays in {wall:.2f} s; "
               f"median {ms_step:.3f} ms/step over {len(ms)} windows of "
               f"{cfg.train.log_interval} after the first (range {min(ms):.3f}-{max(ms):.3f}), "
               f"{cfg.data.n_rays / ms_step * 1000:.0f} rays/s; peak device memory {peak:.0f} MiB")
+        print(f"  ms/step of each window: {' '.join(f'{v:.3f}' for v in ms)}")
         print(f"  loss_total mean of the first 20 steps {first:.5f}, last 20 {last:.5f}; "
               f"launches {launches}")
-        check(bool(np.isfinite(losses).all()), "non-finite training loss")
-        check(last < first, f"training loss did not fall ({first} -> {last})")
-        want = {"A2": TRAIN_STEPS, "B": 2 * TRAIN_STEPS, "B'": 2 * TRAIN_STEPS}
-        check(launches == want, f"launch counts {launches}, expected {want}")
-        ecfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train,
-                                                                   eval_step=TRAIN_STEPS))
+        check(bool(np.isfinite(losses).all()), f"({mode}) non-finite training loss")
+        check(last < first, f"({mode}) training loss did not fall ({first} -> {last})")
+        per_step = {"trunk": {"B": 2, "B'": 2}, "field": {"C": 2, "C'": 2},
+                    "hybrid": {"C'": 2}}[mode]
+        want = {k: steps if k == "A2" else per_step.get(k, 0) * steps for k in counters}
+        check(launches == want, f"({mode}) launch counts {launches}, expected {want}")
+        ecfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train, eval_step=steps))
         ev = engine.run_evaluate(ecfg, dev, log=lambda *a: None)
-        print(f"  run_evaluate of the {TRAIN_STEPS}-step checkpoint: PSNR {ev['psnr']:.4f}, "
+        print(f"  run_evaluate of the {steps}-step checkpoint: PSNR {ev['psnr']:.4f}, "
               f"mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
         check(all(np.isfinite(ev[k]) for k in ("psnr", "miou", "pq")), "non-finite scores")
     return launches, ms_step
@@ -362,7 +615,7 @@ def main():
     from panopticnerf_tpu_torch import engine
     from panopticnerf_tpu_torch.config import load_config
     from panopticnerf_tpu_torch.data import view_primitives, view_rays
-    from panopticnerf_tpu_torch.ops import _nvcc, intersect_cuda, mlp_train_cuda
+    from panopticnerf_tpu_torch.ops import _nvcc, field_train_cuda, intersect_cuda, mlp_train_cuda
     from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -375,7 +628,7 @@ def main():
           f"{sh([_nvcc.nvcc_path(), '--version']).splitlines()[-1]}")
 
     # 2. build: one nvcc per source, run together
-    libs = {name: _nvcc.library_path(name) for name in ("intersect", "mlp_train")}
+    libs = {name: _nvcc.library_path(name) for name in ("intersect", "mlp_train", "field_train")}
     existed = {name: os.path.exists(path) for name, path in libs.items()}
     t0 = time.perf_counter()
     _nvcc.build_all(libs)
@@ -383,11 +636,13 @@ def main():
     for name, path in libs.items():
         print(f"build: {name}.cu -> {os.path.relpath(path, REPO)}: "
               + ("an existing build, loaded" if existed[name]
-                 else f"compiled with nvcc in {secs:.2f} s (both sources together)"))
+                 else f"compiled with nvcc in {secs:.2f} s (all sources together)"))
     intersect_cuda.load()
     mlp_train_cuda.load()
-    for line in ptxas_summary(libs["mlp_train"][:-3] + ".log"):
-        print(f"  ptxas {line}")
+    field_train_cuda.load()
+    for name in ("mlp_train", "field_train"):
+        for line in ptxas_summary(libs[name][:-3] + ".log"):
+            print(f"  ptxas {name}: {line}")
 
     # 3. kernel vs plain at the slice's shape
     cfg = load_config(CFG_FILE, ["model_dir", os.path.join(REPO, "artifacts")])
@@ -424,9 +679,12 @@ def main():
     run_p = lambda: intersect_rays_plain(o, d, prims, near, far, k)
     plain_ms, kernel_ms = time_ms(run_p), time_ms(run_k)
     plain_ms2, kernel_ms2 = time_ms(run_p), time_ms(run_k)
+    a1_bound = bound(o.shape[0] * prims.world_to_prim.shape[0] * SLAB_OPS,
+                     nbytes(o, d, tuple(prims), tuple(run_k())), PEAK_F32)
     print(f"intersect at N={o.shape[0]}, P={prims.world_to_prim.shape[0]}, K={k}: "
           f"kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
-          f"plain {plain_ms:.4f} / {plain_ms2:.4f} ms (median of 20, plain-kernel-plain-kernel)")
+          f"plain {plain_ms:.4f} / {plain_ms2:.4f} ms (median of 20, plain-kernel-plain-kernel); "
+          f"bound {a1_bound[0]:.5f} ms ({a1_bound[1]})")
 
     # 5. the main path
     intersect_cuda.intersect_rays_cuda.launches = 0
@@ -453,31 +711,45 @@ def main():
     check(tuple(out.rgb.shape) == (h * w, 3) and bool(torch.isfinite(out.rgb).all())
           and bool(torch.isfinite(out.sem_logits).all()), "non-finite or misshaped render")
 
-    # 6-9. the training slice
+    # 6-10. the training slice
     from panopticnerf_tpu_torch.data import make_dataset
 
     ds_t, train_ids, _ = make_dataset(cfg, dev)
-    a2_dt, a2_ms, a2_plain_ms = a2_phase(cfg, ds_t, train_ids, dev, intersect_cuda)
-    trunk = trunk_phase(cfg, ds_t, train_ids, model, dev)
-    step_phase(cfg, ds_t, dev)
+    a2_dt, a2_ms, a2_plain_ms, a2_bound = a2_phase(cfg, ds_t, train_ids, dev, intersect_cuda)
+    enc = sample_encodings(cfg, ds_t, train_ids, model, dev)
+    trunk = trunk_phase(cfg, enc, model, dev)
+    field = field_phase(cfg, enc, model, dev)
+    del enc
+    for mode in MODES:
+        step_phase(cfg, ds_t, dev, mode)
     del ds_t
     torch.cuda.empty_cache()
-    train_launches, _ = train_phase(cfg, dev, engine)
+    train = {mode: train_phase(cfg, dev, engine, mode)[0] for mode in MODES}
 
-    tf = trunk[("fine", "t")]
+    # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
+    # (C' on C's saved activations, as mode field runs it). No single PyTorch
+    # call computes any of these functions: library_ms is null.
+    tf, ff = trunk[("fine", "t")], field["fine"]
+    fe, ft_ = ff["errs"], ff["t"]
+    entry = lambda name, src, rep, launches, err, ms, plain, bnd: {
+        "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": None}
     print(json.dumps({"kernels": [
-        {"name": "intersect_rays", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_dt,
-         "ms": kernel_ms, "plain_ms": plain_ms},
-        {"name": "intersect_groups", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": A2_REPLACES, "launches": train_launches["A2"], "max_abs_err": a2_dt,
-         "ms": a2_ms, "plain_ms": a2_plain_ms},
-        {"name": "trunk_forward", "route": "cuda", "source": TRUNK_SOURCE,
-         "replaces": B_REPLACES, "launches": train_launches["B"],
-         "max_abs_err": trunk[("fine", "out")][0], "ms": tf["fwd"], "plain_ms": tf["fwd_plain"]},
-        {"name": "trunk_backward", "route": "cuda", "source": TRUNK_SOURCE,
-         "replaces": B2_REPLACES, "launches": train_launches["B'"],
-         "max_abs_err": trunk[("fine", "dW")][0], "ms": tf["bwd"], "plain_ms": tf["bwd_plain"]},
+        entry("intersect_rays", KERNEL_SOURCE, KERNEL_REPLACES, launches, max_dt, kernel_ms,
+              plain_ms, a1_bound),
+        entry("intersect_groups", KERNEL_SOURCE, A2_REPLACES, train["trunk"]["A2"], a2_dt, a2_ms,
+              a2_plain_ms, a2_bound),
+        entry("trunk_forward", TRUNK_SOURCE, B_REPLACES, train["trunk"]["B"],
+              trunk[("fine", "out")][0], tf["fwd"], tf["fwd_plain"], tf["fwd_bound"]),
+        entry("trunk_backward", TRUNK_SOURCE, B2_REPLACES, train["trunk"]["B'"],
+              trunk[("fine", "dW")][0], tf["bwd"], tf["bwd_plain"], tf["bwd_bound"]),
+        entry("field_forward", FIELD_SOURCE, C_REPLACES, train["field"]["C"],
+              max(fe[k][0] for k in ("sigma", "rgb", "sem")), ft_["fwd"], ft_["fwd_plain"],
+              ft_["fwd_bound"]),
+        entry("field_backward", FIELD_SOURCE, C2_REPLACES, train["field"]["C'"],
+              max(v[0] for k, v in fe.items() if k.startswith("d") and k.endswith("/bf16")),
+              ft_["bwd"], ft_["bwd_plain"], ft_["bwd_bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

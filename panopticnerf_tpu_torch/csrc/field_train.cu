@@ -1,0 +1,610 @@
+// The whole NeRF field for the training step, forward (kernel C) and
+// backward (kernel C'), for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernels of panopticnerf_tpu/ops/pallas_field_train.py:
+//   C  = `field_train`'s forward (`_field_fwd_impl` -> `_field_fwd_kernel`),
+//   C' = its backward (`_field_bwd_impl` -> `_field_bwd_kernel`), which is
+//        also the backward of `field_hybrid`.
+// It computes what those compute, with the same rounding placement (plain
+// versions: ops/field_train.py field_forward_plain / field_backward_plain):
+// the trunk as kernel B; ho = h @ W_head + b_head in f32, sigma its f32
+// column, s = relu(ho_sem) rounded only as sem_out's input, sem = the f32
+// product + the f32 bias; the colour input [bf16(feature) | d_enc] one
+// product with K = W + 32, f32 bias, ReLU, rounded as color_out's input;
+// f32 rgb logits. Backward: every upstream g rounded to bf16 before both
+// of its products, db from the f32 g, the ReLU masks from the saved bf16
+// activations, dx and dd in bf16, dW summed in f32 over all points and
+// stored as bf16 (mode "field") or float32 (mode "hybrid").
+//
+// Packed layout (ops/field_train.py): x (N, 64), d (N, 32) bf16; trunk as
+// mlp_train.cu; head block W_head (W, HO) with columns [sem_hidden (W/2) |
+// sigma | 0 ... up to SA = W/2 + 32 | feature (W)], HO = SA + W; sem_out
+// (W/2, CP); colour hidden (W + 32, CWP); color_out (CWP, 32); biases f32
+// of the same widths. CP, CWP <= 128 are multiples of 32.
+//
+// What bounds it: per point the field forward is 1.257 MFLOP (trunk 0.982,
+// heads 0.275: head block [sem_hidden | sigma | feature] 0.197, colour
+// hidden 0.072, sem_out and color_out 0.006); the training step runs
+// 131,072 coarse + 262,144 fine points: 0.49 TFLOP forward, twice that
+// backward (dW and g W^T). The functions' own I/O (x, d, weights, outputs;
+// for C' the upstream g, dx, dd, dW, db) is < 100 MB, so both are
+// compute-bound on the tensor cores (989 TFLOP/s bf16): C 0.167 / 0.333 ms
+// at the coarse / fine N, C' 0.333 / 0.667 ms. Two costs of this design
+// come on top: the packed shapes add 2.3 % of products (1.286 MFLOP per
+// point), and C writes the activations C' reads (5,120 B per point at W =
+// 256, 1.34 GB at the fine N: 0.40 ms of HBM time that C' then reads
+// back). What the design does about it:
+//   - C: one 8-warp block per 128-point tile runs kernel B's trunk loop
+//     (mlp_common.cuh) with the tile's [h | x] in shared memory, then every
+//     head out of the same shared memory: [sem_hidden | sigma] (f32 sigma
+//     and bf16 s in the epilogue), sem_out, the feature columns (written
+//     over h, whose last reader is that product), [feature | d_enc] @ W_ch
+//     (d_enc loaded into the x columns the trunk no longer reads), and
+//     color_out; every epilogue (f32 bias, ReLU, bf16 rounding) runs on the
+//     mma.sync accumulators. C saves what C' needs: the trunk's bf16
+//     activations (as B does), s, bf16(feature) and r.
+//   - C': the TPU kernel carries dW across its sequential grid in VMEM;
+//     Hopper blocks run in parallel, so C' is B''s three-pass plan over the
+//     whole field: (1) a data pass per 128-point tile for the heads — g_rgb
+//     -> color_out^T -> mask -> W_ch^T -> g_feature, dd; g_sem -> sem_out^T
+//     -> mask; [g_s | g_sigma | g_feature] -> W_head^T — writing each
+//     product's bf16 g, db partials and the trunk's f32 upstream g; then
+//     B''s data pass for the trunk; (2) split-K weight passes for every
+//     packed block, trunk and heads, plain stores of partials; (3)
+//     reductions over the splits and the db partials in a fixed order (no
+//     atomics: the step stays deterministic).
+//   Without saved activations (mode "hybrid", whose forward is plain
+//   GEMMs in flax's placement) C' first runs C's forward to recompute them
+//   in the kernel's placement, as the TPU kernel recomputes in VMEM.
+//
+// Simple first: no wgmma/TMA, one 8-warp block per SM, the heads' column
+// passes re-read the tile from shared memory; those are later work.
+
+#include "mlp_common.cuh"
+
+namespace {
+
+constexpr int kDPad = 32;     // d_enc columns
+constexpr int kCO = 32;       // color_out columns (3 used)
+constexpr int kHeadMax = 128; // largest CP / CWP
+
+template <int W>
+struct Dims {
+  static constexpr int SH = W / 2, SA = SH + 32, HO = SA + W;
+  static constexpr int NCMAX = W > kHeadMax ? W : kHeadMax;
+};
+
+// ------------------------------------------------------------ forward (C)
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d,
+                     const bf16* __restrict__ wp, const float* __restrict__ bp,
+                     const bf16* __restrict__ hw, const float* __restrict__ hb,
+                     const bf16* __restrict__ wso, const float* __restrict__ bso,
+                     const bf16* __restrict__ wch, const float* __restrict__ bch,
+                     const bf16* __restrict__ wco, const float* __restrict__ bco,
+                     float* __restrict__ out,     // (N, 4): sigma, rgb logits
+                     float* __restrict__ sem,     // (N, classes) or null
+                     bf16* __restrict__ acts,     // (L, N, W)
+                     bf16* __restrict__ s_sv,     // (N, SH) or null
+                     bf16* __restrict__ feat_sv,  // (N, W)
+                     bf16* __restrict__ r_sv,     // (N, cwp)
+                     int n, int layers, unsigned skip_mask, int classes, int cwp, int cp,
+                     int use_sem) {
+  using D = Dims<W>;
+  constexpr int SH = D::SH, SA = D::SA, HO = D::HO;
+  constexpr int LDA = W + kFPad + kPad, LDS = kHeadMax + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* act = reinterpret_cast<bf16*>(smem_raw);   // kBM x LDA: [h | x], later [feature | d]
+  bf16* wbuf = act + kBM * LDA;                    // 2 x kKC x (NCMAX + kPad)
+  bf16* sbuf = wbuf + 2 * kKC * (D::NCMAX + kPad);  // kBM x LDS: s, later r
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kBM;
+
+  trunk_forward_tile<W>(act, wbuf, x, wp, bp, acts, n, layers, skip_mask, row0);
+
+  // d_enc into the x columns, which the trunk no longer reads (waited for
+  // with the next product's weight chunks)
+  for (int i = tid; i < kBM * (kDPad / 8); i += kThreads) {
+    const int r = i / (kDPad / 8), seg = i % (kDPad / 8);
+    const bool ok = row0 + r < n;
+    cp_async16(act + r * LDA + W + seg * 8, d + (size_t)(ok ? row0 + r : 0) * kDPad + seg * 8, ok);
+  }
+  cp_async_commit();
+
+  {  // [sem_hidden | sigma]: s = relu(ho) -> bf16; sigma = ho in f32
+    float acc[4][SA / 32][4];
+    zero_acc(acc);
+    gemm_nn<SA / 32, true>(acc, act, LDA, 0, wbuf, hw, HO, W, SA);
+    for_each_pair<SA / 32, true>(acc, SA, [&](int r, int col, float v0, float v1) {
+      const int p = row0 + r;
+      if (col < SH) {
+        const __nv_bfloat162 sv =
+            __floats2bfloat162_rn(relu(v0 + hb[col]), relu(v1 + hb[col + 1]));
+        *reinterpret_cast<__nv_bfloat162*>(sbuf + r * LDS + col) = sv;
+        if (use_sem && p < n) *reinterpret_cast<__nv_bfloat162*>(s_sv + (size_t)p * SH + col) = sv;
+      } else if (col == SH && p < n) {
+        out[(size_t)p * 4] = v0 + hb[SH];
+      }
+    });
+  }
+  if (use_sem) {  // sem = bf16(s) @ W_so + b_so, f32
+    float acc[4][kHeadMax / 32][4];
+    zero_acc(acc);
+    gemm_nn<kHeadMax / 32, false>(acc, sbuf, LDS, 0, wbuf, wso, cp, SH, cp);
+    for_each_pair<kHeadMax / 32, false>(acc, cp, [&](int r, int col, float v0, float v1) {
+      const int p = row0 + r;
+      if (p >= n) return;
+      if (col < classes) sem[(size_t)p * classes + col] = v0 + bso[col];
+      if (col + 1 < classes) sem[(size_t)p * classes + col + 1] = v1 + bso[col + 1];
+    });
+  }
+  {  // feature = ho (f32) -> bf16, over h (the product ended synchronised)
+    float acc[4][W / 32][4];
+    zero_acc(acc);
+    gemm_nn<W / 32, true>(acc, act, LDA, 0, wbuf, hw + SA, HO, W, W);
+    for_each_pair<W / 32, true>(acc, W, [&](int r, int col, float v0, float v1) {
+      const __nv_bfloat162 f = __floats2bfloat162_rn(v0 + hb[SA + col], v1 + hb[SA + col + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) = f;
+      if (row0 + r < n)
+        *reinterpret_cast<__nv_bfloat162*>(feat_sv + (size_t)(row0 + r) * W + col) = f;
+    });
+  }
+  {  // r = relu([feature | d] @ W_ch + b_ch) -> bf16
+    float acc[4][kHeadMax / 32][4];
+    zero_acc(acc);
+    gemm_nn<kHeadMax / 32, false>(acc, act, LDA, 0, wbuf, wch, cwp, W + kDPad, cwp);
+    for_each_pair<kHeadMax / 32, false>(acc, cwp, [&](int r, int col, float v0, float v1) {
+      const __nv_bfloat162 rv =
+          __floats2bfloat162_rn(relu(v0 + bch[col]), relu(v1 + bch[col + 1]));
+      *reinterpret_cast<__nv_bfloat162*>(sbuf + r * LDS + col) = rv;
+      if (row0 + r < n)
+        *reinterpret_cast<__nv_bfloat162*>(r_sv + (size_t)(row0 + r) * cwp + col) = rv;
+    });
+  }
+  {  // rgb logits = bf16(r) @ W_co + b_co, f32
+    float acc[4][1][4];
+    zero_acc(acc);
+    gemm_nn<1, true>(acc, sbuf, LDS, 0, wbuf, wco, kCO, cwp, kCO);
+    for_each_pair<1, true>(acc, kCO, [&](int r, int col, float v0, float v1) {
+      const int p = row0 + r;
+      if (p >= n || col >= 3) return;
+      out[(size_t)p * 4 + 1 + col] = v0 + bco[col];
+      if (col + 1 < 3) out[(size_t)p * 4 + 2 + col] = v1 + bco[col + 1];
+    });
+  }
+}
+
+template <int W>
+size_t fwd_smem() {
+  return (size_t)(kBM * (W + kFPad + kPad) + 2 * kKC * (Dims<W>::NCMAX + kPad) +
+                  kBM * (kHeadMax + kPad)) *
+         sizeof(bf16);
+}
+
+// ------------------------------------------- backward (C'), heads data pass
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_bwd_heads_kernel(const float* __restrict__ g_out,  // (N, 4) g_sigma, g_rgb logits
+                           const float* __restrict__ g_sem,  // (N, classes) or null
+                           const bf16* __restrict__ s_sv, const bf16* __restrict__ r_sv,
+                           const bf16* __restrict__ hw, const bf16* __restrict__ wso,
+                           const bf16* __restrict__ wch, const bf16* __restrict__ wco,
+                           float* __restrict__ g_h,     // (N, W) out: the trunk's upstream g
+                           bf16* __restrict__ gb_co,    // (N, 32) out: bf16 g of each product
+                           bf16* __restrict__ gb_r,     // (N, cwp)
+                           bf16* __restrict__ gb_sem,   // (N, cp)
+                           bf16* __restrict__ gb_ho,    // (N, HO)
+                           bf16* __restrict__ dd,       // (N, 32) out
+                           float* __restrict__ db_part, // (blocks, HO + cp + cwp + 32) out
+                           int n, int classes, int cwp, int cp, int use_sem) {
+  using D = Dims<W>;
+  constexpr int SH = D::SH, SA = D::SA, HO = D::HO;
+  constexpr int LDH = HO + kPad, LDC = kCO + kPad, LDS = kHeadMax + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gho = reinterpret_cast<bf16*>(smem_raw);  // kBM x LDH: [g_s | g_sigma | 0 | g_feature]
+  bf16* gco = gho + kBM * LDH;                     // kBM x LDC
+  bf16* gr = gco + kBM * LDC;                      // kBM x LDS
+  bf16* gsem = gco;                                // kBM x LDS, once g_co and g_r are consumed
+  bf16* wbuf = gr + kBM * LDS;                     // 2 x NCMAX x (kKC + kPad)
+  float* dbw = reinterpret_cast<float*>(wbuf + 2 * D::NCMAX * (kKC + kPad));  // 2 x NCMAX
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kBM;
+  const int hb_len = HO + cp + cwp + kCO;
+  float* db_ho = db_part + (size_t)blockIdx.x * hb_len;
+  float* db_so = db_ho + HO;
+  float* db_ch = db_so + cp;
+  float* db_co = db_ch + cwp;
+
+  // db of the biases the upstream g feeds directly (sigma, rgb, sem), rows
+  // in order; every other entry is written below or stays 0
+  for (int c = tid; c < hb_len; c += kThreads) db_ho[c] = 0.f;
+  __syncthreads();
+  if (tid < 4 || (use_sem && tid >= 32 && tid < 32 + classes)) {
+    const bool rgb = tid < 4;
+    const float* src = rgb ? g_out + tid : g_sem + (tid - 32);
+    const int ld = rgb ? 4 : classes;
+    float s = 0.f;
+    for (int r = 0; r < kBM && row0 + r < n; ++r) s += src[(size_t)(row0 + r) * ld];
+    if (!rgb)
+      db_so[tid - 32] = s;
+    else if (tid == 0)
+      db_ho[SH] = s;
+    else
+      db_co[tid - 1] = s;
+  }
+
+  // g_co = [g_rgb | 0] -> bf16
+  for (int i = tid; i < kBM * kCO; i += kThreads) {
+    const int r = i / kCO, c = i % kCO, p = row0 + r;
+    const bf16 b = __float2bfloat16_rn(p < n && c < 3 ? g_out[(size_t)p * 4 + 1 + c] : 0.f);
+    gco[r * LDC + c] = b;
+    if (p < n) gb_co[(size_t)p * kCO + c] = b;
+  }
+  {  // g_r = (g_co @ W_co^T) * (r > 0) -> bf16
+    float acc[4][kHeadMax / 32][4];
+    zero_acc(acc);
+    gemm_nt<kHeadMax / 32, false>(acc, gco, LDC, 0, wbuf, wco, kCO, kCO, cwp);
+    mask_by<kHeadMax / 32, false>(acc, cwp, r_sv, cwp, row0, n);
+    for_each_pair<kHeadMax / 32, false>(acc, cwp, [&](int r, int col, float v0, float v1) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(gr + r * LDS + col) = b;
+      if (row0 + r < n) *reinterpret_cast<__nv_bfloat162*>(gb_r + (size_t)(row0 + r) * cwp + col) = b;
+    });
+    col_sums<kHeadMax / 32, false>(acc, cwp, dbw, db_ch);
+  }
+  {  // g_feature = (g_r @ W_ch^T)[:, :W] -> bf16 into gho
+    float acc[4][W / 32][4];
+    zero_acc(acc);
+    gemm_nt<W / 32, true>(acc, gr, LDS, 0, wbuf, wch, cwp, cwp, W);
+    for_each_pair<W / 32, true>(acc, W, [&](int r, int col, float& v0, float& v1) {
+      if (row0 + r >= n) v0 = v1 = 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(gho + r * LDH + SA + col) = __floats2bfloat162_rn(v0, v1);
+    });
+    col_sums<W / 32, true>(acc, W, dbw, db_ho + SA);
+  }
+  {  // dd = (g_r @ W_ch^T)[:, W : W + 32] -> bf16
+    float acc[4][1][4];
+    zero_acc(acc);
+    gemm_nt<1, true>(acc, gr, LDS, 0, wbuf, wch + (size_t)W * cwp, cwp, cwp, kDPad);
+    for_each_pair<1, true>(acc, kDPad, [&](int r, int col, float v0, float v1) {
+      if (row0 + r < n)
+        *reinterpret_cast<__nv_bfloat162*>(dd + (size_t)(row0 + r) * kDPad + col) =
+            __floats2bfloat162_rn(v0, v1);
+    });
+  }
+  if (use_sem) {  // g_s = (bf16(g_sem) @ W_so^T) * (s > 0) -> bf16 into gho
+    for (int i = tid; i < kBM * cp; i += kThreads) {
+      const int r = i / cp, c = i % cp, p = row0 + r;
+      const bf16 b = __float2bfloat16_rn(p < n && c < classes ? g_sem[(size_t)p * classes + c] : 0.f);
+      gsem[r * LDS + c] = b;
+      if (p < n) gb_sem[(size_t)p * cp + c] = b;
+    }
+    float acc[4][SH / 32][4];
+    zero_acc(acc);
+    gemm_nt<SH / 32, true>(acc, gsem, LDS, 0, wbuf, wso, cp, cp, SH);
+    mask_by<SH / 32, true>(acc, SH, s_sv, SH, row0, n);
+    for_each_pair<SH / 32, true>(acc, SH, [&](int r, int col, float v0, float v1) {
+      *reinterpret_cast<__nv_bfloat162*>(gho + r * LDH + col) = __floats2bfloat162_rn(v0, v1);
+    });
+    col_sums<SH / 32, true>(acc, SH, dbw, db_ho);
+  } else {
+    for (int i = tid; i < kBM * SH; i += kThreads) gho[(i / SH) * LDH + i % SH] = __float2bfloat16_rn(0.f);
+  }
+  for (int i = tid; i < kBM * (SA - SH); i += kThreads) {  // [g_sigma | 0]
+    const int r = i / (SA - SH), c = i % (SA - SH), p = row0 + r;
+    gho[r * LDH + SH + c] = __float2bfloat16_rn(c == 0 && p < n ? g_out[(size_t)p * 4] : 0.f);
+  }
+  __syncthreads();
+  for (int i = tid; i < kBM * (HO / 8); i += kThreads) {  // for the head block's weight pass
+    const int r = i / (HO / 8), seg = i % (HO / 8);
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(gb_ho + (size_t)(row0 + r) * HO + seg * 8) =
+          *reinterpret_cast<const uint4*>(gho + r * LDH + seg * 8);
+  }
+  {  // the trunk's upstream g = bf16(g_ho) @ W_head^T, f32
+    float acc[4][W / 32][4];
+    zero_acc(acc);
+    gemm_nt<W / 32, true>(acc, gho, LDH, 0, wbuf, hw, HO, HO, W);
+    for_each_pair<W / 32, true>(acc, W, [&](int r, int col, float v0, float v1) {
+      if (row0 + r < n)
+        *reinterpret_cast<float2*>(g_h + (size_t)(row0 + r) * W + col) = make_float2(v0, v1);
+    });
+  }
+}
+
+template <int W>
+size_t heads_smem() {
+  using D = Dims<W>;
+  return (size_t)(kBM * (D::HO + kPad) + kBM * (kCO + kPad) + kBM * (kHeadMax + kPad) +
+                  2 * D::NCMAX * (kKC + kPad)) *
+             sizeof(bf16) +
+         2 * D::NCMAX * sizeof(float);
+}
+
+// ------------------------------------------ backward (C'), weight passes
+
+// part[s][m][c] = sum over split s's points p of A[p][m] * B[p][c], for the
+// block's 64 rows m0 ... and c < nc (<= 32 * NT). Row m of A is column m of
+// A1 (m < m1) or column m - m1 of A2 (m < m1 + m2); other rows are 0.
+// The trunk's weight pass (mlp_common.cuh) stays a kernel of its own: it
+// covers all L layers in one launch at the template width, where this one
+// serves one block at a time with a run-time width (32 to 416 columns).
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+    field_wgrad_kernel(const bf16* __restrict__ A1, int lda1, int m1, const bf16* __restrict__ A2,
+                       int lda2, int m2, const bf16* __restrict__ B, int nc,
+                       float* __restrict__ part, int m_pad, int n, int chunk) {
+  constexpr int LDA = kTK + kPad;
+  const int ldb = nc + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* abuf = reinterpret_cast<bf16*>(smem_raw);  // 2 x kKC x LDA: [point][m]
+  bf16* bbuf = abuf + 2 * kKC * LDA;               // 2 x kKC x ldb: [point][c]
+  const int m0 = blockIdx.x * kTK, s = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, gq = lane >> 2, tq = lane & 3;
+  const int nta = nc / 32, wcol = (warp & 3) * (nc / 4);
+  const int p_begin = s * chunk;
+  const int p_end = min(n, p_begin + chunk);
+  const int nsteps = p_end > p_begin ? (p_end - p_begin + kKC - 1) / kKC : 0;
+
+  auto load = [&](int st) {
+    bf16* da = abuf + (st & 1) * kKC * LDA;
+    bf16* db = bbuf + (st & 1) * kKC * ldb;
+    for (int i = tid; i < kKC * (kTK / 8); i += kThreads) {
+      const int r = i / (kTK / 8), m = m0 + (i % (kTK / 8)) * 8;
+      const int p = p_begin + st * kKC + r;
+      bool ok = p < p_end;
+      const bf16* src = A1;
+      if (m < m1)
+        src = A1 + (size_t)p * lda1 + m;
+      else if (m - m1 < m2)
+        src = A2 + (size_t)p * lda2 + (m - m1);
+      else
+        ok = false;
+      cp_async16(da + r * LDA + (m - m0), ok ? src : A1, ok);
+    }
+    for (int i = tid; i < kKC * (nc / 8); i += kThreads) {
+      const int r = i / (nc / 8), seg = i % (nc / 8);
+      const int p = p_begin + st * kKC + r;
+      const bool ok = p < p_end;
+      cp_async16(db + r * ldb + seg * 8, B + (size_t)(ok ? p : 0) * nc + seg * 8, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][NT][4];
+  zero_acc(acc);
+  if (nsteps > 0) load(0);
+  for (int st = 0; st < nsteps; ++st) {
+    if (st + 1 < nsteps) {
+      load(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sa = abuf + (st & 1) * kKC * LDA;
+    const bf16* sb = bbuf + (st & 1) * kKC * ldb;
+#pragma unroll
+    for (int kk = 0; kk < kKC; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)  // A^T: rows m, reduction over points
+        ldsm_x4_t(a[mi], sa + (kk + (lane & 7) + ((lane >> 4) & 1) * 8) * LDA + wm * 32 +
+                             mi * 16 + ((lane >> 3) & 1) * 8);
+      const bf16* brow = sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + wcol;
+#pragma unroll
+      for (int q = 0; q < NT / 2; ++q) {
+        const int nt = 2 * q;
+        if (nt + 1 < nta) {
+          uint32_t b[4];
+          ldsm_x4_t(b, brow + nt * 8 + (lane >> 4) * 8);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
+            mma_bf16(acc[mi][nt + 1], a[mi], b[2], b[3]);
+          }
+        } else if (nt < nta) {
+          uint32_t b[2];
+          ldsm_x2_t(b, brow + nt * 8);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
+        }
+      }
+      if ((NT & 1) && NT - 1 < nta) {
+        uint32_t b[2];
+        ldsm_x2_t(b, brow + (NT - 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][NT - 1], a[mi], b[0], b[1]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = part + ((size_t)s * m_pad + m0) * nc;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nta) continue;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mi * 16 + gq + h * 8;
+        *reinterpret_cast<float2*>(out + (size_t)r * nc + wcol + nt * 8 + 2 * tq) =
+            make_float2(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+      }
+  }
+}
+
+// dW (m_out x nc) = A^T B over all points, through `part` (splits x
+// round_up(m_out, 64) x nc floats) and the shared in-order reduction.
+template <int NT, typename DW>
+int weight_grad(const bf16* A1, int lda1, int m1, const bf16* A2, int lda2, int m2,
+                const bf16* B, int nc, float* part, int m_out, DW* dw, int n, int splits,
+                int chunk, cudaStream_t s) {
+  const int m_pad = (m_out + kTK - 1) / kTK * kTK;
+  const size_t smem = (size_t)(2 * kKC * (kTK + kPad) + 2 * kKC * (nc + kPad)) * sizeof(bf16);
+  cudaError_t e = cudaFuncSetAttribute(field_wgrad_kernel<NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  field_wgrad_kernel<NT><<<dim3(m_pad / kTK, splits), kThreads, smem, s>>>(
+      A1, lda1, m1, A2, lda2, m2, B, nc, part, m_pad, n, chunk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  reduce_splits_kernel<DW><<<512, 256, 0, s>>>(part, splits, (size_t)m_pad * nc,
+                                               (size_t)m_out * nc, dw);
+  return (int)cudaGetLastError();
+}
+
+struct FwdArgs {
+  const bf16 *x, *d, *wp;
+  const float* bp;
+  const bf16* hw;
+  const float* hb;
+  const bf16* wso;
+  const float* bso;
+  const bf16* wch;
+  const float* bch;
+  const bf16* wco;
+  const float* bco;
+  float *out, *sem;
+  bf16 *acts, *s_sv, *feat, *r_sv;
+  int n, layers;
+  unsigned skip_mask;
+  int classes, cwp, cp, use_sem;
+};
+
+template <int W>
+int fwd(const FwdArgs& a, cudaStream_t s) {
+  const size_t smem = fwd_smem<W>();
+  cudaError_t e = cudaFuncSetAttribute(field_fwd_kernel<W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  field_fwd_kernel<W><<<(a.n + kBM - 1) / kBM, kThreads, smem, s>>>(
+      a.x, a.d, a.wp, a.bp, a.hw, a.hb, a.wso, a.bso, a.wch, a.bch, a.wco, a.bco, a.out, a.sem,
+      a.acts, a.s_sv, a.feat, a.r_sv, a.n, a.layers, a.skip_mask, a.classes, a.cwp, a.cp,
+      a.use_sem);
+  return (int)cudaGetLastError();
+}
+
+struct BwdArgs {
+  const bf16 *x, *d, *wp, *hw, *wso, *wch, *wco, *acts, *s_sv, *feat, *r_sv;
+  const float *g_out, *g_sem;
+  float* g_h;
+  bf16 *gbuf, *gb_co, *gb_r, *gb_sem, *gb_ho;
+  float *db_part_t, *db_part_h, *dw_part_t, *part;
+  bf16 *dx, *dd;
+  void *dwp, *dhw, *dwso, *dwch, *dwco;
+  float *dbp, *db_h;
+  int n, layers;
+  unsigned skip_mask;
+  int classes, cwp, cp, use_sem, splits, chunk;
+};
+
+template <int W, typename DW>
+int bwd(const BwdArgs& a, cudaStream_t s) {
+  using D = Dims<W>;
+  const int blocks = (a.n + kBM - 1) / kBM;
+  const size_t smem = heads_smem<W>();
+  cudaError_t e = cudaFuncSetAttribute(field_bwd_heads_kernel<W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  field_bwd_heads_kernel<W><<<blocks, kThreads, smem, s>>>(
+      a.g_out, a.g_sem, a.s_sv, a.r_sv, a.hw, a.wso, a.wch, a.wco, a.g_h, a.gb_co, a.gb_r,
+      a.gb_sem, a.gb_ho, a.dd, a.db_part_h, a.n, a.classes, a.cwp, a.cp, a.use_sem);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  int err = trunk_bwd<W, DW>(a.x, a.wp, a.acts, a.g_h, a.gbuf, a.db_part_t, a.dw_part_t, a.dx,
+                             static_cast<DW*>(a.dwp), a.dbp, a.n, a.layers, a.skip_mask, a.splits,
+                             a.chunk, s);
+  if (err) return err;
+  const bf16* h = a.acts + (size_t)(a.layers - 1) * a.n * W;
+  // the head block: dW (W x HO) = h^T g_ho
+  err = weight_grad<13, DW>(h, W, W, nullptr, 0, 0, a.gb_ho, D::HO, a.part, W,
+                            static_cast<DW*>(a.dhw), a.n, a.splits, a.chunk, s);
+  if (err) return err;
+  if (a.use_sem) {  // sem_out: (SH x cp) = s^T g_sem
+    err = weight_grad<4, DW>(a.s_sv, D::SH, D::SH, nullptr, 0, 0, a.gb_sem, a.cp, a.part, D::SH,
+                             static_cast<DW*>(a.dwso), a.n, a.splits, a.chunk, s);
+    if (err) return err;
+  }
+  // colour hidden: ((W + 32) x cwp) = [feature | d]^T g_r
+  err = weight_grad<4, DW>(a.feat, W, W, a.d, kDPad, kDPad, a.gb_r, a.cwp, a.part, W + kDPad,
+                           static_cast<DW*>(a.dwch), a.n, a.splits, a.chunk, s);
+  if (err) return err;
+  // color_out: (cwp x 32) = r^T g_co
+  err = weight_grad<1, DW>(a.r_sv, a.cwp, a.cwp, nullptr, 0, 0, a.gb_co, kCO, a.part, a.cwp,
+                           static_cast<DW*>(a.dwco), a.n, a.splits, a.chunk, s);
+  if (err) return err;
+  const int hb_len = D::HO + a.cp + a.cwp + kCO;
+  reduce_db_kernel<<<(hb_len + 255) / 256, 256, 0, s>>>(a.db_part_h, a.db_h, blocks, hb_len);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). The Python wrapper
+// (ops/field_train_cuda.py) checks dtypes, shapes and contiguity, allocates
+// every output and scratch buffer, and requires W in {64, 128, 256},
+// sem_hidden = W / 2, CP and CWP multiples of 32 up to 128, 1 <= L <= 32
+// and n >= 1. Each returns 0 when every launch was accepted, else the CUDA
+// error code; nothing synchronises.
+extern "C" int field_fwd_launch(const void* x, const void* d, const void* wp, const void* bp,
+                                const void* hw, const void* hb, const void* wso, const void* bso,
+                                const void* wch, const void* bch, const void* wco,
+                                const void* bco, void* out, void* sem, void* acts, void* s_sv,
+                                void* feat, void* r_sv, int n, int width, int layers,
+                                unsigned skip_mask, int classes, int cwp, int cp, int use_sem,
+                                void* stream) {
+  const FwdArgs a{static_cast<const bf16*>(x),    static_cast<const bf16*>(d),
+                  static_cast<const bf16*>(wp),   static_cast<const float*>(bp),
+                  static_cast<const bf16*>(hw),   static_cast<const float*>(hb),
+                  static_cast<const bf16*>(wso),  static_cast<const float*>(bso),
+                  static_cast<const bf16*>(wch),  static_cast<const float*>(bch),
+                  static_cast<const bf16*>(wco),  static_cast<const float*>(bco),
+                  static_cast<float*>(out),       static_cast<float*>(sem),
+                  static_cast<bf16*>(acts),       static_cast<bf16*>(s_sv),
+                  static_cast<bf16*>(feat),       static_cast<bf16*>(r_sv),
+                  n, layers, skip_mask, classes, cwp, cp, use_sem};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 64: return fwd<64>(a, s);
+    case 128: return fwd<128>(a, s);
+    case 256: return fwd<256>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int field_bwd_launch(const void* x, const void* d, const void* wp, const void* hw,
+                                const void* wso, const void* wch, const void* wco,
+                                const void* acts, const void* s_sv, const void* feat,
+                                const void* r_sv, const void* g_out, const void* g_sem, void* g_h,
+                                void* gbuf, void* gb_co, void* gb_r, void* gb_sem, void* gb_ho,
+                                void* db_part_t, void* db_part_h, void* dw_part_t, void* part,
+                                void* dx, void* dd, void* dwp, void* dbp, void* dhw, void* dwso,
+                                void* dwch, void* dwco, void* db_h, int n, int width, int layers,
+                                unsigned skip_mask, int classes, int cwp, int cp, int use_sem,
+                                int splits, int chunk, int dw_f32, void* stream) {
+  const auto cb = [](const void* p) { return static_cast<const bf16*>(p); };
+  const BwdArgs a{cb(x), cb(d), cb(wp), cb(hw), cb(wso), cb(wch), cb(wco), cb(acts), cb(s_sv),
+                  cb(feat), cb(r_sv), static_cast<const float*>(g_out),
+                  static_cast<const float*>(g_sem), static_cast<float*>(g_h),
+                  static_cast<bf16*>(gbuf), static_cast<bf16*>(gb_co), static_cast<bf16*>(gb_r),
+                  static_cast<bf16*>(gb_sem), static_cast<bf16*>(gb_ho),
+                  static_cast<float*>(db_part_t), static_cast<float*>(db_part_h),
+                  static_cast<float*>(dw_part_t), static_cast<float*>(part),
+                  static_cast<bf16*>(dx), static_cast<bf16*>(dd), dwp, dhw, dwso, dwch, dwco,
+                  static_cast<float*>(dbp), static_cast<float*>(db_h), n, layers, skip_mask,
+                  classes, cwp, cp, use_sem, splits, chunk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PNT_FIELD_BWD(WW) \
+  (dw_f32 ? bwd<WW, float>(a, s) : bwd<WW, bf16>(a, s))
+  switch (width) {
+    case 64: return PNT_FIELD_BWD(64);
+    case 128: return PNT_FIELD_BWD(128);
+    case 256: return PNT_FIELD_BWD(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PNT_FIELD_BWD
+}

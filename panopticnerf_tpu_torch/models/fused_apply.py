@@ -1,17 +1,25 @@
-"""Field apply of the training step with the fused trunk (port of
-`panopticnerf_tpu/models/pallas_apply.py`, mode "trunk").
+"""Field apply of the training step (port of
+`panopticnerf_tpu/models/pallas_apply.py`), in one of three modes:
 
-The 8x256 trunk runs through `ops.mlp_train.fused_trunk_train` (kernels
-B / B' on the card); the heads stay plain PyTorch ops rounded as the
-reference's XLA heads round them:
+- "trunk": the 8x256 trunk runs through `ops.mlp_train.fused_trunk_train`
+  (kernels B / B' on the card); the heads stay plain PyTorch ops rounded
+  as the reference's XLA heads round them (below);
+- "field": the whole field, trunk and heads, through
+  `ops.field_train.field_train_apply` (kernel C forward, C' backward);
+- "hybrid": `ops.field_train.field_hybrid_apply`, a flax-placement
+  forward in plain PyTorch GEMMs and kernel C' as the backward.
+
+The heads of mode "trunk":
 - one concatenated [feature | sem_hidden | sigma] product, rounded, then
   the bias added (both in the compute dtype);
 - `sem_out` on the ReLU of the sem_hidden slice;
 - the colour branch as feat @ Wch[:W] + d_enc @ Wch[W:] + b, each step
   rounded in that order, then the sigmoid in float32.
 A small proposal coarse field (model.coarse_trunk_depth/width) runs its
-trunk as the plain flax chain. Modes "hybrid" and "field" need kernels C
-and C', which are not ported yet.
+trunk as the plain flax chain and the trunk-mode heads in every mode.
+The JAX package sends any mode string other than "trunk" and "hybrid" to
+the field path; the port takes exactly the three names and raises
+ValueError for any other.
 """
 
 from __future__ import annotations
@@ -24,17 +32,22 @@ from torch.nn import functional as F
 from panopticnerf_tpu_torch.config import ModelConfig
 from panopticnerf_tpu_torch.models.nerf import PanopticNeRF, _dense, coarse_field_cfg
 from panopticnerf_tpu_torch.ops.encoding import positional_encoding
+from panopticnerf_tpu_torch.ops.field_train import (
+    FieldDims,
+    field_hybrid_apply,
+    field_train_apply,
+)
 from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
+
+MODES = ("trunk", "hybrid", "field")
 
 
 def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
                       viewdirs: Optional[torch.Tensor], level: int = 0,
                       mode: str = "trunk"):
     """Same contract as `PanopticNeRF.forward` (scene-normalised pts)."""
-    if mode != "trunk":
-        raise NotImplementedError(
-            f"model.pallas_mode {mode!r} needs the fused field kernels C / C' "
-            "(ops/pallas_field_train.py), which are not ported yet; use 'trunk'")
+    if mode not in MODES:
+        raise ValueError(f"model.pallas_mode {mode!r} is not one of {MODES}")
     net = model.fine if (level == 1 and model.has_fine) else model.coarse
     eff = coarse_field_cfg(cfg, model.has_fine) if level == 0 else cfg
     small_coarse = eff is not cfg
@@ -48,6 +61,18 @@ def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
         d = torch.broadcast_to(viewdirs, pts.shape).reshape(-1, 3)
         d_enc = positional_encoding(d, c.dir_freqs).to(dt)
 
+    # flax concatenates after layer s, so the layer consuming [h, x] is s + 1
+    kernel_skips = tuple(s + 1 for s in c.skips if s + 1 < c.trunk_depth)
+    if mode != "trunk" and not small_coarse:
+        dims = FieldDims(
+            x_dim=x_enc.shape[-1], d_dim=0 if d_enc is None else d_enc.shape[-1],
+            width=c.trunk_width, sem_hidden=c.trunk_width // 2, color_width=c.color_width,
+            num_classes=c.num_classes, layers=c.trunk_depth, skips=kernel_skips,
+            use_sem=c.use_semantic)
+        fn = field_hybrid_apply if mode == "hybrid" else field_train_apply
+        sigma, rgb, sem = fn(net, dims, x_enc, d_enc)
+        return _reshape(sigma, rgb, sem, shape, c.num_classes)
+
     layers = [getattr(net, f"trunk_{i}") for i in range(c.trunk_depth)]
     if small_coarse:
         h = x_enc
@@ -56,8 +81,6 @@ def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
             if i in c.skips:
                 h = torch.cat([h, x_enc], dim=-1)
     else:
-        # flax concatenates after layer s, so the layer consuming [h, x] is s + 1
-        kernel_skips = tuple(s + 1 for s in c.skips if s + 1 < c.trunk_depth)
         h = fused_trunk_train(x_enc, [layer.weight.t() for layer in layers],
                               [layer.bias for layer in layers], kernel_skips).to(dt)
 
@@ -80,11 +103,12 @@ def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
         pre = _dense(feat, net.color_hidden, dt)
     r = torch.relu(pre)
     rgb = torch.sigmoid(_dense(r, net.color_out, dt).float())
-    sigma = sigma.reshape(shape)
-    rgb = rgb.reshape(*shape, 3)
-    if sem is not None:
-        sem = sem.reshape(*shape, c.num_classes)
-    return sigma, rgb, sem
+    return _reshape(sigma, rgb, sem, shape, c.num_classes)
+
+
+def _reshape(sigma, rgb, sem, shape, num_classes):
+    return (sigma.reshape(shape), rgb.reshape(*shape, 3),
+            None if sem is None else sem.reshape(*shape, num_classes))
 
 
 class FusedTrainAdapter:
@@ -94,6 +118,8 @@ class FusedTrainAdapter:
     the plain model."""
 
     def __init__(self, model: PanopticNeRF, cfg_model: ModelConfig, mode: str = "trunk"):
+        if mode not in MODES:
+            raise ValueError(f"model.pallas_mode {mode!r} is not one of {MODES}")
         self.model = model
         self.cfg = cfg_model
         self.mode = mode

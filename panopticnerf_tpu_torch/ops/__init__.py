@@ -20,6 +20,7 @@ from panopticnerf_tpu_torch.ops.rays import (
     pixel_dirs_perspective,
     rays_from_dirs,
 )
+from panopticnerf_tpu_torch.ops.field_train import field_hybrid_apply, field_train_apply
 from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
 from panopticnerf_tpu_torch.ops.sampling import (
     guided_split,
@@ -32,8 +33,8 @@ from panopticnerf_tpu_torch.ops.sampling import (
 
 __all__ = [
     "BIG", "CompositeOut", "Primitives", "RayIntervals", "composite",
-    "compute_weights", "fixed_map_from_weights", "full_image_uv",
-    "fused_trunk_train", "gen_rays_perspective", "guided_split", "guided_z",
+    "compute_weights", "field_hybrid_apply", "field_train_apply",
+    "fixed_map_from_weights", "full_image_uv", "fused_trunk_train", "gen_rays_perspective", "guided_split", "guided_z",
     "intersect_groups", "intersect_groups_plain", "intersect_rays",
     "intersect_rays_plain", "labeled_containment", "merge_sorted", "merge_z",
     "pixel_dirs_perspective", "posenc_dim", "positional_encoding",

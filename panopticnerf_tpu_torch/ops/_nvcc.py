@@ -2,8 +2,8 @@
 
 nvcc compiles the source (plain C interface, no PyTorch headers) for
 sm_90a into `panopticnerf_tpu_torch/_build/<name>_<hash>.so`, keyed on a
-hash of the source and the flags, and ctypes loads it. A library that is
-already built is loaded as it is. The compiler's output (`-Xptxas -v`:
+hash of the source, the headers of `csrc/` and the flags, and ctypes loads
+it. A library that is already built is loaded as it is. The compiler's output (`-Xptxas -v`:
 registers, shared memory, spills per kernel) is kept beside it in `.log`.
 """
 
@@ -37,10 +37,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the build of csrc/<name>.cu lives (keyed on source + flags)."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}_{h}.so")
+    """Where the build of csrc/<name>.cu lives (keyed on the source, every
+    header of csrc/ it may include, and the flags)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def _finish(name: str, so: str, tmp: str, cmd: list, proc: subprocess.Popen) -> None:

@@ -1,0 +1,200 @@
+"""Wrappers of the CUDA whole-field kernels (`csrc/field_train.cu`).
+
+- `field_forward_cuda` (kernel C) replaces the forward of `field_train`,
+  `panopticnerf_tpu/ops/pallas_field_train.py` (`_field_fwd_impl`);
+- `field_backward_cuda` (kernel C') replaces its backward
+  (`_field_bwd_impl`), which is also `field_hybrid`'s backward.
+Same contracts as `ops.field_train.field_forward_plain` /
+`field_backward_plain`, their plain versions, on the packed layout of
+`ops.field_train`. The kernels take bf16 activations and weights, W in
+{64, 128, 256} with sem_hidden = W / 2, colour width and class count up to
+128, x_enc padded to 64 and d_enc to 32 columns, up to 32 layers; anything
+else raises. They launch on PyTorch's current stream and do not
+synchronise; each wrapper's `.launches` counts its own launches (C' is one
+launch of the multi-pass backward, its recompute included).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops.field_train import (
+    CO_PAD,
+    D_PAD,
+    FieldDims,
+    FieldPacked,
+    FieldSaved,
+)
+from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
+from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
+    BM,
+    MAX_LAYERS,
+    MAX_SPLITS,
+    SPLIT_POINTS,
+    WIDTHS,
+    _check,
+    _skip_mask,
+    _stream,
+)
+
+HEAD_MAX = 128  # largest padded class count / colour width the kernels take
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+
+
+def load() -> ctypes.CDLL:
+    """Build (first call only) and load the kernel library."""
+    lib = _nvcc.load("field_train")
+    lib.field_fwd_launch.argtypes = [_P] * 18 + [_I, _I, _I, _U, _I, _I, _I, _I, _P]
+    lib.field_fwd_launch.restype = _I
+    lib.field_bwd_launch.argtypes = [_P] * 32 + [_I, _I, _I, _U] + [_I] * 7 + [_P]
+    lib.field_bwd_launch.restype = _I
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDims) -> int:
+    """Checks the inputs and the packed weights against `dims`; -> n."""
+    if xp.device.type != "cuda":
+        raise ValueError(f"the field kernels need CUDA tensors, got {xp.device}")
+    w = dims.width
+    if w not in WIDTHS:
+        raise ValueError(f"field width {w} not in {WIDTHS}")
+    if dims.sem_hidden != w // 2:
+        raise ValueError(f"sem_hidden {dims.sem_hidden} != width / 2 = {w // 2}")
+    if dims.cwp > HEAD_MAX or dims.cp > HEAD_MAX:
+        raise ValueError(f"colour width {dims.color_width} / classes {dims.num_classes} "
+                         f"exceed {HEAD_MAX}")
+    if not 1 <= dims.layers <= MAX_LAYERS:
+        raise ValueError(f"{dims.layers} layers outside [1, {MAX_LAYERS}]")
+    n = xp.shape[0]
+    if n < 1:
+        raise ValueError("no points")
+    dev, bf, f32 = xp.device, torch.bfloat16, torch.float32
+    _check("x", xp, bf, (n, F_PAD), dev)
+    _check("d", dp, bf, (n, D_PAD), dev)
+    _check("trunk weights", pk.wp, bf, (dims.layers, w + F_PAD, w), dev)
+    _check("trunk biases", pk.bp, f32, (dims.layers, w), dev)
+    _check("head weights", pk.hw, bf, (w, dims.ho), dev)
+    _check("head biases", pk.hb, f32, (dims.ho,), dev)
+    if dims.use_sem:
+        _check("sem_out weights", pk.wso, bf, (dims.sem_hidden, dims.cp), dev)
+        _check("sem_out biases", pk.bso, f32, (dims.cp,), dev)
+    _check("colour weights", pk.wch, bf, (w + D_PAD, dims.cwp), dev)
+    _check("colour biases", pk.bch, f32, (dims.cwp,), dev)
+    _check("color_out weights", pk.wco, bf, (dims.cwp, CO_PAD), dev)
+    _check("color_out biases", pk.bco, f32, (CO_PAD,), dev)
+    return n
+
+
+def _launch_forward(lib, xp, dp, pk: FieldPacked, dims: FieldDims, n: int):
+    dev, bf = xp.device, torch.bfloat16
+    w = dims.width
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    sem = (torch.empty((n, dims.num_classes), dtype=torch.float32, device=dev)
+           if dims.use_sem else None)
+    saved = FieldSaved(
+        acts=torch.empty((dims.layers, n, w), dtype=bf, device=dev),
+        s=torch.empty((n, dims.sem_hidden), dtype=bf, device=dev) if dims.use_sem else None,
+        feat=torch.empty((n, w), dtype=bf, device=dev),
+        r=torch.empty((n, dims.cwp), dtype=bf, device=dev))
+    with torch.cuda.device(dev):
+        err = lib.field_fwd_launch(
+            xp.data_ptr(), dp.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
+            pk.hw.data_ptr(), pk.hb.data_ptr(), _ptr(pk.wso), _ptr(pk.bso), pk.wch.data_ptr(),
+            pk.bch.data_ptr(), pk.wco.data_ptr(), pk.bco.data_ptr(), out.data_ptr(), _ptr(sem),
+            saved.acts.data_ptr(), _ptr(saved.s), saved.feat.data_ptr(), saved.r.data_ptr(),
+            n, w, dims.layers, _skip_mask(dims.skips, dims.layers), dims.num_classes, dims.cwp,
+            dims.cp, int(dims.use_sem), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"field forward kernel launch failed: CUDA error {err}")
+    return out, sem, saved
+
+
+def field_forward_cuda(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDims):
+    """Kernel C: xp (N, 64), dp (N, 32) bf16, packed weights -> (out (N, 4)
+    f32 = [sigma | rgb logits], sem (N, C) f32 or None, FieldSaved)."""
+    n = _validate(xp, dp, pk, dims)
+    res = _launch_forward(load(), xp, dp, pk, dims, n)
+    field_forward_cuda.launches += 1
+    return res
+
+
+def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
+                        g_sem: Optional[torch.Tensor], pk: FieldPacked, dims: FieldDims,
+                        saved: Optional[FieldSaved] = None,
+                        dw_dtype: torch.dtype = torch.bfloat16):
+    """Kernel C': (xp, dp, g_out (N, 4) f32, g_sem (N, C) f32 or None,
+    packed weights, kernel C's FieldSaved or None) -> (dx (N, 64) bf16,
+    dd (N, 32) bf16, FieldPacked of gradients: dW in `dw_dtype` (bf16 or
+    float32), db float32). With `saved` None it first runs C's forward to
+    recompute the activations."""
+    n = _validate(xp, dp, pk, dims)
+    dev, bf, f32 = xp.device, torch.bfloat16, torch.float32
+    w, layers = dims.width, dims.layers
+    mask = _skip_mask(dims.skips, layers)
+    if dw_dtype not in (bf, f32):
+        raise TypeError(f"dW dtype {dw_dtype} is neither bfloat16 nor float32")
+    _check("g_out", g_out, f32, (n, 4), dev)
+    if dims.use_sem:
+        _check("g_sem", g_sem, f32, (n, dims.num_classes), dev)
+    lib = load()
+    if saved is None:
+        saved = _launch_forward(lib, xp, dp, pk, dims, n)[2]
+    _check("acts", saved.acts, bf, (layers, n, w), dev)
+    if dims.use_sem:
+        _check("s", saved.s, bf, (n, dims.sem_hidden), dev)
+    _check("feat", saved.feat, bf, (n, w), dev)
+    _check("r", saved.r, bf, (n, dims.cwp), dev)
+
+    splits = max(1, min(MAX_SPLITS, -(-n // SPLIT_POINTS)))
+    chunk = -(-n // splits)
+    blocks = -(-n // BM)
+    ho, cp, cwp, sh = dims.ho, dims.cp, dims.cwp, dims.sem_hidden
+    hb_len = ho + cp + cwp + CO_PAD
+    pad64 = lambda m: -(-m // 64) * 64
+    part_len = splits * max(w * ho, pad64(sh) * cp, (w + 64) * cwp, pad64(cwp) * CO_PAD)
+    e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
+    g_h = e(n, w)
+    gbuf, gb_co, gb_r = e(layers, n, w, dt=bf), e(n, CO_PAD, dt=bf), e(n, cwp, dt=bf)
+    gb_sem = e(n, cp, dt=bf) if dims.use_sem else None
+    gb_ho = e(n, ho, dt=bf)
+    db_part_t, db_part_h = e(blocks, layers, w), e(blocks, hb_len)
+    dw_part_t, part = e(splits, layers, w + F_PAD, w), e(part_len)
+    dx, dd = e(n, F_PAD, dt=bf), e(n, D_PAD, dt=bf)
+    dwp, dbp = e(layers, w + F_PAD, w, dt=dw_dtype), e(layers, w)
+    dhw = e(w, ho, dt=dw_dtype)
+    dwso = e(sh, cp, dt=dw_dtype) if dims.use_sem else None
+    dwch, dwco = e(w + D_PAD, cwp, dt=dw_dtype), e(cwp, CO_PAD, dt=dw_dtype)
+    db_h = e(hb_len)
+    with torch.cuda.device(dev):
+        err = lib.field_bwd_launch(
+            xp.data_ptr(), dp.data_ptr(), pk.wp.data_ptr(), pk.hw.data_ptr(), _ptr(pk.wso),
+            pk.wch.data_ptr(), pk.wco.data_ptr(), saved.acts.data_ptr(), _ptr(saved.s),
+            saved.feat.data_ptr(), saved.r.data_ptr(), g_out.data_ptr(), _ptr(g_sem),
+            g_h.data_ptr(), gbuf.data_ptr(), gb_co.data_ptr(), gb_r.data_ptr(), _ptr(gb_sem),
+            gb_ho.data_ptr(), db_part_t.data_ptr(), db_part_h.data_ptr(), dw_part_t.data_ptr(),
+            part.data_ptr(), dx.data_ptr(), dd.data_ptr(), dwp.data_ptr(), dbp.data_ptr(),
+            dhw.data_ptr(), _ptr(dwso), dwch.data_ptr(), dwco.data_ptr(), db_h.data_ptr(),
+            n, w, layers, mask, dims.num_classes, cwp, cp, int(dims.use_sem), splits, chunk,
+            int(dw_dtype == f32), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"field backward kernel launch failed: CUDA error {err}")
+    field_backward_cuda.launches += 1
+    dhb, dbso, dbch, dbco = torch.split(db_h, [ho, cp, cwp, CO_PAD])
+    grads = FieldPacked(dwp, dbp, dhw, dhb, dwso, dbso if dims.use_sem else None, dwch, dbch,
+                        dwco, dbco)
+    return dx, dd, grads
+
+
+field_forward_cuda.launches = 0
+field_backward_cuda.launches = 0

@@ -108,10 +108,11 @@ def trunk_forward_plain(xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
 
 
 def trunk_backward_plain(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
-                         wp: torch.Tensor, skips: tuple[int, ...]):
+                         wp: torch.Tensor, skips: tuple[int, ...],
+                         dw_dtype: torch.dtype | None = None):
     """Plain version of kernel B': (xp, the forward's acts, g (N, W) float32
     upstream gradient) -> (dx (N, F_PAD) compute dtype, dW (L, W + F_PAD, W)
-    rounded to the compute dtype, db (L, W) float32)."""
+    rounded to `dw_dtype` (default: the compute dtype), db (L, W) float32)."""
     layers, _, width = wp.shape
     cdt = xp.dtype
     gx = torch.zeros((xp.shape[0], F_PAD), dtype=torch.float32, device=xp.device)
@@ -133,7 +134,7 @@ def trunk_backward_plain(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
             g = g_inp[:, :width]
         else:
             g = g_inp
-    return gx.to(cdt), dwp.to(cdt), dbp
+    return gx.to(cdt), dwp.to(dw_dtype or cdt), dbp
 
 
 def _forward(xp, wp, bp, skips):

@@ -2,8 +2,11 @@
 
 `make_train_step(cfg, model)` returns `step(state, ds, view_ids, generator,
 draws=None) -> stats`: grouped ray batch -> intervals (kernel A2 on the
-card) -> training render (kernels B / B' for both 8x256 trunks when
-`model.use_pallas`) -> losses -> backward -> Adam, in place on `state`.
+card) -> training render (with `model.use_pallas`, both 8x256 fields
+through the kernels of `model.pallas_mode`: B / B' for the trunk in
+"trunk", C / C' for the whole field in "field", C' as the backward of a
+plain forward in "hybrid") -> losses -> backward -> Adam, in place on
+`state`.
 The optimizer follows optax's definitions, which the reference uses:
 - `exponential_decay`, not staircased: the update at count t uses
   lr * rate ** (t / max_steps);
@@ -137,9 +140,9 @@ def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
 
 
 def resolve_train_model(cfg: Config, model: PanopticNeRF):
-    """The field the step renders with: the fused-trunk adapter when
-    model.use_pallas (kernels B / B' on the card), else the model itself
-    (the flax-placement plain field)."""
+    """The field the step renders with: the fused adapter in
+    model.pallas_mode when model.use_pallas (kernels B / B', C / C' or C'
+    on the card), else the model itself (the flax-placement plain field)."""
     if cfg.model.use_pallas:
         from panopticnerf_tpu_torch.models.fused_apply import FusedTrainAdapter
 

@@ -251,3 +251,133 @@ def test_trunk_wrappers_reject_bad_inputs(cuda_device):
         trunk_backward_cuda(xp, acts, g.to(torch.bfloat16), wp, (2,))
     with pytest.raises(ValueError):
         trunk_backward_cuda(xp, acts[:2], g, wp, (2,))
+
+
+def _field_case(device, n, width, layers, skips, use_sem, viewdirs, classes, cw, seed):
+    """Seeded parameters (leaf order of FieldDims.leaves), packed in bf16,
+    padded inputs and upstream gradients on `device`."""
+    from panopticnerf_tpu_torch.ops.field_train import D_PAD, FieldDims, pack_field
+    from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
+
+    d_dim = 27 if viewdirs else 0
+    dims = FieldDims(x_dim=63, d_dim=d_dim, width=width, sem_hidden=width // 2,
+                     color_width=cw, num_classes=classes, layers=layers, skips=skips,
+                     use_sem=use_sem)
+    ins = {f"trunk_{i}": 63 if i == 0 else width + (63 if i in skips else 0)
+           for i in range(layers)}
+    ins.update(sem_hidden=width, sem_out=width // 2, feature=width, sigma=width,
+               color_hidden=width + d_dim, color_out=cw)
+    outs = {f"trunk_{i}": width for i in range(layers)}
+    outs.update(sem_hidden=width // 2, sem_out=classes, feature=width, sigma=1,
+                color_hidden=cw, color_out=3)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    params = []
+    for name in dims.leaves():
+        params.append(t(rng.normal(size=(outs[name], ins[name])) * np.sqrt(2.0 / ins[name])))
+        params.append(t(rng.normal(size=(outs[name],)) * 0.1))
+    pk = pack_field(params, dims, torch.bfloat16)
+    x = np.zeros((n, F_PAD), np.float32)
+    x[:, :63] = rng.uniform(-1, 1, (n, 63))
+    d = np.zeros((n, D_PAD), np.float32)
+    d[:, :d_dim] = rng.uniform(-1, 1, (n, d_dim))
+    g_out = t(rng.normal(size=(n, 4)))
+    g_sem = t(rng.normal(size=(n, classes))) if use_sem else None
+    return dims, pk, t(x).to(torch.bfloat16), t(d).to(torch.bfloat16), g_out, g_sem
+
+
+@pytest.mark.parametrize("dw_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,width,layers,skips,use_sem,viewdirs,classes,cw", [
+    (1, 256, 8, (5,), True, True, 19, 128), (100, 256, 8, (5,), True, True, 19, 128),
+    (333, 128, 4, (2,), False, True, 19, 64), (4096, 64, 3, (), True, False, 5, 32),
+    (20000, 256, 8, (5,), True, True, 19, 128)])
+def test_field_kernels_match_plain(cuda_device, n, width, layers, skips, use_sem, viewdirs,
+                                   classes, cw, dw_dtype):
+    """Kernels C and C' against their plain versions on the same packed
+    inputs (C' on C's saved activations, in both dW dtypes); C' without
+    saved activations recomputes them and gives the same result bit for
+    bit. The card sums in another order, so bf16 roundings flip in a few
+    places: relative Frobenius error <= 5e-3 for each output."""
+    from panopticnerf_tpu_torch.ops.field_train import field_backward_plain, field_forward_plain
+    from panopticnerf_tpu_torch.ops.field_train_cuda import field_backward_cuda, field_forward_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dwt = getattr(torch, dw_dtype)
+    dims, pk, xp, dp, g_out, g_sem = _field_case(cuda_device, n, width, layers, skips, use_sem,
+                                                 viewdirs, classes, cw, n + width)
+    out, sem, saved = field_forward_cuda(xp, dp, pk, dims)
+    r_out, r_sem, r_saved = field_forward_plain(xp, dp, pk, dims)
+    torch.cuda.synchronize()
+    pairs = [("out", out, r_out), ("sem", sem, r_sem)] + list(zip(saved._fields, saved, r_saved))
+    got = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, saved, dwt)
+    ref = field_backward_plain(xp, dp, g_out, g_sem, pk, dims, saved, dwt)
+    again = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, None, dwt)
+    torch.cuda.synchronize()
+    pairs += [("dx", got[0], ref[0]), ("dd", got[1], ref[1])]
+    pairs += [(f"d{k}", a, b) for k, a, b in zip(got[2]._fields, got[2], ref[2])]
+    for name, a, b in pairs:
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert _rel(a, b) <= 5e-3, (name, _rel(a, b))
+    assert got[2].hw.dtype == dwt and got[2].hb.dtype == torch.float32
+    for a, b in zip([got[0], got[1], *got[2]], [again[0], again[1], *again[2]]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_field_modes_count_launches(cuda_device):
+    """Mode "field" goes through C and C' once each per call, mode
+    "hybrid" through C' only; neither launches B or B'. The kernels take
+    bf16 only."""
+    from panopticnerf_tpu_torch.config import ModelConfig
+    from panopticnerf_tpu_torch.models.nerf import NeRFMLP
+    from panopticnerf_tpu_torch.ops.field_train import (
+        FieldDims,
+        field_hybrid_apply,
+        field_train_apply,
+    )
+    from panopticnerf_tpu_torch.ops.field_train_cuda import field_backward_cuda, field_forward_cuda
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+
+    net = NeRFMLP(ModelConfig(trunk_depth=4, trunk_width=64, skips=(1,), color_width=32,
+                              num_classes=7)).to(cuda_device)
+    dims = FieldDims(x_dim=63, d_dim=27, width=64, sem_hidden=32, color_width=32,
+                     num_classes=7, layers=4, skips=(2,), use_sem=True)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1, 1, (500, 63)).astype(np.float32)).to(cuda_device)
+    d = torch.from_numpy(rng.uniform(-1, 1, (500, 27)).astype(np.float32)).to(cuda_device)
+    counts = lambda: (field_forward_cuda.launches, field_backward_cuda.launches,
+                      trunk_forward_cuda.launches, trunk_backward_cuda.launches)
+    for fn, step in ((field_train_apply, (1, 1, 0, 0)), (field_hybrid_apply, (0, 1, 0, 0))):
+        before = counts()
+        net.zero_grad()
+        sigma, rgb, sem = fn(net, dims, x.to(torch.bfloat16), d.to(torch.bfloat16))
+        (sigma.sum() + rgb.sum() + sem.sum()).backward()
+        assert tuple(a - b for a, b in zip(counts(), before)) == step
+        assert sigma.shape == (500,) and rgb.shape == (500, 3) and sem.shape == (500, 7)
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   for p in net.parameters())
+    with pytest.raises(TypeError):
+        field_train_apply(net, dims, x, d)
+
+
+def test_field_wrappers_reject_bad_inputs(cuda_device):
+    from panopticnerf_tpu_torch.ops.field_train_cuda import field_backward_cuda, field_forward_cuda
+
+    dims, pk, xp, dp, g_out, g_sem = _field_case(cuda_device, 64, 64, 3, (2,), True, True, 5,
+                                                 32, 0)
+    with pytest.raises(ValueError):
+        field_forward_cuda(xp.cpu(), dp, pk, dims)
+    with pytest.raises(TypeError):
+        field_forward_cuda(xp.float(), dp, pk, dims)
+    with pytest.raises(ValueError):
+        field_forward_cuda(xp, dp[:, :16].contiguous(), pk, dims)
+    wide = _field_case(cuda_device, 64, 96, 2, (), True, True, 5, 32, 0)
+    with pytest.raises(ValueError):  # width the kernels do not take
+        field_forward_cuda(*wide[2:4], wide[1], wide[0])
+    with pytest.raises(TypeError):
+        field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, None, torch.float16)
+    with pytest.raises(ValueError):
+        field_backward_cuda(xp, dp, g_out[:10], g_sem, pk, dims)

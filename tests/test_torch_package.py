@@ -21,11 +21,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "import panopticnerf_tpu_torch.engine, panopticnerf_tpu_torch.ops.intersect_cuda\n"
         "import panopticnerf_tpu_torch.train_net, panopticnerf_tpu_torch.train\n"
         "import panopticnerf_tpu_torch.ops.mlp_train, panopticnerf_tpu_torch.ops.mlp_train_cuda\n"
+        "import panopticnerf_tpu_torch.ops.field_train, panopticnerf_tpu_torch.ops.field_train_cuda\n"
         "import panopticnerf_tpu_torch.models.fused_apply\n"
         "import chip_smoke\n"
         # chip_smoke imports the port inside main(); load what it loads
         "from panopticnerf_tpu_torch import engine, convert\n"
-        "from panopticnerf_tpu_torch.ops import _nvcc, intersect_cuda, mlp_train_cuda\n"
+        "from panopticnerf_tpu_torch.ops import _nvcc, field_train_cuda, intersect_cuda, mlp_train_cuda\n"
         "from panopticnerf_tpu_torch.data import make_dataset\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'panopticnerf_tpu'))\n"

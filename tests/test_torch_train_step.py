@@ -6,7 +6,8 @@ step's random numbers (the key chain of `tools/export_torch_train_step.py`)
 through the port's step, and compares loss, stats and the updated params
 with the tolerances of the JAX package's own use_pallas test
 (tests/test_pallas_train_step.py: rtol 1e-4 on the loss, atol 2e-5 on the
-params), float32 compute, with the fused trunk and with the plain field.
+params), float32 compute, with the fused trunk, in the whole-field modes
+`field` and `hybrid`, and with the plain field.
 """
 
 import os
@@ -48,9 +49,11 @@ STEP = [
 ]
 
 
-@pytest.mark.parametrize("use_pallas", ["true", "false"])
-def test_train_step_matches_jax(use_pallas):
-    opts = STEP + ["model.use_pallas", use_pallas]
+@pytest.mark.parametrize("use_pallas,mode", [("true", "trunk"), ("false", "trunk"),
+                                             ("true", "field"), ("true", "hybrid")],
+                         ids=["true", "false", "field", "hybrid"])
+def test_train_step_matches_jax(use_pallas, mode):
+    opts = STEP + ["model.use_pallas", use_pallas, "model.pallas_mode", mode]
     jcfg, cfg = jax_load_config(None, opts), load_config(None, opts)
     jmodel = jax_make_network(jcfg)
     params = jax_init_params(jmodel, jax.random.key(0))

@@ -122,8 +122,9 @@ def test_fused_adapter_matches_pallas_field_apply(dtype, level):
 
 
 def test_fused_field_small_coarse_and_modes():
-    """The proposal-sized coarse field runs the plain flax chain (same
-    numbers as the plain model); modes hybrid / field need kernels C / C'."""
+    """The proposal-sized coarse field runs the plain flax chain in every
+    mode (same numbers as the plain model); an unknown mode raises
+    ValueError (the JAX package would take it as "field")."""
     opts = FIELD + ["model.coarse_trunk_depth", "2", "model.coarse_trunk_width", "32",
                     "model.compute_dtype", "float32"]
     cfg = load_config(None, opts)
@@ -131,14 +132,17 @@ def test_fused_field_small_coarse_and_modes():
     init_params(model, torch.Generator().manual_seed(0))
     pts = torch.rand(4, 3, 3)
     dirs = torch.nn.functional.normalize(torch.randn(4, 1, 3), dim=-1)
-    for a, b in zip(fused_field_apply(model, cfg.model, pts, dirs, level=0),
-                    model(pts, dirs, level=0)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    for mode in ("hybrid", "field"):
-        with pytest.raises(NotImplementedError):
-            fused_field_apply(model, cfg.model, pts, dirs, level=1, mode=mode)
-        with pytest.raises(NotImplementedError):
-            FusedTrainAdapter(model, cfg.model, mode=mode)(pts, dirs, level=0)
+    for mode in ("trunk", "hybrid", "field"):
+        for a, b in zip(fused_field_apply(model, cfg.model, pts, dirs, level=0, mode=mode),
+                        model(pts, dirs, level=0)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        for a, b in zip(FusedTrainAdapter(model, cfg.model, mode=mode)(pts, dirs, level=0),
+                        model(pts, dirs, level=0)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        fused_field_apply(model, cfg.model, pts, dirs, level=1, mode="fused")
+    with pytest.raises(ValueError):
+        FusedTrainAdapter(model, cfg.model, mode="Field")
 
 
 def test_init_params_statistics_match_flax():

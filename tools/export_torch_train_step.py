@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Record one JAX training step of the flagship for the PyTorch port.
 
-    JAX_PLATFORMS=cpu python tools/export_torch_train_step.py
+    JAX_PLATFORMS=cpu python tools/export_torch_train_step.py [--mode trunk|field|hybrid]
 
 Restores `artifacts/panopticnerf/synthetic_flagship/10000` into a fresh
 train state (step 0, Adam moments zero) and reproduces the random numbers
@@ -19,6 +19,12 @@ step's). It writes:
 - `artifacts/torch/synthetic_flagship_10000_jax_step.json`: the step's loss
   terms and stats, `grad_norm`, each leaf's gradient norm, the sign counts.
 
+`--mode field` / `--mode hybrid` run the step with `model.pallas_mode`
+set to that mode (the whole-field kernels C / C' in interpret mode) and
+write `..._jax_step_<mode>.{npz,json}` with the stats, gradient directions
+and update signs only: the draws are the trunk record's (the same key
+chain; the script checks that they are equal when that record exists).
+
 The port replays the draws through its own step and compares
 (`chip_smoke.py`). `jax_step_draws` and `jax_step_reference` are also used
 by the port's CPU parity tests.
@@ -26,6 +32,7 @@ by the port's CPU parity tests.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -128,7 +135,19 @@ def _flat(tree, prefix=""):
     return out
 
 
-def main():
+def record_paths(mode: str):
+    """(npz, json) of the record of `mode` (the trunk record has no suffix)."""
+    if mode == "trunk":
+        return NPZ, JSON
+    return NPZ[:-4] + f"_{mode}.npz", JSON[:-5] + f"_{mode}.json"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mode", choices=("trunk", "field", "hybrid"), default="trunk",
+                    help="model.pallas_mode of the recorded step")
+    args = ap.parse_args(argv)
+
     import jax
     import jax.numpy as jnp
 
@@ -139,6 +158,8 @@ def main():
     t_start = time.time()
     cfg = load_config(CFG_FILE)
     cfg.model_dir = os.path.join(REPO, "artifacts")
+    cfg.model.pallas_mode = args.mode
+    npz_path, json_path = record_paths(args.mode)
     ds, _, model, params, ckpt_step = engine._restore_for_eval(cfg)
     train_ids, _ = train_test_split(ds.images.shape[0], cfg.data.test_every)
     key = jax.random.key(cfg.train.seed + 1)  # run_train's base key
@@ -147,8 +168,14 @@ def main():
                                                   jnp.asarray(train_ids), key)
     g = _flat(grads["params"])
     old, new = _flat(params["params"]), _flat(new_params["params"])
-    arrays = {f"draw/{k}": v for k, v in draws.items()}
-    arrays["view_ids"] = np.asarray(train_ids, np.int32)
+    arrays = {}
+    if args.mode == "trunk":
+        arrays = {f"draw/{k}": v for k, v in draws.items()}
+        arrays["view_ids"] = np.asarray(train_ids, np.int32)
+    elif os.path.exists(NPZ):
+        with np.load(NPZ) as trunk:
+            for k, v in draws.items():
+                np.testing.assert_array_equal(trunk[f"draw/{k}"], v, err_msg=k)
     leaf_norms, signs = {}, {"pos": 0, "neg": 0, "zero": 0}
     for name in sorted(g):
         norm = float(np.linalg.norm(g[name].astype(np.float64)))
@@ -160,11 +187,13 @@ def main():
         signs["neg"] += int((s < 0).sum())
         signs["zero"] += int((s == 0).sum())
     os.makedirs(OUT_DIR, exist_ok=True)
-    np.savez_compressed(NPZ, **arrays)
+    np.savez_compressed(npz_path, **arrays)
     res = {
         "checkpoint": "artifacts/panopticnerf/synthetic_flagship/10000",
         "checkpoint_step": int(ckpt_step),
         "config": "configs/synthetic_flagship.yaml",
+        "pallas_mode": args.mode,
+        "draws": os.path.relpath(NPZ, REPO),
         "backend": jax.default_backend(),
         "step": 0,
         "base_key": f"jax.random.key({cfg.train.seed + 1})",
@@ -175,10 +204,10 @@ def main():
         "update_signs": signs,
         "seconds": round(time.time() - t_start, 1),
     }
-    with open(JSON, "w") as f:
+    with open(json_path, "w") as f:
         json.dump(res, f, indent=1)
         f.write("\n")
-    print(f"wrote {NPZ} ({os.path.getsize(NPZ)} bytes) and {JSON}: loss_total "
+    print(f"wrote {npz_path} ({os.path.getsize(npz_path)} bytes) and {json_path}: loss_total "
           f"{stats['loss_total']:.6f}, grad_norm {stats['grad_norm']:.6f}, "
           f"{res['seconds']} s")
 

@@ -5,14 +5,16 @@
         [--warmup 20] [--steps 10] [KEY VALUE ...]
 
 Builds the config's dataset and model from `init_params` on the first CUDA
-device, takes `--warmup` steps, then records `--steps` steps under
-`torch.profiler` (CPU + CUDA activity) and prints: the card's name and power
-limit, the wall time per step (host clock, synchronised), the device time
-of all kernels per step and its share of the wall time (the device's busy
-share), then the rows with the most self device time: kernels, and the
-operators (aten ops, autograd Functions, the optimizer step) whose
-kernels they include, so those two kinds of row overlap. Fails without a
-CUDA device.
+device, takes `--warmup` steps, times `--steps` steps, then records
+`--steps` more under `torch.profiler` (CPU + CUDA activity) and prints: the
+card's name and power limit, the wall time per step of the timed steps
+(host clock, synchronised) with the card's SM clock, power draw and
+temperature read right after them, the device time of all kernels per step
+and its share of the wall time (the device's busy share), then the rows
+with the most self device time: kernels, and the operators (aten ops,
+autograd Functions, the optimizer step) whose kernels they include, so
+those two kinds of row overlap; then the rows with the most self CPU time
+(the host's side of the step). Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ def main(argv=None):
         step(state, ds, view_ids, gen)
     torch.cuda.synchronize()
     wall_ms = 1000.0 * (time.perf_counter() - t0) / args.steps
+    card = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
@@ -79,12 +84,18 @@ def main(argv=None):
     kernel_ms = sum(dev_us(e) for e in events
                     if e.device_type == DeviceType.CUDA) / 1000.0 / args.steps
     print(f"steps {args.steps} after {args.warmup} warm-up: wall {wall_ms:.3f} ms/step "
-          f"(unprofiled), kernels {kernel_ms:.3f} ms/step "
-          f"({100.0 * kernel_ms / wall_ms:.1f} % of the wall time)")
+          f"(unprofiled; SM clock, power, temperature after them: {card}), kernels "
+          f"{kernel_ms:.3f} ms/step ({100.0 * kernel_ms / wall_ms:.1f} % of the wall time)")
     for e in events[:args.top]:
         ms = dev_us(e) / 1000.0 / args.steps
         kind = "kernel" if e.device_type == DeviceType.CUDA else "op"
         print(f"  {ms:8.3f} ms/step {100.0 * ms / kernel_ms:5.1f} %  {kind:6s} "
+              f"x{e.count // args.steps:<4d} {e.key[:90]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1000.0 / args.steps
+    print(f"host: {host_ms:.3f} ms/step of self CPU time in profiled rows; the most:")
+    for e in host[:args.top // 2]:
+        print(f"  {e.self_cpu_time_total / 1000.0 / args.steps:8.3f} ms/step  "
               f"x{e.count // args.steps:<4d} {e.key[:90]}")
 
 
