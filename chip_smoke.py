@@ -30,14 +30,18 @@ line is printed):
      versions at N = 131,072 and 262,144 points with the checkpoint's
      coarse and fine trunk weights, on the encodings of real sample points
      of a training batch: max abs and relative Frobenius error of out, dW,
-     db, dx; kernel and plain times;
+     db, dx; a second B' call equal to the first bit for bit; kernel and
+     plain times, beside the bound and the byte floor of B''s three-pass
+     plan (the data and weight passes' own traffic at HBM's rate);
   8. kernels C / C' (whole field forward / backward) vs their plain
      versions at the same point counts, weights and encodings: sigma, rgb
      logits, sem, every saved activation, every packed dW / db block, dx
      and dd, with dW in bf16 (mode field) and in float32 (mode hybrid),
      each against its own ceiling; C' with its recompute (as mode hybrid
      runs it) against plain C' on the plain forward's activations, and bit
-     for bit against C' on C's; kernel and plain times;
+     for bit against C' on C's; a second C' call equal to the first bit for
+     bit; kernel and plain times, beside the bound and the plan's byte
+     floor (the trunk's data and weight passes and the heads' weight pass);
   9. one full-width training step from the checkpoint with the JAX step's
      recorded draws (artifacts/torch/synthetic_flagship_10000_jax_step.*),
      in model.pallas_mode trunk, field and hybrid, each against the JAX
@@ -241,7 +245,8 @@ def ptxas_summary(log_path):
     for line in open(log_path):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+((?:trunk|field|reduce)_[a-z_]+?)(?:ILi(\d+)E|I|E)", m.group(1))
+            k = re.search(r"\d+((?:trunk|field|reduce|wgrad)_[a-z_]+?)(?:ILi(\d+)E|I|E)",
+                          m.group(1))
             name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -337,7 +342,11 @@ def trunk_phase(cfg, enc, model, dev):
     """Kernels B / B' vs plain at the step's point counts, with the
     checkpoint's trunk weights on the encodings of real sample points."""
     from panopticnerf_tpu_torch.ops import mlp_train as mt
-    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
+        backward_plan_bytes,
+        trunk_backward_cuda,
+        trunk_forward_cuda,
+    )
 
     gen = torch.Generator(dev).manual_seed(5)
     res = {}
@@ -353,8 +362,11 @@ def trunk_phase(cfg, enc, model, dev):
         acts = trunk_forward_cuda(xp, wp, bp, skips)
         acts_ref = mt.trunk_forward_plain(xp, wp, bp, skips)
         got = trunk_backward_cuda(xp, acts, gout, wp, skips)
+        again = trunk_backward_cuda(xp, acts, gout, wp, skips)
         ref = mt.trunk_backward_plain(xp, acts, gout, wp, skips)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"B' {field} N={npts}: a second call differs from the first")
         errs = {"out": (acts[-1], acts_ref[-1]), "dW": (got[1], ref[1]),
                 "db": (got[2], ref[2]), "dx": (got[0], ref[0])}
         line = []
@@ -379,16 +391,20 @@ def trunk_phase(cfg, enc, model, dev):
         shapes = trunk_shapes(x_dim, width, wp.shape[0], skips)
         t["fwd_bound"] = dense_bound(npts, shapes, 2 * x_dim + 2 * width)
         t["bwd_bound"] = dense_bound(npts, shapes, 4 * x_dim + 4 * width, backward=True)
+        floor = [1e3 * b / PEAK_BYTES for b in backward_plan_bytes(npts, width, wp.shape[0], skips)]
         res[(field, "t")] = t
-        print(f"B/B' vs plain, {field} trunk, N={npts}: " + "; ".join(line))
+        print(f"B/B' vs plain, {field} trunk, N={npts}: " + "; ".join(line)
+              + f"; a second B' call equals the first bit for bit: {same}")
         print(f"  times (ms, median of 5, plain-kernel-kernel-plain): B {t['fwd']:.3f} / "
               f"{t['fwd2']:.3f}, plain {t['fwd_plain']:.3f} / {t['fwd_plain2']:.3f}; "
               f"B' {t['bwd']:.3f} / {t['bwd2']:.3f}, plain {t['bwd_plain']:.3f} / "
               f"{t['bwd_plain2']:.3f}; bounds B {t['fwd_bound'][0]:.3f} ({t['fwd_bound'][1]}), "
-              f"B' {t['bwd_bound'][0]:.3f} ({t['bwd_bound'][1]}); B writes every layer's "
+              f"B' {t['bwd_bound'][0]:.3f} ({t['bwd_bound'][1]}); byte floor of B''s three-pass "
+              f"plan {floor[0]:.3f} (data pass) + {floor[1]:.3f} (weight pass) ms; "
+              f"B writes every layer's "
               f"activation, {nbytes(acts) / 1e9:.3f} GB ({1e3 * nbytes(acts) / PEAK_BYTES:.3f} "
               f"ms at HBM's rate; the function writes the last only)")
-        del acts, acts_ref, got, ref
+        del acts, acts_ref, got, again, ref
     return res
 
 
@@ -399,8 +415,13 @@ def field_phase(cfg, enc, model, dev):
     float32 (mode hybrid), and C' with its own recompute (saved None, as
     mode hybrid runs it)."""
     from panopticnerf_tpu_torch.ops import field_train as ft
-    from panopticnerf_tpu_torch.ops.field_train_cuda import field_backward_cuda, field_forward_cuda
+    from panopticnerf_tpu_torch.ops.field_train_cuda import (
+        field_backward_cuda,
+        field_forward_cuda,
+        heads_weight_plan_bytes,
+    )
     from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import backward_plan_bytes
 
     gen = torch.Generator(dev).manual_seed(7)
     c = cfg.model
@@ -432,6 +453,8 @@ def field_phase(cfg, enc, model, dev):
             got = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, sv, dwt)
             ref = ft.field_backward_plain(xp, dp, g_out, g_sem, pk, dims, sv_ref, dwt)
             grads[tag] = got
+            if tag == "bf16":
+                again = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, sv, dwt)
             errs[f"dx/{tag}"], errs[f"dd/{tag}"] = (got[0], ref[0]), (got[1], ref[1])
             errs.update({f"d{k}/{tag}": (a, b) for k, a, b in zip(got[2]._fields, got[2], ref[2])
                          if a is not None})
@@ -440,6 +463,9 @@ def field_phase(cfg, enc, model, dev):
         same = all(torch.equal(a, b) for a, b in
                    zip((*grads["rec"][:2], *grads["rec"][2]), (*grads["f32"][:2], *grads["f32"][2]))
                    if a is not None)
+        repeat = all(torch.equal(a, b) for a, b in
+                     zip((*grads["bf16"][:2], *grads["bf16"][2]), (*again[:2], *again[2]))
+                     if a is not None)
         stats = {}
         for name, (a, b) in errs.items():
             check(bool(torch.isfinite(a.float()).all()), f"C/C' {field}: non-finite {name}")
@@ -450,11 +476,13 @@ def field_phase(cfg, enc, model, dev):
         for i in range(0, len(names), 6):
             print("  " + "; ".join(f"{k} {stats[k][0]:.2e} {stats[k][1]:.2e}"
                                    for k in names[i:i + 6]))
-        print(f"  C' with its recompute equals C' on C's saved activations bit for bit: {same}")
+        print(f"  C' with its recompute equals C' on C's saved activations bit for bit: {same}; "
+              f"a second C' call equals the first bit for bit: {repeat}")
         for name, (_, r) in stats.items():
             lim = field_ceiling(name)
             check(r <= lim, f"C/C' {field} N={npts}: {name} rel err {r} > {lim}")
         check(same, f"C' {field} N={npts}: the recompute differs from C' on C's activations")
+        check(repeat, f"C' {field} N={npts}: a second call differs from the first")
         t = {}
         fwd_k = lambda: field_forward_cuda(xp, dp, pk, dims)
         fwd_p = lambda: ft.field_forward_plain(xp, dp, pk, dims)
@@ -479,18 +507,23 @@ def field_phase(cfg, enc, model, dev):
         t["fwd_bound"] = dense_bound(npts, shapes, io_in + io_out)
         t["bwd_bound"] = dense_bound(npts, shapes, 2 * io_in + io_out, backward=True)
         t["rec_bound"] = dense_bound(npts, shapes, 2 * io_in + io_out, backward=True, dw_bytes=4)
+        floor = [1e3 * b / PEAK_BYTES for b in
+                 (*backward_plan_bytes(npts, dims.width, dims.layers, dims.skips),
+                  heads_weight_plan_bytes(npts, dims))]
         res[field] = {"errs": stats, "t": t}
         print(f"  times (ms, median of 5, interleaved): C {t['fwd']:.3f} / {t['fwd2']:.3f}, plain "
               f"{t['fwd_plain']:.3f} / {t['fwd_plain2']:.3f}, bound {t['fwd_bound'][0]:.3f} "
               f"({t['fwd_bound'][1]}); C' {t['bwd']:.3f} / {t['bwd2']:.3f}, plain "
               f"{t['bwd_plain']:.3f} / {t['bwd_plain2']:.3f}, bound {t['bwd_bound'][0]:.3f} "
-              f"({t['bwd_bound'][1]}); C' with recompute, f32 dW {t['rec']:.3f} / "
+              f"({t['bwd_bound'][1]}), byte floor of the plan's redesigned passes {floor[0]:.3f} "
+              f"(trunk data) + {floor[1]:.3f} (trunk weight) + {floor[2]:.3f} (heads' weight) ms; "
+              f"C' with recompute, f32 dW {t['rec']:.3f} / "
               f"{t['rec2']:.3f}, plain {t['rec_plain']:.3f} / {t['rec_plain2']:.3f}, bound "
               f"{t['rec_bound'][0]:.3f} ({t['rec_bound'][1]}); C writes "
               f"{nbytes(saved) / 1e9:.3f} GB of saved activations ("
               f"{1e3 * nbytes(saved) / PEAK_BYTES:.3f} ms at HBM's rate, which C' reads back: "
               f"a cost of the design, not of the function)")
-        del out, sem, saved, r_out, r_sem, r_saved, grads, got, ref, errs
+        del out, sem, saved, r_out, r_sem, r_saved, grads, got, again, ref, errs
     return res
 
 

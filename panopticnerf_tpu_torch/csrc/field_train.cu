@@ -49,16 +49,20 @@
 //     -> color_out^T -> mask -> W_ch^T -> g_feature, dd; g_sem -> sem_out^T
 //     -> mask; [g_s | g_sigma | g_feature] -> W_head^T — writing each
 //     product's bf16 g, db partials and the trunk's f32 upstream g; then
-//     B''s data pass for the trunk; (2) split-K weight passes for every
-//     packed block, trunk and heads, plain stores of partials; (3)
-//     reductions over the splits and the db partials in a fixed order (no
-//     atomics: the step stays deterministic).
+//     B''s data pass for the trunk (wgmma, TMA and mbarrier rings,
+//     mlp_common.cuh); (2) split-K weight passes: B''s for the trunk, and
+//     the same kernel once more for the four head blocks together (the
+//     head block, sem_out, [feature | d_enc] with its two A sources, and
+//     color_out), plain stores of partials; (3) reductions over the splits
+//     and the db partials in a fixed order (no atomics: the step stays
+//     deterministic).
 //   Without saved activations (mode "hybrid", whose forward is plain
 //   GEMMs in flax's placement) C' first runs C's forward to recompute them
 //   in the kernel's placement, as the TPU kernel recomputes in VMEM.
 //
-// Simple first: no wgmma/TMA, one 8-warp block per SM, the heads' column
-// passes re-read the tile from shared memory; those are later work.
+// C and C''s heads data pass are still the first design: mma.sync at one
+// 8-warp block per SM, the heads' column passes re-reading the tile from
+// shared memory.
 
 #include "mlp_common.cuh"
 
@@ -324,140 +328,6 @@ size_t heads_smem() {
          2 * D::NCMAX * sizeof(float);
 }
 
-// ------------------------------------------ backward (C'), weight passes
-
-// part[s][m][c] = sum over split s's points p of A[p][m] * B[p][c], for the
-// block's 64 rows m0 ... and c < nc (<= 32 * NT). Row m of A is column m of
-// A1 (m < m1) or column m - m1 of A2 (m < m1 + m2); other rows are 0.
-// The trunk's weight pass (mlp_common.cuh) stays a kernel of its own: it
-// covers all L layers in one launch at the template width, where this one
-// serves one block at a time with a run-time width (32 to 416 columns).
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-    field_wgrad_kernel(const bf16* __restrict__ A1, int lda1, int m1, const bf16* __restrict__ A2,
-                       int lda2, int m2, const bf16* __restrict__ B, int nc,
-                       float* __restrict__ part, int m_pad, int n, int chunk) {
-  constexpr int LDA = kTK + kPad;
-  const int ldb = nc + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* abuf = reinterpret_cast<bf16*>(smem_raw);  // 2 x kKC x LDA: [point][m]
-  bf16* bbuf = abuf + 2 * kKC * LDA;               // 2 x kKC x ldb: [point][c]
-  const int m0 = blockIdx.x * kTK, s = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, gq = lane >> 2, tq = lane & 3;
-  const int nta = nc / 32, wcol = (warp & 3) * (nc / 4);
-  const int p_begin = s * chunk;
-  const int p_end = min(n, p_begin + chunk);
-  const int nsteps = p_end > p_begin ? (p_end - p_begin + kKC - 1) / kKC : 0;
-
-  auto load = [&](int st) {
-    bf16* da = abuf + (st & 1) * kKC * LDA;
-    bf16* db = bbuf + (st & 1) * kKC * ldb;
-    for (int i = tid; i < kKC * (kTK / 8); i += kThreads) {
-      const int r = i / (kTK / 8), m = m0 + (i % (kTK / 8)) * 8;
-      const int p = p_begin + st * kKC + r;
-      bool ok = p < p_end;
-      const bf16* src = A1;
-      if (m < m1)
-        src = A1 + (size_t)p * lda1 + m;
-      else if (m - m1 < m2)
-        src = A2 + (size_t)p * lda2 + (m - m1);
-      else
-        ok = false;
-      cp_async16(da + r * LDA + (m - m0), ok ? src : A1, ok);
-    }
-    for (int i = tid; i < kKC * (nc / 8); i += kThreads) {
-      const int r = i / (nc / 8), seg = i % (nc / 8);
-      const int p = p_begin + st * kKC + r;
-      const bool ok = p < p_end;
-      cp_async16(db + r * ldb + seg * 8, B + (size_t)(ok ? p : 0) * nc + seg * 8, ok);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][NT][4];
-  zero_acc(acc);
-  if (nsteps > 0) load(0);
-  for (int st = 0; st < nsteps; ++st) {
-    if (st + 1 < nsteps) {
-      load(st + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sa = abuf + (st & 1) * kKC * LDA;
-    const bf16* sb = bbuf + (st & 1) * kKC * ldb;
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)  // A^T: rows m, reduction over points
-        ldsm_x4_t(a[mi], sa + (kk + (lane & 7) + ((lane >> 4) & 1) * 8) * LDA + wm * 32 +
-                             mi * 16 + ((lane >> 3) & 1) * 8);
-      const bf16* brow = sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + wcol;
-#pragma unroll
-      for (int q = 0; q < NT / 2; ++q) {
-        const int nt = 2 * q;
-        if (nt + 1 < nta) {
-          uint32_t b[4];
-          ldsm_x4_t(b, brow + nt * 8 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
-            mma_bf16(acc[mi][nt + 1], a[mi], b[2], b[3]);
-          }
-        } else if (nt < nta) {
-          uint32_t b[2];
-          ldsm_x2_t(b, brow + nt * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
-        }
-      }
-      if ((NT & 1) && NT - 1 < nta) {
-        uint32_t b[2];
-        ldsm_x2_t(b, brow + (NT - 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][NT - 1], a[mi], b[0], b[1]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = part + ((size_t)s * m_pad + m0) * nc;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (nt >= nta) continue;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + mi * 16 + gq + h * 8;
-        *reinterpret_cast<float2*>(out + (size_t)r * nc + wcol + nt * 8 + 2 * tq) =
-            make_float2(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
-      }
-  }
-}
-
-// dW (m_out x nc) = A^T B over all points, through `part` (splits x
-// round_up(m_out, 64) x nc floats) and the shared in-order reduction.
-template <int NT, typename DW>
-int weight_grad(const bf16* A1, int lda1, int m1, const bf16* A2, int lda2, int m2,
-                const bf16* B, int nc, float* part, int m_out, DW* dw, int n, int splits,
-                int chunk, cudaStream_t s) {
-  const int m_pad = (m_out + kTK - 1) / kTK * kTK;
-  const size_t smem = (size_t)(2 * kKC * (kTK + kPad) + 2 * kKC * (nc + kPad)) * sizeof(bf16);
-  cudaError_t e = cudaFuncSetAttribute(field_wgrad_kernel<NT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  field_wgrad_kernel<NT><<<dim3(m_pad / kTK, splits), kThreads, smem, s>>>(
-      A1, lda1, m1, A2, lda2, m2, B, nc, part, m_pad, n, chunk);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  reduce_splits_kernel<DW><<<512, 256, 0, s>>>(part, splits, (size_t)m_pad * nc,
-                                               (size_t)m_out * nc, dw);
-  return (int)cudaGetLastError();
-}
-
 struct FwdArgs {
   const bf16 *x, *d, *wp;
   const float* bp;
@@ -479,8 +349,8 @@ struct FwdArgs {
 template <int W>
 int fwd(const FwdArgs& a, cudaStream_t s) {
   const size_t smem = fwd_smem<W>();
-  cudaError_t e = cudaFuncSetAttribute(field_fwd_kernel<W>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t e = allow_smem((const void*)field_fwd_kernel<W>, (int)smem, smem_set);
   if (e != cudaSuccess) return (int)e;
   field_fwd_kernel<W><<<(a.n + kBM - 1) / kBM, kThreads, smem, s>>>(
       a.x, a.d, a.wp, a.bp, a.hw, a.hb, a.wso, a.bso, a.wch, a.bch, a.wco, a.bco, a.out, a.sem,
@@ -494,7 +364,7 @@ struct BwdArgs {
   const float *g_out, *g_sem;
   float* g_h;
   bf16 *gbuf, *gb_co, *gb_r, *gb_sem, *gb_ho;
-  float *db_part_t, *db_part_h, *dw_part_t, *part;
+  float *db_part_t, *db_part_h, *gx_part, *dw_part_t, *part;
   bf16 *dx, *dd;
   void *dwp, *dhw, *dwso, *dwch, *dwco;
   float *dbp, *db_h;
@@ -508,35 +378,67 @@ int bwd(const BwdArgs& a, cudaStream_t s) {
   using D = Dims<W>;
   const int blocks = (a.n + kBM - 1) / kBM;
   const size_t smem = heads_smem<W>();
-  cudaError_t e = cudaFuncSetAttribute(field_bwd_heads_kernel<W>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t e = allow_smem((const void*)field_bwd_heads_kernel<W>, (int)smem, smem_set);
   if (e != cudaSuccess) return (int)e;
   field_bwd_heads_kernel<W><<<blocks, kThreads, smem, s>>>(
       a.g_out, a.g_sem, a.s_sv, a.r_sv, a.hw, a.wso, a.wch, a.wco, a.g_h, a.gb_co, a.gb_r,
       a.gb_sem, a.gb_ho, a.dd, a.db_part_h, a.n, a.classes, a.cwp, a.cp, a.use_sem);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  int err = trunk_bwd<W, DW>(a.x, a.wp, a.acts, a.g_h, a.gbuf, a.db_part_t, a.dw_part_t, a.dx,
-                             static_cast<DW*>(a.dwp), a.dbp, a.n, a.layers, a.skip_mask, a.splits,
-                             a.chunk, s);
+  // the head blocks' dW, one launch of the trunk's weight pass; `part`
+  // holds each block's splits x rows (64-row slices) x columns in turn;
+  // map 0 (acts) is the one the trunk's passes encode
+  WgradArgs wa{};
+  wa.n = a.n;
+  wa.chunk = a.chunk;
+  int err = trunk_bwd<W, DW>(a.x, a.wp, a.acts, a.g_h, a.gbuf, a.db_part_t, a.gx_part,
+                             a.dw_part_t, a.dx, static_cast<DW*>(a.dwp), a.dbp, a.n, a.layers,
+                             a.skip_mask, a.splits, a.chunk, wa.map[0], s);
   if (err) return err;
-  const bf16* h = a.acts + (size_t)(a.layers - 1) * a.n * W;
-  // the head block: dW (W x HO) = h^T g_ho
-  err = weight_grad<13, DW>(h, W, W, nullptr, 0, 0, a.gb_ho, D::HO, a.part, W,
-                            static_cast<DW*>(a.dhw), a.n, a.splits, a.chunk, s);
-  if (err) return err;
+  if ((err = make_tma_map(&wa.map[2], a.feat, W, a.n, 1)) ||
+      (err = make_tma_map(&wa.map[3], a.d, kDPad, a.n, 1)) ||
+      (err = make_tma_map(&wa.map[4], a.r_sv, a.cwp, a.n, 1)) ||
+      (err = make_tma_map(&wa.map[5], a.gb_ho, D::HO, a.n, 1)) ||
+      (err = make_tma_map(&wa.map[7], a.gb_r, a.cwp, a.n, 1)) ||
+      (err = make_tma_map(&wa.map[8], a.gb_co, kCO, a.n, 1)))
+    return err;
+  if (a.use_sem && ((err = make_tma_map(&wa.map[1], a.s_sv, D::SH, a.n, 1)) ||
+                    (err = make_tma_map(&wa.map[6], a.gb_sem, a.cp, a.n, 1))))
+    return err;
+  struct Reduce {
+    const float* part;
+    size_t stride, total;
+    DW* dw;
+  } red[4];
+  int nred = 0, ctas = 0;
+  float* part = a.part;
+  uint32_t sl[kMaxSlices];
+  auto job = [&](int slices, int b_map, int nc, int m_out, void* dw) {
+    const size_t stride = (size_t)slices * 64 * nc;
+    add_wgrad_job(wa, ctas, W, sl, slices, b_map, 0, nc, part, (long long)stride);
+    red[nred++] = {part, stride, (size_t)m_out * nc, static_cast<DW*>(dw)};
+    part += stride * a.splits;
+  };
+  // the head block: dW (W x HO) = h^T g_ho, h = acts[L - 1]
+  for (int i = 0; i < W / 64; ++i) sl[i] = wslice(0, a.layers - 1, 64 * i);
+  job(W / 64, 5, D::HO, W, a.dhw);
   if (a.use_sem) {  // sem_out: (SH x cp) = s^T g_sem
-    err = weight_grad<4, DW>(a.s_sv, D::SH, D::SH, nullptr, 0, 0, a.gb_sem, a.cp, a.part, D::SH,
-                             static_cast<DW*>(a.dwso), a.n, a.splits, a.chunk, s);
-    if (err) return err;
+    for (int i = 0; i < (D::SH + 63) / 64; ++i) sl[i] = wslice(1, 0, 64 * i);
+    job((D::SH + 63) / 64, 6, a.cp, D::SH, a.dwso);
   }
   // colour hidden: ((W + 32) x cwp) = [feature | d]^T g_r
-  err = weight_grad<4, DW>(a.feat, W, W, a.d, kDPad, kDPad, a.gb_r, a.cwp, a.part, W + kDPad,
-                           static_cast<DW*>(a.dwch), a.n, a.splits, a.chunk, s);
-  if (err) return err;
+  for (int i = 0; i < W / 64; ++i) sl[i] = wslice(2, 0, 64 * i);
+  sl[W / 64] = wslice(3, 0, 0);
+  job(W / 64 + 1, 7, a.cwp, W + kDPad, a.dwch);
   // color_out: (cwp x 32) = r^T g_co
-  err = weight_grad<1, DW>(a.r_sv, a.cwp, a.cwp, nullptr, 0, 0, a.gb_co, kCO, a.part, a.cwp,
-                           static_cast<DW*>(a.dwco), a.n, a.splits, a.chunk, s);
-  if (err) return err;
+  for (int i = 0; i < (a.cwp + 63) / 64; ++i) sl[i] = wslice(4, 0, 64 * i);
+  job((a.cwp + 63) / 64, 8, kCO, a.cwp, a.dwco);
+  if ((err = wgrad<W>(wa, ctas, a.splits, s))) return err;
+  for (int i = 0; i < nred; ++i) {
+    reduce_splits_kernel<DW><<<512, 256, 0, s>>>(red[i].part, a.splits, red[i].stride,
+                                                 red[i].total, red[i].dw);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
   const int hb_len = D::HO + a.cp + a.cwp + kCO;
   reduce_db_kernel<<<(hb_len + 255) / 256, 256, 0, s>>>(a.db_part_h, a.db_h, blocks, hb_len);
   return (int)cudaGetLastError();
@@ -549,7 +451,8 @@ int bwd(const BwdArgs& a, cudaStream_t s) {
 // every output and scratch buffer, and requires W in {64, 128, 256},
 // sem_hidden = W / 2, CP and CWP multiples of 32 up to 128, 1 <= L <= 32
 // and n >= 1. Each returns 0 when every launch was accepted, else the CUDA
-// error code; nothing synchronises.
+// error code (kTmaEncodeFailed when a TMA descriptor cannot be encoded);
+// nothing synchronises.
 extern "C" int field_fwd_launch(const void* x, const void* d, const void* wp, const void* bp,
                                 const void* hw, const void* hb, const void* wso, const void* bso,
                                 const void* wch, const void* bch, const void* wco,
@@ -581,11 +484,11 @@ extern "C" int field_bwd_launch(const void* x, const void* d, const void* wp, co
                                 const void* acts, const void* s_sv, const void* feat,
                                 const void* r_sv, const void* g_out, const void* g_sem, void* g_h,
                                 void* gbuf, void* gb_co, void* gb_r, void* gb_sem, void* gb_ho,
-                                void* db_part_t, void* db_part_h, void* dw_part_t, void* part,
-                                void* dx, void* dd, void* dwp, void* dbp, void* dhw, void* dwso,
-                                void* dwch, void* dwco, void* db_h, int n, int width, int layers,
-                                unsigned skip_mask, int classes, int cwp, int cp, int use_sem,
-                                int splits, int chunk, int dw_f32, void* stream) {
+                                void* db_part_t, void* db_part_h, void* gx_part, void* dw_part_t,
+                                void* part, void* dx, void* dd, void* dwp, void* dbp, void* dhw,
+                                void* dwso, void* dwch, void* dwco, void* db_h, int n, int width,
+                                int layers, unsigned skip_mask, int classes, int cwp, int cp,
+                                int use_sem, int splits, int chunk, int dw_f32, void* stream) {
   const auto cb = [](const void* p) { return static_cast<const bf16*>(p); };
   const BwdArgs a{cb(x), cb(d), cb(wp), cb(hw), cb(wso), cb(wch), cb(wco), cb(acts), cb(s_sv),
                   cb(feat), cb(r_sv), static_cast<const float*>(g_out),
@@ -593,10 +496,10 @@ extern "C" int field_bwd_launch(const void* x, const void* d, const void* wp, co
                   static_cast<bf16*>(gbuf), static_cast<bf16*>(gb_co), static_cast<bf16*>(gb_r),
                   static_cast<bf16*>(gb_sem), static_cast<bf16*>(gb_ho),
                   static_cast<float*>(db_part_t), static_cast<float*>(db_part_h),
-                  static_cast<float*>(dw_part_t), static_cast<float*>(part),
-                  static_cast<bf16*>(dx), static_cast<bf16*>(dd), dwp, dhw, dwso, dwch, dwco,
-                  static_cast<float*>(dbp), static_cast<float*>(db_h), n, layers, skip_mask,
-                  classes, cwp, cp, use_sem, splits, chunk};
+                  static_cast<float*>(gx_part), static_cast<float*>(dw_part_t),
+                  static_cast<float*>(part), static_cast<bf16*>(dx), static_cast<bf16*>(dd), dwp,
+                  dhw, dwso, dwch, dwco, static_cast<float*>(dbp), static_cast<float*>(db_h), n,
+                  layers, skip_mask, classes, cwp, cp, use_sem, splits, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PNT_FIELD_BWD(WW) \
   (dw_f32 ? bwd<WW, float>(a, s) : bwd<WW, bf16>(a, s))

@@ -11,8 +11,24 @@
 //   column warp holds NC / 32 m16n8 tiles. With kFull the width is the
 //   template's; otherwise `nc` (<= 32 * NT) is read at run time;
 // - the trunk's forward over one tile (kernel B's body, also C's first
-//   half) and the trunk's backward passes (kernel B', also C''s second
-//   half), with dW written as bf16 or as float32.
+//   half);
+// - the trunk's backward (kernel B', also the trunk half of C'), three
+//   passes written for Hopper with wgmma, TMA and mbarrier rings
+//   (hopper.cuh): a persistent data pass over 128-point tiles, a split-K
+//   weight pass that also serves C''s head blocks, and in-order
+//   reductions; dW written as bf16 or as float32.
+//
+// What bounds the trunk's backward: at W = 256, L = 8 the three-pass plan
+// moves ~9.3 KB per point in the data pass (the f32 upstream g, 8 masks
+// read from the saved activations, 8 bf16 g written, dx) and ~7.9 KB in
+// the weight pass (7 activations, x twice, 8 bf16 g) against ~2 MFLOP of
+// products: HBM bound on the H100 (0.73 + 0.62 ms at 262,144 points). What
+// the design does about it: TMA moves every tile (weights, masks, g, the
+// bf16 g out) with no thread spending registers or instructions on the
+// copy; the mask of the next epilogue and the next weight chunks load
+// while the tensor cores work; the products are wgmma from shared memory
+// (the data pass keeps the tile's bf16 g there as the A operand, one
+// layer to the next); one block per SM keeps many bytes in flight.
 //
 // Everything sits in an anonymous namespace: each .cu file that includes
 // it compiles its own copy.
@@ -23,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBM = 128;       // points per block (forward, backward data pass)
@@ -30,13 +48,8 @@ constexpr int kThreads = 256;  // 8 warps: 2 along points x 4 along columns
 constexpr int kFPad = 64;      // x_enc columns
 constexpr int kKC = 32;        // reduction depth of one staged chunk
 constexpr int kPad = 8;        // bf16 row padding (16 bytes)
-constexpr int kTK = 64;        // weight rows per block in the weight pass
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte async copy; with pred false the destination is zero-filled.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
@@ -53,10 +66,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
+  ldsm_x4_at(r, smem_u32(p));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -364,10 +374,10 @@ size_t trunk_fwd_smem() {
   return (size_t)(kBM * (W + kFPad + kPad) + 2 * kKC * (W + kPad)) * sizeof(bf16);
 }
 
-// ------------------------------------------------ trunk backward, data pass
+// ------------------------------------------------------ trunk backward
 
 // g (f32 accumulators) * (act > 0), act (N, ld) bf16 global; rows past n
-// are zero.
+// are zero (the heads' data pass of field_train.cu).
 template <int NT, bool kFull>
 __device__ __forceinline__ void mask_by(float (&acc)[4][NT][4], int nc,
                                         const bf16* __restrict__ act, int ld, int row0, int n) {
@@ -384,182 +394,491 @@ __device__ __forceinline__ void mask_by(float (&acc)[4][NT][4], int nc,
   });
 }
 
-// g (f32, fragment layout in acc) -> g * (act_l > 0) -> bf16 into gs; this
-// block's db partial of layer l. Ends synchronised.
-template <int W>
-__device__ __forceinline__ void mask_round_store(float (&acc)[4][W / 32][4], bf16* gs,
-                                                 float* dbw, const bf16* __restrict__ act_l,
-                                                 float* __restrict__ db_out, int row0, int n) {
-  constexpr int LDG = W + kPad, NI = W / 32;
-  mask_by<NI, true>(acc, W, act_l, W, row0, n);
-  for_each_pair<NI, true>(acc, W, [&](int r, int col, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(gs + r * LDG + col) = __floats2bfloat162_rn(v0, v1);
-  });
-  col_sums<NI, true>(acc, W, dbw, db_out);
+// The backward kernels below are warp-specialised: warpgroup 0 produces
+// (its warps 0 and 1 issue TMA loads, one lane each), warpgroups 1 and 2
+// consume (wgmma, epilogues); setmaxnreg moves registers from the
+// producers to the consumers. The split must fit the pool the block
+// launches with, 384 x 168 registers (128 x 56 + 256 x 224 = 64,512; a
+// split that needs more waits for registers that never come). Every ring
+// stage is released by the 8 consumer warps.
+constexpr int kBwdThreads = 384;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use on the H100
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads, 1)
-    trunk_bwd_data_kernel(const bf16* __restrict__ wp,    // (L, W + 64, W)
-                          const bf16* __restrict__ acts,  // (L, N, W)
-                          const float* __restrict__ g,    // (N, W)
-                          bf16* __restrict__ gbuf,        // (L, N, W) out: bf16 g per layer
-                          float* __restrict__ db_part,    // (blocks, L, W) out
-                          bf16* __restrict__ dx,          // (N, 64) out
-                          int n, int layers, unsigned skip_mask) {
-  constexpr int LDG = W + kPad, LDT = kKC + kPad, NI = W / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw);  // kBM x LDG
-  bf16* wbuf = gs + kBM * LDG;                   // 2 x W x LDT
-  float* dbw = reinterpret_cast<float*>(wbuf + 2 * W * LDT);  // 2 x W
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kBM;
-  float* db_blk = db_part + (size_t)blockIdx.x * layers * W;
-
-  float acc[4][NI][4];
-  float gx[4][2][4];
-  zero_acc(gx);
-  for_each_pair<NI, true>(acc, W, [&](int r, int col, float& v0, float& v1) {
-    float2 v = make_float2(0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float2*>(g + (size_t)(row0 + r) * W + col);
-    v0 = v.x;
-    v1 = v.y;
-  });
-  mask_round_store<W>(acc, gs, dbw, acts + (size_t)(layers - 1) * n * W,
-                      db_blk + (size_t)(layers - 1) * W, row0, n);
-
-  for (int l = layers - 1; l >= 0; --l) {
-    // gs holds layer l's bf16 g: keep it for the weight pass
-    bf16* gl = gbuf + (size_t)l * n * W;
-    for (int i = tid; i < kBM * (W / 8); i += kThreads) {
-      const int r = i / (W / 8), seg = i % (W / 8);
-      if (row0 + r < n)
-        *reinterpret_cast<uint4*>(gl + (size_t)(row0 + r) * W + seg * 8) =
-            *reinterpret_cast<const uint4*>(gs + r * LDG + seg * 8);
-    }
-    const bool skip = (skip_mask >> l) & 1u;
-    const bf16* wl = wp + (size_t)l * (W + kFPad) * W;
-    if (l == 0 || skip) gemm_nt<2, true>(gx, gs, LDG, 0, wbuf, wl + (size_t)W * W, W, W, 64);
-    if (l > 0) {
-      zero_acc(acc);
-      gemm_nt<NI, true>(acc, gs, LDG, 0, wbuf, wl, W, W, W);  // h rows
-      mask_round_store<W>(acc, gs, dbw, acts + (size_t)(l - 1) * n * W,
-                          db_blk + (size_t)(l - 1) * W, row0, n);
-    }
-  }
-  for_each_pair<2, true>(gx, 64, [&](int r, int col, float v0, float v1) {
-    if (row0 + r < n)
-      *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)(row0 + r) * kFPad + col) =
-          __floats2bfloat162_rn(v0, v1);
-  });
+// One consumer warp's release of a stage (8 arrivals complete it).
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
-// ---------------------------------------------- trunk backward, weight pass
+// ------------------------------------------------ trunk backward, data pass
 
+// Shared memory of the data pass (offsets from a 1024-aligned base): the
+// tile's bf16 g (wgmma's K-major A operand) and the mask tile (a saved
+// activation), each [W / 64][128 rows][64] in 64 x 64 TMA boxes; a ring of
+// stages, each 64 columns of one layer's W h rows or of its 64 x rows (the
+// K-major B operand of g W^T: three stages at W = 256); barriers. Each
+// consumer warp's column sums go into its own rows of the mask tile,
+// which the epilogue releases after summing them.
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-    trunk_bwd_weight_kernel(const bf16* __restrict__ x,     // (N, 64)
-                            const bf16* __restrict__ acts,  // (L, N, W)
-                            const bf16* __restrict__ gbuf,  // (L, N, W)
-                            float* __restrict__ dw_part,    // (S, L, W + 64, W) out, 0 where
-                                                            // the layer reads no row
-                            int n, int layers, unsigned skip_mask, int chunk) {
-  constexpr int LDA = kTK + kPad, LDB = W + kPad, NI = W / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* abuf = reinterpret_cast<bf16*>(smem_raw);  // 2 x kKC x LDA: [point][k]
-  bf16* bbuf = abuf + 2 * kKC * LDA;               // 2 x kKC x LDB: [point][o]
-  const int kt = blockIdx.x, s = blockIdx.y, l = blockIdx.z;
-  const bool skip = (skip_mask >> l) & 1u;
-  const int lo = layer_row_lo(l, W);
-  const int r0 = kt * kTK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3, gq = lane >> 2, tq = lane & 3;
-  float* out = dw_part + ((size_t)(s * layers + l) * (W + kFPad) + r0) * W;
-  if (r0 < lo || r0 >= lo + layer_rows(l, skip, W)) {  // rows the layer does not read: 0
-    for (int i = tid; i < kTK * W / 4; i += kThreads)
-      reinterpret_cast<float4*>(out)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
+struct DataSmem {
+  static constexpr int kTileBytes = kBM * W * 2;
+  static constexpr int kStageBytes = (W > kFPad ? W : kFPad) * 128;
+  static constexpr int kFree = kSmemMax - 2 * kTileBytes - 1024 - 256;
+  static constexpr int kStages = kFree / kStageBytes < 4 ? kFree / kStageBytes : 4;
+  static constexpr int kGs = 0, kMask = kTileBytes, kRing = 2 * kTileBytes;
+  static constexpr int kBar = kRing + kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 256 + 1024;  // + slack for the alignment
+  static_assert(kStages >= 2, "the data pass needs two ring stages");
+};
 
-  const bf16* asrc;
-  int lda_g;
-  if (r0 < W) {
-    asrc = acts + (size_t)(l - 1) * n * W + r0;
-    lda_g = W;
-  } else {
-    asrc = x + (r0 - W);
-    lda_g = kFPad;
-  }
-  const bf16* bsrc = gbuf + (size_t)l * n * W;
-  const int p_begin = s * chunk;
-  const int p_end = min(n, p_begin + chunk);
-  const int nsteps = p_end > p_begin ? (p_end - p_begin + kKC - 1) / kKC : 0;
+// One exchange of the column sums: a (kept by lanes without bit o) and b
+// (kept by lanes with it) -> a = the kept value plus the partner's.
+__device__ __forceinline__ void halve(float& a, float b, int lane, int o) {
+  const bool hi = lane & o;
+  const float other = __shfl_xor_sync(0xffffffffu, hi ? a : b, o);
+  a = (hi ? b : a) + other;
+}
 
-  auto load = [&](int st) {
-    bf16* da = abuf + (st & 1) * kKC * LDA;
-    bf16* db = bbuf + (st & 1) * kKC * LDB;
-    for (int i = tid; i < kKC * (kTK / 8); i += kThreads) {
-      const int r = i / (kTK / 8), seg = i % (kTK / 8);
-      const int p = p_begin + st * kKC + r;
-      const bool ok = p < p_end;
-      cp_async16(da + r * LDA + seg * 8, asrc + (size_t)(ok ? p : 0) * lda_g + seg * 8, ok);
-    }
-    for (int i = tid; i < kKC * (W / 8); i += kThreads) {
-      const int r = i / (W / 8), seg = i % (W / 8);
-      const int p = p_begin + st * kKC + r;
-      const bool ok = p < p_end;
-      cp_async16(db + r * LDB + seg * 8, bsrc + (size_t)(ok ? p : 0) * W + seg * 8, ok);
-    }
-    cp_async_commit();
+// The epilogue of one layer on a consumer warpgroup's 64 x W accumulators
+// (f32 g): mask by the saved activation (the mask tile, ldmatrix), bf16
+// rounding into gs (the next product's A operand, stmatrix) and a TMA
+// store of those rows to gbuf[layer], and this warpgroup's db partial from
+// the f32 masked g (summed in place: the two rows of each thread, then a
+// halving exchange over the warp's 8 row groups, then the four warps in
+// order through `dbw`, the warpgroup's rows of the mask tile).
+template <int W>
+__device__ __forceinline__ void data_epilogue(float (&acc)[W / 2], const unsigned char* mask,
+                                              unsigned char* gs, float* dbw, uint64_t* mfull,
+                                              uint64_t* mempty, uint32_t& mi,
+                                              const CUtensorMap* gmap, float* __restrict__ db_out,
+                                              int cw, int row0, int n, int layer, bool add) {
+  constexpr int R = W / 4;      // column sums per thread before the exchange
+  constexpr int kWarpDbw = 512;  // floats in a warp's 16 rows of the mask tile (block 0)
+  const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+  float prev[(W + 127) / 128];  // this block's sums of its earlier tiles, loaded early
+#pragma unroll
+  for (int i = 0; i < (W + 127) / 128; ++i)
+    prev[i] = add && t + 128 * i < W ? db_out[t + 128 * i] : 0.f;
+  // ldmatrix / stmatrix: lane l addresses row l % 8 + 8 ((l / 8) % 2) of
+  // the warp's 16 rows in 8-column block 2 jp + l / 16, i.e. chunk
+  // (2 jp) % 8 ^ l / 16 of 64-column block jp / 4; r[q] then pairs with
+  // acc[8 jp + 2 q], acc[8 jp + 2 q + 1]
+  const uint32_t rsw =
+      sw128_row(cw * 64 + 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) ^ ((lane >> 4) << 4);
+  const uint32_t mrow = smem_u32(mask) + rsw, grow = smem_u32(gs) + rsw;
+  auto at = [](uint32_t row, int jp) {
+    return (row ^ (((2 * jp) & 7) << 4)) + (jp >> 2) * kBM * 128;
   };
-
-  float acc[2][NI][4];
-  zero_acc(acc);
-
-  if (nsteps > 0) load(0);
-  for (int st = 0; st < nsteps; ++st) {
-    if (st + 1 < nsteps) {
-      load(st + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  mbar_wait(mfull, mi & 1);
+  ++mi;
+#pragma unroll
+  for (int jp = 0; jp < W / 16; ++jp) {
+    uint32_t m[4];
+    ldsm_x4_at(m, at(mrow, jp));
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // act > 0: bf16 bits in [0x0001, 0x7f80] (NaN is not)
+        const uint32_t bits = (m[q] >> (16 * e)) & 0xffffu;
+        acc[8 * jp + 2 * q + e] = bits - 1u < 0x7f80u ? acc[8 * jp + 2 * q + e] : 0.f;
+      }
+  }
+  if (t == 0) tma_store_wait_read();  // the previous store out of gs has read it
+  named_bar(1 + cw, 128);
+#pragma unroll
+  for (int jp = 0; jp < W / 16; ++jp) {
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 b =
+          __floats2bfloat162_rn(acc[8 * jp + 2 * q], acc[8 * jp + 2 * q + 1]);
+      v[q] = *reinterpret_cast<const uint32_t*>(&b);
     }
-    __syncthreads();
-    const bf16* sa = abuf + (st & 1) * kKC * LDA;
-    const bf16* sb = bbuf + (st & 1) * kKC * LDB;
+    stsm_x4_at(at(grow, jp), v);
+  }
+  fence_proxy_async();
+  // column sums in place: value k = 2 j + e (column 8 j + 2 (lane % 4) + e)
+  // sits at acc[4 j + e]
+#define PNT_V(k) acc[4 * ((k) >> 1) + ((k)&1)]
 #pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t a[2][4];
+  for (int j = 0; j < W / 8; ++j) {
+    acc[4 * j] += acc[4 * j + 2];
+    acc[4 * j + 1] += acc[4 * j + 3];
+  }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)  // A = inp^T: rows k, reduction over points
-        ldsm_x4_t(a[mi], sa + (kk + (lane & 7) + ((lane >> 4) & 1) * 8) * LDA + wm * 32 +
-                             mi * 16 + ((lane >> 3) & 1) * 8);
+  for (int i = 0; i < R / 2; ++i) halve(PNT_V(i), PNT_V(i + R / 2), lane, 16);
 #pragma unroll
-      for (int nj = 0; nj < NI / 2; ++nj) {
-        uint32_t b[4];
-        ldsm_x4_t(b, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + wn * (W / 4) +
-                         nj * 16 + (lane >> 4) * 8);
+  for (int i = 0; i < R / 4; ++i) halve(PNT_V(i), PNT_V(i + R / 4), lane, 8);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+  for (int i = 0; i < R / 8; ++i) halve(PNT_V(i), PNT_V(i + R / 8), lane, 4);
+  // lane bits 4, 3, 2 chose which R / 8 values the lane kept
+  const int k0 = (lane & 16 ? R / 2 : 0) + (lane & 8 ? R / 4 : 0) + (lane & 4 ? R / 8 : 0);
+#pragma unroll
+  for (int i = 0; i < R / 8; ++i) {
+    const int k = k0 + i;
+    dbw[w * kWarpDbw + 8 * (k >> 1) + 2 * (lane & 3) + (k & 1)] = PNT_V(i);
+  }
+#undef PNT_V
+  named_bar(1 + cw, 128);
+  if (t == 0 && row0 < n) {
+    for (int kb = 0; kb < W / 64; ++kb)
+      tma_store(gmap, gs + kb * kBM * 128 + cw * 64 * 128, kb * 64, row0, layer);
+    tma_store_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < (W + 127) / 128; ++i) {
+    const int c = t + 128 * i;
+    if (c >= W) break;
+    const float v =
+        ((dbw[c] + dbw[kWarpDbw + c]) + dbw[2 * kWarpDbw + c]) + dbw[3 * kWarpDbw + c];
+    db_out[c] = add ? prev[i] + v : v;  // the block's tiles in order
+  }
+  release(mempty);
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ... For each tile the
+// weight producer streams every layer's packed weight (L-1 down to 0) in
+// 64-column chunks: first the layer's 64 x rows if it is layer 0 or a
+// skip layer, then its W h rows if it has a predecessor; the mask producer
+// loads the saved activation each epilogue needs (acts[L-1], then
+// acts[L-2], ...) one layer ahead. Each consumer warpgroup takes 64 of the
+// tile's 128 points: the upstream g (f32, from global memory) -> epilogue;
+// then per layer l: gx += g_l W_x^T (layer 0 and skip layers; dx =
+// bf16(gx) at layer 0), acc = g_l W_h^T, both from gs, and the epilogue of
+// layer l - 1. gx (32 registers) and acc (W / 2) are never live together,
+// so that W = 256 compiles without spills: the f32 partial of gx waits in
+// global memory between two layers that read x. db: one partial per block
+// and consumer warpgroup, summed over the block's tiles in order.
+template <int W>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    trunk_bwd_data_kernel(const __grid_constant__ CUtensorMap wmap,  // wp (L, W + 64, W)
+                          const __grid_constant__ CUtensorMap amap,  // acts (L, N, W)
+                          const __grid_constant__ CUtensorMap gmap,  // gbuf (L, N, W) out
+                          const float* __restrict__ g,               // (N, W)
+                          float* __restrict__ db_part,  // (2 x blocks, L, W) out
+                          float* __restrict__ gxs,      // (N, 64) scratch: f32 partial of dx
+                          bf16* __restrict__ dx,        // (N, 64) out
+                          int n, int layers, unsigned skip_mask, int tiles) {
+  using S = DataSmem<W>;
+  constexpr int KB = W / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  unsigned char* gs = sm + S::kGs;
+  unsigned char* mask = sm + S::kMask;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::kBar);
+  uint64_t* empty = full + S::kStages;
+  uint64_t* mfull = empty + S::kStages;
+  uint64_t* mempty = mfull + 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(mfull, 1);
+    mbar_init(mempty, 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {  // the weight ring
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int l = layers - 1; l >= 0; --l) {
+          const bool xrows = l == 0 || ((skip_mask >> l) & 1u);
+          for (int ph = xrows ? 0 : 1; ph < (l > 0 ? 2 : 1); ++ph)  // 0: x rows, 1: h rows
+            for (int kc = 0; kc < KB; ++kc, ++it) {
+              const int st = it % S::kStages;
+              mbar_wait(&empty[st], ((it / S::kStages) & 1) ^ 1);
+              unsigned char* dst = sm + S::kRing + st * S::kStageBytes;
+              mbar_expect_tx(&full[st], (ph ? W : kFPad) * 128);
+              if (ph)
+                for (int nb = 0; nb < KB; ++nb)
+                  tma_load(dst + nb * 64 * 128, &wmap, &full[st], kc * 64, nb * 64, l);
+              else
+                tma_load(dst, &wmap, &full[st], kc * 64, W, l);
+            }
+        }
+    } else if (warp == 1 && lane == 0) {  // the masks
+      uint32_t mi = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        // a half past n is not loaded: its stale rows meet a g of 0
+        const int halves = tile * kBM + 64 < n ? 2 : 1;
+        for (int m = layers - 1; m >= 0; --m, ++mi) {
+          mbar_wait(mempty, (mi & 1) ^ 1);
+          mbar_expect_tx(mfull, halves * KB * 64 * 128);
+          for (int kb = 0; kb < KB; ++kb)
+            for (int hf = 0; hf < halves; ++hf)
+              tma_load(mask + kb * kBM * 128 + hf * 64 * 128, &amap, mfull, kb * 64,
+                       tile * kBM + hf * 64, m);
         }
       }
     }
-    __syncthreads();
+    return;
   }
 
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, t = threadIdx.x & 127, w = t >> 5;
+  // each warp's column sums go to its own rows of the mask tile (kb block 0)
+  float* dbw = reinterpret_cast<float*>(mask + cw * 64 * 128);
+  float* db_blk = db_part + (size_t)(2 * blockIdx.x + cw) * layers * W;
+  float acc[W / 2], gx[32];
+  uint32_t it = 0, mi = 0;
+  // one layer's product with the ring's 64-column chunks of its x or h
+  // rows: d += g_l (gs) times the chunk, transposed
+  auto chunks = [&](auto& d) {
+    int prev = -1;
+    for (int kc = 0; kc < KB; ++kc, ++it) {
+      const int st = it % S::kStages;
+      mbar_wait(&full[st], (it / S::kStages) & 1);
+      const unsigned char* b = sm + S::kRing + st * S::kStageBytes;
+      const unsigned char* a = gs + kc * kBM * 128 + cw * 64 * 128;
+      fence_regs(d);
+      wgmma_fence();
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+      for (int kk = 0; kk < 4; ++kk)  // k16 steps: 32 bytes into the swizzled rows
+        wgmma<0, 0>(d, desc_sw128(a + kk * 32, 16, 1024), desc_sw128(b + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous chunk's products are done: release its stage
+      if (prev >= 0) release(&empty[prev]);
+      prev = st;
+    }
+    wgmma_wait<0>();
+    fence_regs(d);
+    release(&empty[prev]);
+  };
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kBM + cw * 64;  // this warpgroup's first point
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int j = 0; j < W / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + mi * 16 + gq + h * 8;
-        const int col = wn * (W / 4) + ni * 8 + 2 * tq;
-        *reinterpret_cast<float2*>(out + (size_t)r * W + col) =
-            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        const int p = row0 + 16 * w + (lane >> 2) + 8 * h, c = 8 * j + 2 * (lane & 3);
+        float2 v = make_float2(0.f, 0.f);
+        if (p < n) v = *reinterpret_cast<const float2*>(g + (size_t)p * W + c);
+        acc[4 * j + 2 * h] = v.x;
+        acc[4 * j + 2 * h + 1] = v.y;
       }
+    data_epilogue<W>(acc, mask, gs, dbw, mfull, mempty, mi, &gmap,
+                     db_blk + (size_t)(layers - 1) * W, cw, row0, n, layers - 1,
+                     tile != (int)blockIdx.x);
+    bool partial = false;  // gxs holds this tile's gx so far
+    for (int l = layers - 1; l >= 0; --l) {
+      if (l == 0 || ((skip_mask >> l) & 1u)) {
+        // gx += g_l W_x^T; between two such layers the f32 partial waits in
+        // gxs, so that gx and acc are never live together
+#pragma unroll
+        for (int j = 0; j < kFPad / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = row0 + 16 * w + (lane >> 2) + 8 * h, c = 8 * j + 2 * (lane & 3);
+            float2 v = make_float2(0.f, 0.f);
+            if (partial && p < n)
+              v = *reinterpret_cast<const float2*>(gxs + (size_t)p * kFPad + c);
+            gx[4 * j + 2 * h] = v.x;
+            gx[4 * j + 2 * h + 1] = v.y;
+          }
+        chunks(gx);
+#pragma unroll
+        for (int j = 0; j < kFPad / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = row0 + 16 * w + (lane >> 2) + 8 * h, c = 8 * j + 2 * (lane & 3);
+            if (p >= n) continue;
+            if (l > 0)
+              *reinterpret_cast<float2*>(gxs + (size_t)p * kFPad + c) =
+                  make_float2(gx[4 * j + 2 * h], gx[4 * j + 2 * h + 1]);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)p * kFPad + c) =
+                  __floats2bfloat162_rn(gx[4 * j + 2 * h], gx[4 * j + 2 * h + 1]);
+          }
+        partial = true;
+      }
+      if (l > 0) {  // g_{l-1} = mask(g_l W_h^T)
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+        chunks(acc);
+        data_epilogue<W>(acc, mask, gs, dbw, mfull, mempty, mi, &gmap,
+                         db_blk + (size_t)(l - 1) * W, cw, row0, n, l - 1,
+                         tile != (int)blockIdx.x);
+      }
+    }
+  }
+  if (t == 0) tma_store_wait();
+}
+
+// ------------------------------------------------- split-K weight pass
+
+// dW = A^T B over all points for a list of jobs: the trunk's layers
+// (mlp_train.cu, field_train.cu) and the field's head blocks
+// (field_train.cu) go through the same kernel. A job's dW rows come in
+// 64-row slices, each the 64 columns of one [point][column] bf16 tensor
+// from a given column (or rows the job does not read: zeros); B is one
+// [point][column] tensor of nc columns. Block (x, y) takes one job's pair
+// of slices (one per consumer warpgroup) and NB of its columns over the
+// points of split y, and writes its f32 partial to the job's `part`
+// (splits x slices x 64 x nc) with plain stores.
+constexpr int kWP = 64;  // points per ring stage
+constexpr int kMaxSlices = 5, kMaxMaps = 10, kMaxJobs = 32;
+constexpr uint32_t kZeroRows = 15;
+
+// A slice: tensor map (bits 0-3; kZeroRows: zeros), depth (bits 4-11),
+// first column (bits 16-31).
+inline uint32_t wslice(int map, int z, int col) {
+  return (uint32_t)map | ((uint32_t)z << 4) | ((uint32_t)col << 16);
+}
+
+struct WgradJob {
+  uint32_t slice[kMaxSlices];
+  int slices, nc, b_map, b_z, cta0, cblocks;
+  float* part;
+  long long split_stride;
+};
+
+struct WgradArgs {
+  CUtensorMap map[kMaxMaps];
+  WgradJob job[kMaxJobs];
+  int njobs, n, chunk;
+};
+
+template <int NB>
+struct WgradSmem {
+  // stage: the two A slices [kWP points][64], then B's NB / 64 blocks [kWP][64]
+  static constexpr int kStageBytes = 2 * kWP * 128 + NB * kWP * 2;
+  static constexpr int kFree = kSmemMax - 1024 - 256;
+  static constexpr int kStages = kFree / kStageBytes < 4 ? kFree / kStageBytes : 4;
+  static constexpr int kBar = kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 256 + 1024;
+};
+
+template <int NB>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    wgrad_kernel(const __grid_constant__ WgradArgs args) {
+  using S = WgradSmem<NB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::kBar);
+  uint64_t* empty = full + S::kStages;
+  int j = 0;
+  while (j + 1 < args.njobs && args.job[j + 1].cta0 <= (int)blockIdx.x) ++j;
+  const WgradJob& job = args.job[j];
+  const int local = blockIdx.x - job.cta0, pair = local / job.cblocks;
+  const int n0 = (local % job.cblocks) * NB;
+  const int split = blockIdx.y, p0 = split * args.chunk, p1 = min(args.n, p0 + args.chunk);
+  const bool live0 = 2 * pair < job.slices && (job.slice[2 * pair] & 15) != kZeroRows;
+  const bool live1 = 2 * pair + 1 < job.slices && (job.slice[2 * pair + 1] & 15) != kZeroRows;
+  // a block with no slice to read writes zeros and loads nothing
+  const int steps = (live0 || live1) && p1 > p0 ? (p1 - p0 + kWP - 1) / kWP : 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      // B blocks wholly past nc are not loaded: their columns are not written
+      uint32_t bytes = ((live0 ? 1 : 0) + (live1 ? 1 : 0)) * kWP * 128;
+      for (int b = 0; b < NB / 64; ++b)
+        if (n0 + 64 * b < job.nc) bytes += kWP * 128;
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % S::kStages;
+        mbar_wait(&empty[s], ((st / S::kStages) & 1) ^ 1);
+        unsigned char* dst = sm + s * S::kStageBytes;
+        mbar_expect_tx(&full[s], bytes);
+        const int p = p0 + st * kWP;
+        for (int i = 0; i < 2; ++i) {
+          if (!(i ? live1 : live0)) continue;
+          const uint32_t e = job.slice[2 * pair + i];
+          tma_load(dst + i * kWP * 128, &args.map[e & 15], &full[s], (int)(e >> 16), p,
+                   (int)((e >> 4) & 255));
+        }
+        for (int b = 0; b < NB / 64; ++b)
+          if (n0 + 64 * b < job.nc)
+            tma_load(dst + (2 + b) * kWP * 128, &args.map[job.b_map], &full[s], n0 + 64 * b, p,
+                     job.b_z);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, t = threadIdx.x & 127, w = t >> 5;
+  const bool live = cw ? live1 : live0;
+  float acc[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    const int s = st % S::kStages;
+    mbar_wait(&full[s], (st / S::kStages) & 1);
+    if (live) {
+      const unsigned char* a = sm + s * S::kStageBytes + cw * kWP * 128;
+      const unsigned char* b = sm + s * S::kStageBytes + 2 * kWP * 128;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWP / 16; ++kk)  // k16 steps: 16 rows of 128 bytes
+        wgmma<1, 1>(acc, desc_sw128(a + kk * 2048, kWP * 128, 1024),
+                    desc_sw128(b + kk * 2048, kWP * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    release(&empty[s]);
+  }
+  const int slice = 2 * pair + cw;
+  if (slice >= job.slices) return;
+  float* out = job.part + (size_t)split * job.split_stride + (size_t)slice * 64 * job.nc;
+#pragma unroll
+  for (int jj = 0; jj < NB / 8; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + (lane >> 2) + 8 * h, c = n0 + 8 * jj + 2 * (lane & 3);
+      if (c < job.nc)
+        *reinterpret_cast<float2*>(out + (size_t)r * job.nc + c) =
+            make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+    }
+}
+
+// Appends a job to `a` (blocks from `ctas` on): dW (slices x 64 rows, nc
+// columns) = A^T B, A's slices `sl` (wslice), B from map b_map at depth
+// b_z; partials at `part`, split_stride floats apart.
+inline void add_wgrad_job(WgradArgs& a, int& ctas, int nb, const uint32_t* sl, int slices,
+                          int b_map, int b_z, int nc, float* part, long long split_stride) {
+  WgradJob& j = a.job[a.njobs++];
+  for (int i = 0; i < slices; ++i) j.slice[i] = sl[i];
+  j.slices = slices;
+  j.nc = nc;
+  j.b_map = b_map;
+  j.b_z = b_z;
+  j.cta0 = ctas;
+  j.cblocks = (nc + nb - 1) / nb;
+  j.part = part;
+  j.split_stride = split_stride;
+  ctas += (slices + 1) / 2 * j.cblocks;
+}
+
+template <int NB>
+int wgrad(const WgradArgs& a, int ctas, int splits, cudaStream_t s) {
+  using S = WgradSmem<NB>;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t e = allow_smem((const void*)wgrad_kernel<NB>, S::kBytes, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  wgrad_kernel<NB><<<dim3(ctas, splits), kBwdThreads, S::kBytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // out[e] = sum over the splits of part[k * stride + e], in order, for e <
@@ -576,52 +895,66 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, int splits,
   }
 }
 
-// db = sum over the data pass's blocks, in order.
+// db = sum over the data pass's partials, in order.
 __global__ void reduce_db_kernel(const float* __restrict__ db_part, float* __restrict__ dbp,
-                                 int blocks, int lw) {
+                                 int parts, int lw) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= lw) return;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += db_part[(size_t)b * lw + e];
+  for (int b = 0; b < parts; ++b) s += db_part[(size_t)b * lw + e];
   dbp[e] = s;
 }
 
-template <int W>
-size_t trunk_bwd_data_smem() {
-  return (size_t)(kBM * (W + kPad) + 2 * W * (kKC + kPad)) * sizeof(bf16) + 2 * W * sizeof(float);
-}
-template <int W>
-size_t trunk_bwd_weight_smem() {
-  return (size_t)(2 * kKC * (kTK + kPad) + 2 * kKC * (W + kPad)) * sizeof(bf16);
-}
-
 // Kernel B''s three passes: data pass from g (N, W) f32, split-K weight
-// pass, in-order reductions. dW is stored as DW.
+// pass over every layer in one launch, in-order reductions. dW is stored
+// as DW. `chunk` (points per split) is a multiple of kWP; `db_part` holds
+// at least 2 x min(ceil(N / 128), SMs) x L x W floats, `gxs` N x 64,
+// `dw_part` S x L x (W + 64) x W. `amap` receives the TMA descriptor of
+// `acts`, for a caller that reads them again.
 template <int W, typename DW>
 int trunk_bwd(const bf16* x, const bf16* wp, const bf16* acts, const float* g, bf16* gbuf,
-              float* db_part, float* dw_part, bf16* dx, DW* dwp, float* dbp, int n, int layers,
-              unsigned skip_mask, int splits, int chunk, cudaStream_t s) {
-  const int blocks = (n + kBM - 1) / kBM;
-  size_t smem = trunk_bwd_data_smem<W>();
-  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_data_kernel<W>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+              float* db_part, float* gxs, float* dw_part, bf16* dx, DW* dwp, float* dbp, int n,
+              int layers, unsigned skip_mask, int splits, int chunk, CUtensorMap& amap,
+              cudaStream_t s) {
+  using S = DataSmem<W>;
+  constexpr int KB = W / 64;
+  if (chunk % kWP != 0 || layers > kMaxJobs) return (int)cudaErrorInvalidValue;
+  // every layer's dW: rows [0, W) from acts[l - 1] (map 0), rows [W, W + 64)
+  // from x (map 1), against g (map 2)
+  WgradArgs a{};
+  CUtensorMap wmap;
+  int err;
+  if ((err = make_tma_map(&wmap, wp, W, W + kFPad, layers)) ||
+      (err = make_tma_map(&amap, acts, W, n, layers)) ||
+      (err = make_tma_map(&a.map[2], gbuf, W, n, layers)) ||
+      (err = make_tma_map(&a.map[1], x, kFPad, n, 1)))
+    return err;
+  a.map[0] = amap;
+  const int tiles = (n + kBM - 1) / kBM, sms = sm_count();
+  const int grid = sms > 0 && sms < tiles ? sms : tiles;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t e = allow_smem((const void*)trunk_bwd_data_kernel<W>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  trunk_bwd_data_kernel<W><<<blocks, kThreads, smem, s>>>(wp, acts, g, gbuf, db_part, dx, n,
-                                                          layers, skip_mask);
+  trunk_bwd_data_kernel<W><<<grid, kBwdThreads, S::kBytes, s>>>(
+      wmap, amap, a.map[2], g, db_part, gxs, dx, n, layers, skip_mask, tiles);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  smem = trunk_bwd_weight_smem<W>();
-  e = cudaFuncSetAttribute(trunk_bwd_weight_kernel<W>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + kFPad) / kTK, splits, layers);
-  trunk_bwd_weight_kernel<W><<<grid, kThreads, smem, s>>>(x, acts, gbuf, dw_part, n, layers,
-                                                         skip_mask, chunk);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  a.n = n;
+  a.chunk = chunk;
+  int ctas = 0;
+  for (int l = 0; l < layers; ++l) {
+    uint32_t sl[kMaxSlices];
+    for (int i = 0; i < KB; ++i) sl[i] = l > 0 ? wslice(0, l - 1, 64 * i) : kZeroRows;
+    sl[KB] = l == 0 || ((skip_mask >> l) & 1u) ? wslice(1, 0, 0) : kZeroRows;
+    add_wgrad_job(a, ctas, W, sl, KB + 1, 2, l, W, dw_part + (size_t)l * (W + kFPad) * W,
+                  (long long)layers * (W + kFPad) * W);
+  }
+  if ((err = wgrad<W>(a, ctas, splits, s))) return err;
   const size_t dw_len = (size_t)layers * (W + kFPad) * W;
   reduce_splits_kernel<DW><<<1024, 256, 0, s>>>(dw_part, splits, dw_len, dw_len, dwp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int lw = layers * W;
-  reduce_db_kernel<<<(lw + 255) / 256, 256, 0, s>>>(db_part, dbp, blocks, lw);
+  reduce_db_kernel<<<(lw + 255) / 256, 256, 0, s>>>(db_part, dbp, 2 * grid, lw);
   return (int)cudaGetLastError();
 }
 

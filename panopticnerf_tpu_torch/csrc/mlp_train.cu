@@ -18,35 +18,41 @@
 // What bounds it: per point the 8x256 trunk is ~1 MFLOP forward; the
 // training step runs 393,216 points (131,072 coarse + 262,144 fine) through
 // the forward, dW = inp^T g and g_in = g W^T: ~1.2 TFLOP, against ~4 GB of
-// activation traffic — compute-bound on the tensor cores (989 TFLOP/s bf16
-// peak, ~300 FLOP/byte needed). What the design does about it:
-//   - all products are bf16 mma.sync.m16n8k16 with f32 accumulators, fed by
-//     ldmatrix from shared memory (rows padded by 16 bytes: no bank
-//     conflicts);
-//   - forward: one block per 128-point tile keeps the tile's activations in
-//     shared memory across all L layers ([h | x] side by side, so a skip
-//     layer is one K = W + 64 product with no concat); weights stream
-//     through a double-buffered cp.async ring of 32-row chunks (the packed
-//     weights, 1.3 MB, stay in L2); bias + ReLU + bf16 rounding run in the
-//     accumulator epilogue;
+// activation traffic — the function is compute-bound on the tensor cores
+// (989 TFLOP/s bf16 peak, ~300 FLOP/byte needed); the backward as planned
+// here, with saved activations, is HBM-bound. What the design does:
+//   - all products are bf16 with f32 accumulators;
+//   - forward: mma.sync.m16n8k16 fed by ldmatrix from shared memory (rows
+//     padded by 16 bytes: no bank conflicts); one block per 128-point tile
+//     keeps the tile's activations in shared memory across all L layers
+//     ([h | x] side by side, so a skip layer is one K = W + 64 product with
+//     no concat); weights stream through a double-buffered cp.async ring
+//     of 32-row chunks (the packed weights, 1.3 MB, stay in L2); bias +
+//     ReLU + bf16 rounding run in the accumulator epilogue;
 //   - backward: the TPU kernel carries dW across its sequential grid in
-//     VMEM; Hopper blocks run in parallel, so B' is three passes:
-//       1. data pass, one block per 128-point tile: g -> mask -> bf16 ->
-//          g W^T layer by layer (the chain runs like the forward, with W^T),
-//          writing each layer's bf16 g to global memory, per-block db
-//          partials, and dx;
-//       2. weight pass: dW_l = inp_l^T g_l as a split-K product, grid
-//          (64-row slices of W + 64, S point splits, L layers), each block
-//          writing its partial to a (S, L, W + 64, W) f32 buffer with plain
-//          stores;
+//     VMEM; Hopper blocks run in parallel, so B' is three passes
+//     (mlp_common.cuh), each warp-specialised (a producer warpgroup issues
+//     TMA loads into mbarrier rings, two consumer warpgroups run wgmma):
+//       1. data pass, persistent over 128-point tiles: the tile's bf16 g
+//          stays in shared memory as wgmma's A operand; g -> mask -> db ->
+//          bf16 -> g W^T layer by layer, each layer's packed weight
+//          streamed by TMA in 64-column chunks, each mask tile (the saved
+//          activation) loaded by TMA one layer ahead, each layer's bf16 g
+//          stored to global memory by TMA; per-warpgroup db partials, dx;
+//       2. weight pass: dW_l = inp_l^T g_l as a split-K product (both
+//          operands MN-major wgmma), one block per (pair of 64-row slices
+//          of W + 64, layer) and point split, all layers in one launch,
+//          each block writing its partial to a (S, L, W + 64, W) f32
+//          buffer with plain stores;
 //       3. a reduction over the S splits and the db partials in a fixed
 //          order (deterministic: no atomics), rounding dW to bf16.
 //     Activations are not recomputed: kernel B saves every layer's bf16
 //     activation (L x N x W: 1.07 GB for the fine field at N = 262,144,
 //     0.54 GB for the coarse); the values are those a recompute would give.
+//     With them the backward is HBM-bound, not compute-bound (mlp_common.cuh).
 //
-// Simple first: no wgmma/TMA and one 8-warp block per SM; those are later
-// work. The GEMM loops, the trunk's tile forward and B''s passes live in
+// The forward is still the first design: mma.sync at one 8-warp block per
+// SM. The GEMM loops, the trunk's tile forward and B''s passes live in
 // mlp_common.cuh, which kernels C / C' (field_train.cu) share.
 
 #include "mlp_common.cuh"
@@ -70,8 +76,8 @@ template <int W>
 int fwd(const bf16* x, const bf16* wp, const float* bp, bf16* acts, int n, int layers,
         unsigned skip_mask, cudaStream_t s) {
   const size_t smem = trunk_fwd_smem<W>();
-  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel<W>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t e = allow_smem((const void*)trunk_fwd_kernel<W>, (int)smem, smem_set);
   if (e != cudaSuccess) return (int)e;
   trunk_fwd_kernel<W><<<(n + kBM - 1) / kBM, kThreads, smem, s>>>(x, wp, bp, acts, n, layers,
                                                                   skip_mask);
@@ -83,8 +89,10 @@ int fwd(const bf16* x, const bf16* wp, const float* bp, bf16* acts, int n, int l
 // Plain C entry points (loaded with ctypes). The Python wrapper
 // (ops/mlp_train_cuda.py) checks dtypes, shapes and contiguity, allocates
 // every output and scratch buffer, and requires W in {64, 128, 256},
-// 1 <= L <= 32 and n >= 1. Each returns 0 when every launch was accepted,
-// else the CUDA error code; nothing synchronises.
+// 1 <= L <= 32 and n >= 1 (and for the backward a split size that is a
+// multiple of 64 points). Each returns 0 when every launch was accepted,
+// else the CUDA error code (kTmaEncodeFailed when a TMA descriptor cannot
+// be encoded); nothing synchronises.
 extern "C" int trunk_fwd_launch(const void* x, const void* wp, const void* bp, void* acts,
                                 int n, int width, int layers, unsigned skip_mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -101,16 +109,18 @@ extern "C" int trunk_fwd_launch(const void* x, const void* wp, const void* bp, v
 }
 
 extern "C" int trunk_bwd_launch(const void* x, const void* wp, const void* acts, const void* g,
-                                void* gbuf, void* db_part, void* dw_part, void* dx, void* dwp,
-                                void* dbp, int n, int width, int layers, unsigned skip_mask,
-                                int splits, int chunk, void* stream) {
+                                void* gbuf, void* db_part, void* gx_part, void* dw_part, void* dx,
+                                void* dwp, void* dbp, int n, int width, int layers,
+                                unsigned skip_mask, int splits, int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PNT_BWD(WW)                                                                           \
-  trunk_bwd<WW, bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(wp),              \
-          static_cast<const bf16*>(acts), static_cast<const float*>(g),                       \
-          static_cast<bf16*>(gbuf), static_cast<float*>(db_part), static_cast<float*>(dw_part), \
-          static_cast<bf16*>(dx), static_cast<bf16*>(dwp), static_cast<float*>(dbp), n, layers, \
-          skip_mask, splits, chunk, s)
+  CUtensorMap amap;
+#define PNT_BWD(WW)                                                                             \
+  trunk_bwd<WW, bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(wp),                \
+                      static_cast<const bf16*>(acts), static_cast<const float*>(g),             \
+                      static_cast<bf16*>(gbuf), static_cast<float*>(db_part),                   \
+                      static_cast<float*>(gx_part), static_cast<float*>(dw_part),               \
+                      static_cast<bf16*>(dx), static_cast<bf16*>(dwp), static_cast<float*>(dbp), \
+                      n, layers, skip_mask, splits, chunk, amap, s)
   switch (width) {
     case 64: return PNT_BWD(64);
     case 128: return PNT_BWD(128);

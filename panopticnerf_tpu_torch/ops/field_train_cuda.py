@@ -33,12 +33,12 @@ from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
 from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
     BM,
     MAX_LAYERS,
-    MAX_SPLITS,
-    SPLIT_POINTS,
     WIDTHS,
+    _backward_failed,
     _check,
     _skip_mask,
     _stream,
+    weight_splits,
 )
 
 HEAD_MAX = 128  # largest padded class count / colour width the kernels take
@@ -53,9 +53,17 @@ def load() -> ctypes.CDLL:
     lib = _nvcc.load("field_train")
     lib.field_fwd_launch.argtypes = [_P] * 18 + [_I, _I, _I, _U, _I, _I, _I, _I, _P]
     lib.field_fwd_launch.restype = _I
-    lib.field_bwd_launch.argtypes = [_P] * 32 + [_I, _I, _I, _U] + [_I] * 7 + [_P]
+    lib.field_bwd_launch.argtypes = [_P] * 33 + [_I, _I, _I, _U] + [_I] * 7 + [_P]
     lib.field_bwd_launch.restype = _I
     return lib
+
+
+def heads_weight_plan_bytes(n: int, dims: FieldDims) -> int:
+    """Bytes of device memory the head blocks' weight pass of C' moves for
+    n points, each read once: h, s (with the semantic head), bf16(feature),
+    d_enc, r and the bf16 g of each head product."""
+    sem = (dims.sem_hidden + dims.cp) * 2 if dims.use_sem else 0
+    return n * (2 * (2 * dims.width + D_PAD + 2 * dims.cwp + dims.ho + CO_PAD) + sem)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -156,19 +164,19 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
     _check("feat", saved.feat, bf, (n, w), dev)
     _check("r", saved.r, bf, (n, dims.cwp), dev)
 
-    splits = max(1, min(MAX_SPLITS, -(-n // SPLIT_POINTS)))
-    chunk = -(-n // splits)
+    splits, chunk = weight_splits(n)
     blocks = -(-n // BM)
     ho, cp, cwp, sh = dims.ho, dims.cp, dims.cwp, dims.sem_hidden
     hb_len = ho + cp + cwp + CO_PAD
     pad64 = lambda m: -(-m // 64) * 64
-    part_len = splits * max(w * ho, pad64(sh) * cp, (w + 64) * cwp, pad64(cwp) * CO_PAD)
+    # the head blocks' split-K partials, one after another (64-row slices)
+    part_len = splits * (w * ho + pad64(sh) * cp + (w + 64) * cwp + pad64(cwp) * CO_PAD)
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
     g_h = e(n, w)
     gbuf, gb_co, gb_r = e(layers, n, w, dt=bf), e(n, CO_PAD, dt=bf), e(n, cwp, dt=bf)
     gb_sem = e(n, cp, dt=bf) if dims.use_sem else None
     gb_ho = e(n, ho, dt=bf)
-    db_part_t, db_part_h = e(blocks, layers, w), e(blocks, hb_len)
+    db_part_t, db_part_h, gx_part = e(2 * blocks, layers, w), e(blocks, hb_len), e(n, F_PAD)
     dw_part_t, part = e(splits, layers, w + F_PAD, w), e(part_len)
     dx, dd = e(n, F_PAD, dt=bf), e(n, D_PAD, dt=bf)
     dwp, dbp = e(layers, w + F_PAD, w, dt=dw_dtype), e(layers, w)
@@ -182,13 +190,14 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
             pk.wch.data_ptr(), pk.wco.data_ptr(), saved.acts.data_ptr(), _ptr(saved.s),
             saved.feat.data_ptr(), saved.r.data_ptr(), g_out.data_ptr(), _ptr(g_sem),
             g_h.data_ptr(), gbuf.data_ptr(), gb_co.data_ptr(), gb_r.data_ptr(), _ptr(gb_sem),
-            gb_ho.data_ptr(), db_part_t.data_ptr(), db_part_h.data_ptr(), dw_part_t.data_ptr(),
-            part.data_ptr(), dx.data_ptr(), dd.data_ptr(), dwp.data_ptr(), dbp.data_ptr(),
-            dhw.data_ptr(), _ptr(dwso), dwch.data_ptr(), dwco.data_ptr(), db_h.data_ptr(),
+            gb_ho.data_ptr(), db_part_t.data_ptr(), db_part_h.data_ptr(), gx_part.data_ptr(),
+            dw_part_t.data_ptr(), part.data_ptr(), dx.data_ptr(), dd.data_ptr(), dwp.data_ptr(),
+            dbp.data_ptr(), dhw.data_ptr(), _ptr(dwso), dwch.data_ptr(), dwco.data_ptr(),
+            db_h.data_ptr(),
             n, w, layers, mask, dims.num_classes, cwp, cp, int(dims.use_sem), splits, chunk,
             int(dw_dtype == f32), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"field backward kernel launch failed: CUDA error {err}")
+        raise _backward_failed("field", err)
     field_backward_cuda.launches += 1
     dhb, dbso, dbch, dbco = torch.split(db_h, [ho, cp, cwp, CO_PAD])
     grads = FieldPacked(dwp, dbp, dhw, dhb, dwso, dbso if dims.use_sem else None, dwch, dbch,

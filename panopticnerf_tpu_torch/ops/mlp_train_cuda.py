@@ -25,7 +25,9 @@ WIDTHS = (64, 128, 256)
 MAX_LAYERS = 32
 SPLIT_POINTS = 4096  # points per split of the weight pass (at most MAX_SPLITS splits)
 MAX_SPLITS = 32
-BM = 128             # points per block of the forward / data pass
+POINT_STEP = 64      # points per ring stage of the weight pass: each split's size is a multiple
+BM = 128             # points per tile of the forward / data pass
+TMA_ENCODE_FAILED = 9001  # kTmaEncodeFailed (csrc/hopper.cuh): not a CUDA error code
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +39,7 @@ def load() -> ctypes.CDLL:
     lib = _nvcc.load("mlp_train")
     lib.trunk_fwd_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _U, _P]
     lib.trunk_fwd_launch.restype = _I
-    lib.trunk_bwd_launch.argtypes = [_P] * 10 + [_I, _I, _I, _U, _I, _I, _P]
+    lib.trunk_bwd_launch.argtypes = [_P] * 11 + [_I, _I, _I, _U, _I, _I, _P]
     lib.trunk_bwd_launch.restype = _I
     return lib
 
@@ -76,8 +78,36 @@ def _dims(xp: torch.Tensor, wp: torch.Tensor):
     return n, layers, width
 
 
+def weight_splits(n: int) -> tuple:
+    """(splits, chunk) of the split-K weight pass over n points: split s
+    takes points [s * chunk, min(n, (s + 1) * chunk)); chunk is a multiple
+    of POINT_STEP, so that no ring stage of a split reaches into the next."""
+    splits = max(1, min(MAX_SPLITS, -(-n // SPLIT_POINTS)))
+    per_split = -(-n // splits)
+    return splits, -(-per_split // POINT_STEP) * POINT_STEP
+
+
+def backward_plan_bytes(n: int, width: int, layers: int, skips) -> tuple:
+    """(data pass, weight pass) bytes of device memory B''s three-pass plan
+    moves for n points, each read or written once: the data pass reads the
+    f32 upstream g and every layer's mask (its saved bf16 activation) and
+    writes every layer's bf16 g and dx; the weight pass reads the
+    activations acts[0 .. L-2], x once for each layer that reads it (layer 0
+    and the skip layers) and every layer's bf16 g. Over HBM's rate, the
+    least time the plan can take."""
+    data = n * (4 * width + 2 * layers * 2 * width + 2 * F_PAD)
+    weight = n * (2 * (layers - 1) * width + 2 * F_PAD * (1 + len(skips)) + 2 * layers * width)
+    return data, weight
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _backward_failed(kernel: str, err: int) -> RuntimeError:
+    why = ("a TMA descriptor could not be encoded" if err == TMA_ENCODE_FAILED
+           else f"CUDA error {err}")
+    return RuntimeError(f"{kernel} backward kernel launch failed: {why}")
 
 
 def trunk_forward_cuda(xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
@@ -113,11 +143,12 @@ def trunk_backward_cuda(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
     _check("g", g, torch.float32, (n, width), dev)
     _check("weights", wp, torch.bfloat16, (layers, width + F_PAD, width), dev)
     mask = _skip_mask(skips, layers)
-    splits = max(1, min(MAX_SPLITS, -(-n // SPLIT_POINTS)))
-    chunk = -(-n // splits)
-    blocks = -(-n // BM)
+    splits, chunk = weight_splits(n)
+    tiles = -(-n // BM)
     gbuf = torch.empty((layers, n, width), dtype=torch.bfloat16, device=dev)
-    db_part = torch.empty((blocks, layers, width), dtype=torch.float32, device=dev)
+    # db partials: one per data-pass block and consumer warpgroup (at most 2 per tile)
+    db_part = torch.empty((2 * tiles, layers, width), dtype=torch.float32, device=dev)
+    gx_part = torch.empty((n, F_PAD), dtype=torch.float32, device=dev)
     dw_part = torch.empty((splits, layers, width + F_PAD, width), dtype=torch.float32,
                           device=dev)
     dx = torch.empty((n, F_PAD), dtype=torch.bfloat16, device=dev)
@@ -127,10 +158,10 @@ def trunk_backward_cuda(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.trunk_bwd_launch(
             xp.data_ptr(), wp.data_ptr(), acts.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
-            db_part.data_ptr(), dw_part.data_ptr(), dx.data_ptr(), dwp.data_ptr(),
-            dbp.data_ptr(), n, width, layers, mask, splits, chunk, _stream(dev))
+            db_part.data_ptr(), gx_part.data_ptr(), dw_part.data_ptr(), dx.data_ptr(),
+            dwp.data_ptr(), dbp.data_ptr(), n, width, layers, mask, splits, chunk, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"trunk backward kernel launch failed: CUDA error {err}")
+        raise _backward_failed("trunk", err)
     trunk_backward_cuda.launches += 1
     return dx, dwp, dbp
 

@@ -186,7 +186,8 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("n,width,layers,skips", [
     (1, 256, 8, (5,)), (100, 256, 8, (5,)), (333, 256, 8, ()), (1000, 64, 3, (2,)),
-    (4096, 128, 4, (1, 3)), (20000, 256, 8, (5,))])
+    (77, 64, 2, (1,)), (4096, 128, 4, (1, 3)), (3000, 128, 5, (2,)), (20000, 256, 8, (5,)),
+    (140001, 256, 8, (5,))])
 def test_trunk_kernels_match_plain(cuda_device, n, width, layers, skips):
     """Kernels B and B' against their plain versions on the same packed
     inputs. The card sums in another order, so bf16 roundings flip in a
@@ -207,6 +208,23 @@ def test_trunk_kernels_match_plain(cuda_device, n, width, layers, skips):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) <= 5e-3, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("n,width,layers,skips", [
+    (20000, 256, 8, (5,)), (140001, 256, 8, (5,)), (999, 128, 4, (2,)), (77, 64, 3, (2,))])
+def test_trunk_backward_repeats_bit_for_bit(cuda_device, n, width, layers, skips):
+    """Two calls of B' on the same inputs give the same bits: every sum of
+    the data and weight passes and of the reductions runs in a fixed order
+    (no atomics)."""
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_backward_cuda, trunk_forward_cuda
+
+    xp, wp, bp, g = _trunk_case(cuda_device, n, width, layers, skips, 7 * n + width)
+    acts = trunk_forward_cuda(xp, wp, bp, skips)
+    first = trunk_backward_cuda(xp, acts, g, wp, skips)
+    second = trunk_backward_cuda(xp, acts, g, wp, skips)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dW", "db"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_trunk_function_counts_launches(cuda_device):
@@ -290,7 +308,7 @@ def _field_case(device, n, width, layers, skips, use_sem, viewdirs, classes, cw,
 @pytest.mark.parametrize("n,width,layers,skips,use_sem,viewdirs,classes,cw", [
     (1, 256, 8, (5,), True, True, 19, 128), (100, 256, 8, (5,), True, True, 19, 128),
     (333, 128, 4, (2,), False, True, 19, 64), (4096, 64, 3, (), True, False, 5, 32),
-    (20000, 256, 8, (5,), True, True, 19, 128)])
+    (20000, 256, 8, (5,), True, True, 19, 128), (140001, 256, 8, (5,), True, True, 19, 128)])
 def test_field_kernels_match_plain(cuda_device, n, width, layers, skips, use_sem, viewdirs,
                                    classes, cw, dw_dtype):
     """Kernels C and C' against their plain versions on the same packed
@@ -323,8 +341,13 @@ def test_field_kernels_match_plain(cuda_device, n, width, layers, skips, use_sem
         assert bool(torch.isfinite(a.float()).all()), name
         assert _rel(a, b) <= 5e-3, (name, _rel(a, b))
     assert got[2].hw.dtype == dwt and got[2].hb.dtype == torch.float32
-    for a, b in zip([got[0], got[1], *got[2]], [again[0], again[1], *again[2]]):
-        assert (a is None and b is None) or torch.equal(a, b)
+    # the recompute gives C' on C's activations exactly, and so does a
+    # second call on them (fixed summation orders, no atomics)
+    repeat = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, saved, dwt)
+    torch.cuda.synchronize()
+    for other in (again, repeat):
+        for a, b in zip([got[0], got[1], *got[2]], [other[0], other[1], *other[2]]):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_field_modes_count_launches(cuda_device):

@@ -19,6 +19,13 @@ from panopticnerf_tpu_torch.convert import flatten, params_from_flax, params_to_
 from panopticnerf_tpu_torch.models import init_params, make_network
 from panopticnerf_tpu_torch.models.fused_apply import FusedTrainAdapter, fused_field_apply
 from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
+from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
+    MAX_SPLITS,
+    POINT_STEP,
+    TMA_ENCODE_FAILED,
+    _backward_failed,
+    weight_splits,
+)
 
 
 def _trunk_inputs(n, layers, width, f, skips, seed):
@@ -166,3 +173,27 @@ def test_init_params_statistics_match_flax():
             assert abs(got.std() / std - 1) < 0.03 and abs(ref.std() / std - 1) < 0.03, k
         bound = 2.0 * std / 0.87962566103423978
         assert np.abs(got).max() <= bound * (1 + 1e-6) and np.abs(ref).max() <= bound * (1 + 1e-6), k
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 100, 4096, 4097, 20000, 131072, 140001, 262144])
+def test_weight_splits_cover_every_point_once(n):
+    """The split-K schedule of the CUDA weight pass: every point falls in
+    exactly one split, and each split's size is a multiple of the kernel's
+    point step (a ring stage never reaches into the next split)."""
+    splits, chunk = weight_splits(n)
+    assert 1 <= splits <= MAX_SPLITS
+    assert chunk % POINT_STEP == 0 and chunk >= POINT_STEP
+    counts = np.zeros(n, np.int64)
+    for s in range(splits):
+        counts[s * chunk:min(n, (s + 1) * chunk)] += 1
+    assert (counts == 1).all()
+
+
+@pytest.mark.parametrize("err,why", [(TMA_ENCODE_FAILED, "a TMA descriptor could not be encoded"),
+                                     (1, "CUDA error 1")])
+def test_backward_launch_failure_names_its_cause(err, why):
+    """A refused backward launch raises, and says whether a TMA descriptor
+    or CUDA refused it (the entry points' own code is not a CUDA error)."""
+    e = _backward_failed("trunk", err)
+    assert isinstance(e, RuntimeError)
+    assert str(e) == f"trunk backward kernel launch failed: {why}"

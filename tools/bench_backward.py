@@ -1,0 +1,114 @@
+"""Times kernels B' and C' (on saved activations) of the PyTorch port at the
+flagship step's point counts, with the device time of each of their passes.
+
+    python tools/bench_backward.py [--root DIR]
+
+`--root` is the repository whose `panopticnerf_tpu_torch` is imported
+(default: the one holding this script), so that one call can time two
+trees with the same script, in turns. Inputs are seeded random values at
+the widths of configs/synthetic_flagship.yaml: an 8 x 256 trunk with the
+skip at kernel layer 5, 128-wide semantic and colour heads, 19 classes,
+x_enc 63 and d_enc 27 columns; N = 131,072 (coarse) and 262,144 (fine).
+Prints one JSON line per (kernel, N): the median ms of 10 calls timed
+with CUDA events, the device ms of each CUDA kernel inside one call
+(torch.profiler, averaged over 3 calls), and the byte floor of the
+three-pass plan at 3.35 TB/s where the tree's wrappers define it. Needs a
+CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+PEAK_BYTES = 3.35e12
+REPS = 10
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_backward: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from panopticnerf_tpu_torch.ops import field_train as ft
+    from panopticnerf_tpu_torch.ops import field_train_cuda as fc
+    from panopticnerf_tpu_torch.ops import mlp_train as mt
+    from panopticnerf_tpu_torch.ops import mlp_train_cuda as mc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"{card}; tree {os.path.abspath(args.root)}; package {os.path.dirname(mt.__file__)}")
+    width, layers, skips, f, dd, classes, cw = 256, 8, (5,), 63, 27, 19, 128
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    dims = ft.FieldDims(x_dim=f, d_dim=dd, width=width, sem_hidden=width // 2, color_width=cw,
+                        num_classes=classes, layers=layers, skips=skips, use_sem=True)
+    ins = {f"trunk_{i}": f if i == 0 else width + (f if i in skips else 0) for i in range(layers)}
+    ins.update(sem_hidden=width, sem_out=width // 2, feature=width, sigma=width,
+               color_hidden=width + dd, color_out=cw)
+    outs = {f"trunk_{i}": width for i in range(layers)}
+    outs.update(sem_hidden=width // 2, sem_out=classes, feature=width, sigma=1, color_hidden=cw,
+                color_out=3)
+    params = []
+    for name in dims.leaves():
+        params.append(t(rng.normal(size=(outs[name], ins[name])) * np.sqrt(2.0 / ins[name])))
+        params.append(t(rng.normal(size=(outs[name],)) * 0.1))
+    pk = ft.pack_field(params, dims, torch.bfloat16)
+
+    def timed(fn):
+        for _ in range(2):
+            fn()
+        ms = []
+        for _ in range(REPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        passes = {e.key[:90]: round(e.self_device_time_total / 3e3, 4)
+                  for e in prof.key_averages() if e.self_device_time_total > 0}
+        return float(np.median(ms)), passes
+
+    for n in (131072, 262144):
+        x = np.zeros((n, mt.F_PAD), np.float32)
+        x[:, :f] = rng.uniform(-1, 1, (n, f))
+        d = np.zeros((n, ft.D_PAD), np.float32)
+        d[:, :dd] = rng.uniform(-1, 1, (n, dd))
+        xp, dp = t(x).to(torch.bfloat16), t(d).to(torch.bfloat16)
+        g = t(rng.normal(size=(n, width)) * 1e-3)
+        g_out, g_sem = t(rng.normal(size=(n, 4)) * 1e-3), t(rng.normal(size=(n, classes)) * 1e-3)
+        acts = mc.trunk_forward_cuda(xp, pk.wp, pk.bp, skips)
+        ms, passes = timed(lambda: mc.trunk_backward_cuda(xp, acts, g, pk.wp, skips))
+        floor = getattr(mc, "backward_plan_bytes", None)
+        line = {"kernel": "B'", "n": n, "ms": ms, "passes_ms": passes}
+        if floor:
+            line["floor_ms"] = [1e3 * b / PEAK_BYTES for b in floor(n, width, layers, skips)]
+        print(json.dumps(line))
+        del acts
+        saved = fc.field_forward_cuda(xp, dp, pk, dims)[2]
+        ms, passes = timed(lambda: fc.field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, saved,
+                                                          torch.bfloat16))
+        line = {"kernel": "C'", "n": n, "ms": ms, "passes_ms": passes}
+        if floor:
+            line["floor_ms"] = [1e3 * b / PEAK_BYTES for b in floor(n, width, layers, skips)]
+            line["heads_weight_floor_ms"] = 1e3 * fc.heads_weight_plan_bytes(n, dims) / PEAK_BYTES
+        print(json.dumps(line))
+        del saved
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

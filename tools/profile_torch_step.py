@@ -10,11 +10,14 @@ device, takes `--warmup` steps, times `--steps` steps, then records
 card's name and power limit, the wall time per step of the timed steps
 (host clock, synchronised) with the card's SM clock, power draw and
 temperature read right after them, the device time of all kernels per step
-and its share of the wall time (the device's busy share), then the rows
+and its share of the wall time (the device's busy share), the caching
+allocator's device allocations, frees, retries and stream syncs over the
+timed steps, then the rows
 with the most self device time: kernels, and the operators (aten ops,
 autograd Functions, the optimizer step) whose kernels they include, so
 those two kinds of row overlap; then the rows with the most self CPU time
-(the host's side of the step). Fails without a CUDA device.
+(the host's side of the step) and every CUDA runtime call's count and
+self CPU time per step. Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,11 +67,15 @@ def main(argv=None):
         step(state, ds, view_ids, gen)
     torch.cuda.synchronize()
 
+    mem0 = torch.cuda.memory_stats(dev)
     t0 = time.perf_counter()
     for _ in range(args.steps):
         step(state, ds, view_ids, gen)
     torch.cuda.synchronize()
     wall_ms = 1000.0 * (time.perf_counter() - t0) / args.steps
+    mem1 = torch.cuda.memory_stats(dev)
+    churn = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in
+             ("num_device_alloc", "num_device_free", "num_alloc_retries", "num_sync_all_streams")}
     card = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
@@ -86,6 +93,8 @@ def main(argv=None):
     print(f"steps {args.steps} after {args.warmup} warm-up: wall {wall_ms:.3f} ms/step "
           f"(unprofiled; SM clock, power, temperature after them: {card}), kernels "
           f"{kernel_ms:.3f} ms/step ({100.0 * kernel_ms / wall_ms:.1f} % of the wall time)")
+    print("caching allocator over the timed steps: " + ", ".join(f"{k} {v}" for k, v in
+                                                                  churn.items()))
     for e in events[:args.top]:
         ms = dev_us(e) / 1000.0 / args.steps
         kind = "kernel" if e.device_type == DeviceType.CUDA else "op"
@@ -97,6 +106,9 @@ def main(argv=None):
     for e in host[:args.top // 2]:
         print(f"  {e.self_cpu_time_total / 1000.0 / args.steps:8.3f} ms/step  "
               f"x{e.count // args.steps:<4d} {e.key[:90]}")
+    print("CUDA runtime calls (where the host can wait on the device): " + "; ".join(
+        f"{e.key} x{e.count / args.steps:g} {e.self_cpu_time_total / 1000.0 / args.steps:.3f} ms"
+        for e in host if e.key.startswith("cuda")))
 
 
 if __name__ == "__main__":
