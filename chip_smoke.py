@@ -12,7 +12,7 @@ line is printed):
   1. card, power limit, torch / CUDA / nvcc versions;
   2. build of csrc/intersect.cu, csrc/mlp_train.cu and csrc/field_train.cu,
      one nvcc each, run together (timed; ptxas registers / shared memory /
-     spills);
+     spills; the forward kernels B and C must not spill);
   3. kernel vs plain version on every synthetic_flagship view
      (N = 33,088 rays, P = 32, K = 16, F = 0) and on a cut-plane case
      (F = 8 seeded half-spaces through each box centre): share of
@@ -30,18 +30,22 @@ line is printed):
      versions at N = 131,072 and 262,144 points with the checkpoint's
      coarse and fine trunk weights, on the encodings of real sample points
      of a training batch: max abs and relative Frobenius error of out, dW,
-     db, dx; a second B' call equal to the first bit for bit; kernel and
-     plain times, beside the bound and the byte floor of B''s three-pass
-     plan (the data and weight passes' own traffic at HBM's rate);
+     db, dx; a second B and a second B' call each equal to the first bit
+     for bit; kernel and plain times, beside the bound, B's design floor
+     (its own I/O and the activations it saves, at HBM's rate) and the byte
+     floor of B''s three-pass plan (the data and weight passes' own
+     traffic);
   8. kernels C / C' (whole field forward / backward) vs their plain
      versions at the same point counts, weights and encodings: sigma, rgb
      logits, sem, every saved activation, every packed dW / db block, dx
      and dd, with dW in bf16 (mode field) and in float32 (mode hybrid),
      each against its own ceiling; C' with its recompute (as mode hybrid
      runs it) against plain C' on the plain forward's activations, and bit
-     for bit against C' on C's; a second C' call equal to the first bit for
-     bit; kernel and plain times, beside the bound and the plan's byte
-     floor (the trunk's data and weight passes and the heads' weight pass);
+     for bit against C' on C's; a second C and a second C' call each equal
+     to the first bit for bit; kernel and plain times, beside the bound,
+     C's design floor, the plan's byte floor (the trunk's data and weight
+     passes and the heads' weight pass) and the bound of C''s heads data
+     pass (its own operations and bytes);
   9. one full-width training step from the checkpoint with the JAX step's
      recorded draws (artifacts/torch/synthetic_flagship_10000_jax_step.*),
      in model.pallas_mode trunk, field and hybrid, each against the JAX
@@ -344,6 +348,7 @@ def trunk_phase(cfg, enc, model, dev):
     from panopticnerf_tpu_torch.ops import mlp_train as mt
     from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
         backward_plan_bytes,
+        forward_plan_bytes,
         trunk_backward_cuda,
         trunk_forward_cuda,
     )
@@ -360,12 +365,14 @@ def trunk_phase(cfg, enc, model, dev):
         npts = xp.shape[0]
         gout = torch.randn((npts, wp.shape[-1]), generator=gen, device=dev) * 1e-3
         acts = trunk_forward_cuda(xp, wp, bp, skips)
+        same_fwd = torch.equal(acts, trunk_forward_cuda(xp, wp, bp, skips))
         acts_ref = mt.trunk_forward_plain(xp, wp, bp, skips)
         got = trunk_backward_cuda(xp, acts, gout, wp, skips)
         again = trunk_backward_cuda(xp, acts, gout, wp, skips)
         ref = mt.trunk_backward_plain(xp, acts, gout, wp, skips)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same_fwd, f"B {field} N={npts}: a second call differs from the first")
         check(same, f"B' {field} N={npts}: a second call differs from the first")
         errs = {"out": (acts[-1], acts_ref[-1]), "dW": (got[1], ref[1]),
                 "db": (got[2], ref[2]), "dx": (got[0], ref[0])}
@@ -392,13 +399,17 @@ def trunk_phase(cfg, enc, model, dev):
         t["fwd_bound"] = dense_bound(npts, shapes, 2 * x_dim + 2 * width)
         t["bwd_bound"] = dense_bound(npts, shapes, 4 * x_dim + 4 * width, backward=True)
         floor = [1e3 * b / PEAK_BYTES for b in backward_plan_bytes(npts, width, wp.shape[0], skips)]
+        t["fwd_floor"] = 1e3 * forward_plan_bytes(npts, width, wp.shape[0]) / PEAK_BYTES
         res[(field, "t")] = t
         print(f"B/B' vs plain, {field} trunk, N={npts}: " + "; ".join(line)
-              + f"; a second B' call equals the first bit for bit: {same}")
+              + f"; a second B call equals the first bit for bit: {same_fwd}, a second B' call:"
+              f" {same}")
         print(f"  times (ms, median of 5, plain-kernel-kernel-plain): B {t['fwd']:.3f} / "
               f"{t['fwd2']:.3f}, plain {t['fwd_plain']:.3f} / {t['fwd_plain2']:.3f}; "
               f"B' {t['bwd']:.3f} / {t['bwd2']:.3f}, plain {t['bwd_plain']:.3f} / "
               f"{t['bwd_plain2']:.3f}; bounds B {t['fwd_bound'][0]:.3f} ({t['fwd_bound'][1]}), "
+              f"B's design floor {t['fwd_floor']:.3f} (bytes: x_enc, the saved activations, "
+              f"the weights), "
               f"B' {t['bwd_bound'][0]:.3f} ({t['bwd_bound'][1]}); byte floor of B''s three-pass "
               f"plan {floor[0]:.3f} (data pass) + {floor[1]:.3f} (weight pass) ms; "
               f"B writes every layer's "
@@ -418,6 +429,8 @@ def field_phase(cfg, enc, model, dev):
     from panopticnerf_tpu_torch.ops.field_train_cuda import (
         field_backward_cuda,
         field_forward_cuda,
+        forward_plan_bytes,
+        heads_data_plan_bytes,
         heads_weight_plan_bytes,
     )
     from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
@@ -438,6 +451,11 @@ def field_phase(cfg, enc, model, dev):
         g_out = torch.randn((npts, 4), generator=gen, device=dev) * 1e-3
         g_sem = torch.randn((npts, dims.num_classes), generator=gen, device=dev) * 1e-3
         out, sem, saved = field_forward_cuda(xp, dp, pk, dims)
+        second = field_forward_cuda(xp, dp, pk, dims)
+        same_fwd = all(torch.equal(a, b) for a, b in
+                       zip((out, sem, *saved), (second[0], second[1], *second[2]))
+                       if a is not None)
+        del second
         r_out, r_sem, r_saved = ft.field_forward_plain(xp, dp, pk, dims)
         errs = {"sigma": (out[:, 0], r_out[:, 0]), "rgb": (out[:, 1:], r_out[:, 1:]),
                 "sem": (sem, r_sem)}
@@ -477,11 +495,13 @@ def field_phase(cfg, enc, model, dev):
             print("  " + "; ".join(f"{k} {stats[k][0]:.2e} {stats[k][1]:.2e}"
                                    for k in names[i:i + 6]))
         print(f"  C' with its recompute equals C' on C's saved activations bit for bit: {same}; "
-              f"a second C' call equals the first bit for bit: {repeat}")
+              f"a second C call equals the first bit for bit: {same_fwd}, a second C' call: "
+              f"{repeat}")
         for name, (_, r) in stats.items():
             lim = field_ceiling(name)
             check(r <= lim, f"C/C' {field} N={npts}: {name} rel err {r} > {lim}")
         check(same, f"C' {field} N={npts}: the recompute differs from C' on C's activations")
+        check(same_fwd, f"C {field} N={npts}: a second call differs from the first")
         check(repeat, f"C' {field} N={npts}: a second call differs from the first")
         t = {}
         fwd_k = lambda: field_forward_cuda(xp, dp, pk, dims)
@@ -510,13 +530,23 @@ def field_phase(cfg, enc, model, dev):
         floor = [1e3 * b / PEAK_BYTES for b in
                  (*backward_plan_bytes(npts, dims.width, dims.layers, dims.skips),
                   heads_weight_plan_bytes(npts, dims))]
+        t["fwd_floor"] = 1e3 * forward_plan_bytes(npts, dims) / PEAK_BYTES
+        # C''s heads data pass on its own: g W^T through the heads (2 x in x
+        # out operations per point and head), its own bytes at HBM's rate
+        heads = shapes[dims.layers:]
+        t["heads_bound"] = bound(2.0 * npts * sum(i * o for i, o in heads),
+                                 heads_data_plan_bytes(npts, dims))
         res[field] = {"errs": stats, "t": t}
         print(f"  times (ms, median of 5, interleaved): C {t['fwd']:.3f} / {t['fwd2']:.3f}, plain "
               f"{t['fwd_plain']:.3f} / {t['fwd_plain2']:.3f}, bound {t['fwd_bound'][0]:.3f} "
-              f"({t['fwd_bound'][1]}); C' {t['bwd']:.3f} / {t['bwd2']:.3f}, plain "
+              f"({t['fwd_bound'][1]}), C's design floor {t['fwd_floor']:.3f} (bytes: inputs, "
+              f"outputs, the saved activations, the weights); C' {t['bwd']:.3f} / "
+              f"{t['bwd2']:.3f}, plain "
               f"{t['bwd_plain']:.3f} / {t['bwd_plain2']:.3f}, bound {t['bwd_bound'][0]:.3f} "
               f"({t['bwd_bound'][1]}), byte floor of the plan's redesigned passes {floor[0]:.3f} "
-              f"(trunk data) + {floor[1]:.3f} (trunk weight) + {floor[2]:.3f} (heads' weight) ms; "
+              f"(trunk data) + {floor[1]:.3f} (trunk weight) + {floor[2]:.3f} (heads' weight) ms"
+              f", bound of the heads' data pass {t['heads_bound'][0]:.3f} "
+              f"({t['heads_bound'][1]}); "
               f"C' with recompute, f32 dW {t['rec']:.3f} / "
               f"{t['rec2']:.3f}, plain {t['rec_plain']:.3f} / {t['rec_plain2']:.3f}, bound "
               f"{t['rec_bound'][0]:.3f} ({t['rec_bound'][1]}); C writes "
@@ -676,6 +706,11 @@ def main():
     for name in ("mlp_train", "field_train"):
         for line in ptxas_summary(libs[name][:-3] + ".log"):
             print(f"  ptxas {name}: {line}")
+            if re.match(r"(trunk|field)_fwd_kernel", line):
+                check(line.endswith("spills 0/0 B"), f"a forward kernel spills: {line}")
+        for line in open(libs[name][:-3] + ".log"):  # ptxas: a chain waited out product by product
+            check(not ("serialized" in line and "_fwd_kernel" in line),
+                  f"ptxas serializes a forward kernel's wgmma chains: {line.strip()}")
 
     # 3. kernel vs plain at the slice's shape
     cfg = load_config(CFG_FILE, ["model_dir", os.path.join(REPO, "artifacts")])

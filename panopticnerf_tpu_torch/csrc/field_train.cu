@@ -34,15 +34,22 @@
 // point), and C writes the activations C' reads (5,120 B per point at W =
 // 256, 1.34 GB at the fine N: 0.40 ms of HBM time that C' then reads
 // back). What the design does about it:
-//   - C: one 8-warp block per 128-point tile runs kernel B's trunk loop
-//     (mlp_common.cuh) with the tile's [h | x] in shared memory, then every
-//     head out of the same shared memory: [sem_hidden | sigma] (f32 sigma
-//     and bf16 s in the epilogue), sem_out, the feature columns (written
+//   - C: the tile engine of mlp_common.cuh (kernel B's) runs the trunk,
+//     then every head out of the same shared memory, each product a wgmma
+//     chain over weight stages that the producer warpgroup streams by TMA:
+//     [sem_hidden | sigma] (N = 192 at W = 256, the head block's columns
+//     from 0; f32 sigma to `out`, bf16 s into the s / r tile: the x box,
+//     which the trunk no longer reads, and one more box), sem_out on s,
+//     the feature columns (N = W from column SA; bf16, no ReLU, written
 //     over h, whose last reader is that product), [feature | d_enc] @ W_ch
-//     (d_enc loaded into the x columns the trunk no longer reads), and
-//     color_out; every epilogue (f32 bias, ReLU, bf16 rounding) runs on the
-//     mma.sync accumulators. C saves what C' needs: the trunk's bf16
-//     activations (as B does), s, bf16(feature) and r.
+//     (d_enc loaded by TMA into the x box once sem_out has read s there),
+//     r into the s / r tile, and color_out on r; then the next tile's x
+//     goes into the x box. Sharing that box leaves room for a 4-stage ring
+//     at W = 256. Head widths under 64 (CP, the 32 color_out columns)
+//     run as N = 64 on boxes whose columns past the tensor are zeros. C
+//     saves what C' needs by TMA stores from the tiles (the trunk's
+//     activations, as B does, s, bf16(feature), r); sigma, sem and the rgb
+//     logits are f32 stores from the accumulators.
 //   - C': the TPU kernel carries dW across its sequential grid in VMEM;
 //     Hopper blocks run in parallel, so C' is B''s three-pass plan over the
 //     whole field: (1) a data pass per 128-point tile for the heads — g_rgb
@@ -60,8 +67,8 @@
 //   GEMMs in flax's placement) C' first runs C's forward to recompute them
 //   in the kernel's placement, as the TPU kernel recomputes in VMEM.
 //
-// C and C''s heads data pass are still the first design: mma.sync at one
-// 8-warp block per SM, the heads' column passes re-reading the tile from
+// C''s heads data pass is still the first design: mma.sync at one 8-warp
+// block per tile, the heads' column passes re-reading the tile from
 // shared memory.
 
 #include "mlp_common.cuh"
@@ -70,7 +77,6 @@ namespace {
 
 constexpr int kDPad = 32;     // d_enc columns
 constexpr int kCO = 32;       // color_out columns (3 used)
-constexpr int kHeadMax = 128; // largest CP / CWP
 
 template <int W>
 struct Dims {
@@ -80,111 +86,165 @@ struct Dims {
 
 // ------------------------------------------------------------ forward (C)
 
-template <int W>
-__global__ void __launch_bounds__(kThreads, 1)
-    field_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d,
-                     const bf16* __restrict__ wp, const float* __restrict__ bp,
-                     const bf16* __restrict__ hw, const float* __restrict__ hb,
-                     const bf16* __restrict__ wso, const float* __restrict__ bso,
-                     const bf16* __restrict__ wch, const float* __restrict__ bch,
-                     const bf16* __restrict__ wco, const float* __restrict__ bco,
-                     float* __restrict__ out,     // (N, 4): sigma, rgb logits
-                     float* __restrict__ sem,     // (N, classes) or null
-                     bf16* __restrict__ acts,     // (L, N, W)
-                     bf16* __restrict__ s_sv,     // (N, SH) or null
-                     bf16* __restrict__ feat_sv,  // (N, W)
-                     bf16* __restrict__ r_sv,     // (N, cwp)
-                     int n, int layers, unsigned skip_mask, int classes, int cwp, int cp,
-                     int use_sem) {
-  using D = Dims<W>;
-  constexpr int SH = D::SH, SA = D::SA, HO = D::HO;
-  constexpr int LDA = W + kFPad + kPad, LDS = kHeadMax + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* act = reinterpret_cast<bf16*>(smem_raw);   // kBM x LDA: [h | x], later [feature | d]
-  bf16* wbuf = act + kBM * LDA;                    // 2 x kKC x (NCMAX + kPad)
-  bf16* sbuf = wbuf + 2 * kKC * (D::NCMAX + kPad);  // kBM x LDS: s, later r
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kBM;
-
-  trunk_forward_tile<W>(act, wbuf, x, wp, bp, acts, n, layers, skip_mask, row0);
-
-  // d_enc into the x columns, which the trunk no longer reads (waited for
-  // with the next product's weight chunks)
-  for (int i = tid; i < kBM * (kDPad / 8); i += kThreads) {
-    const int r = i / (kDPad / 8), seg = i % (kDPad / 8);
-    const bool ok = row0 + r < n;
-    cp_async16(act + r * LDA + W + seg * 8, d + (size_t)(ok ? row0 + r : 0) * kDPad + seg * 8, ok);
-  }
-  cp_async_commit();
-
-  {  // [sem_hidden | sigma]: s = relu(ho) -> bf16; sigma = ho in f32
-    float acc[4][SA / 32][4];
-    zero_acc(acc);
-    gemm_nn<SA / 32, true>(acc, act, LDA, 0, wbuf, hw, HO, W, SA);
-    for_each_pair<SA / 32, true>(acc, SA, [&](int r, int col, float v0, float v1) {
-      const int p = row0 + r;
-      if (col < SH) {
-        const __nv_bfloat162 sv =
-            __floats2bfloat162_rn(relu(v0 + hb[col]), relu(v1 + hb[col + 1]));
-        *reinterpret_cast<__nv_bfloat162*>(sbuf + r * LDS + col) = sv;
-        if (use_sem && p < n) *reinterpret_cast<__nv_bfloat162*>(s_sv + (size_t)p * SH + col) = sv;
-      } else if (col == SH && p < n) {
-        out[(size_t)p * 4] = v0 + hb[SH];
-      }
-    });
-  }
-  if (use_sem) {  // sem = bf16(s) @ W_so + b_so, f32
-    float acc[4][kHeadMax / 32][4];
-    zero_acc(acc);
-    gemm_nn<kHeadMax / 32, false>(acc, sbuf, LDS, 0, wbuf, wso, cp, SH, cp);
-    for_each_pair<kHeadMax / 32, false>(acc, cp, [&](int r, int col, float v0, float v1) {
-      const int p = row0 + r;
-      if (p >= n) return;
-      if (col < classes) sem[(size_t)p * classes + col] = v0 + bso[col];
-      if (col + 1 < classes) sem[(size_t)p * classes + col + 1] = v1 + bso[col + 1];
-    });
-  }
-  {  // feature = ho (f32) -> bf16, over h (the product ended synchronised)
-    float acc[4][W / 32][4];
-    zero_acc(acc);
-    gemm_nn<W / 32, true>(acc, act, LDA, 0, wbuf, hw + SA, HO, W, W);
-    for_each_pair<W / 32, true>(acc, W, [&](int r, int col, float v0, float v1) {
-      const __nv_bfloat162 f = __floats2bfloat162_rn(v0 + hb[SA + col], v1 + hb[SA + col + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) = f;
-      if (row0 + r < n)
-        *reinterpret_cast<__nv_bfloat162*>(feat_sv + (size_t)(row0 + r) * W + col) = f;
-    });
-  }
-  {  // r = relu([feature | d] @ W_ch + b_ch) -> bf16
-    float acc[4][kHeadMax / 32][4];
-    zero_acc(acc);
-    gemm_nn<kHeadMax / 32, false>(acc, act, LDA, 0, wbuf, wch, cwp, W + kDPad, cwp);
-    for_each_pair<kHeadMax / 32, false>(acc, cwp, [&](int r, int col, float v0, float v1) {
-      const __nv_bfloat162 rv =
-          __floats2bfloat162_rn(relu(v0 + bch[col]), relu(v1 + bch[col + 1]));
-      *reinterpret_cast<__nv_bfloat162*>(sbuf + r * LDS + col) = rv;
-      if (row0 + r < n)
-        *reinterpret_cast<__nv_bfloat162*>(r_sv + (size_t)(row0 + r) * cwp + col) = rv;
-    });
-  }
-  {  // rgb logits = bf16(r) @ W_co + b_co, f32
-    float acc[4][1][4];
-    zero_acc(acc);
-    gemm_nn<1, true>(acc, sbuf, LDS, 0, wbuf, wco, kCO, cwp, kCO);
-    for_each_pair<1, true>(acc, kCO, [&](int r, int col, float v0, float v1) {
-      const int p = row0 + r;
-      if (p >= n || col >= 3) return;
-      out[(size_t)p * 4 + 1 + col] = v0 + bco[col];
-      if (col + 1 < 3) out[(size_t)p * 4 + 2 + col] = v1 + bco[col + 1];
-    });
-  }
+// sem = bf16(s) @ W_so + b_so in f32, to `sem` (N, classes): K = SH,
+// N = 2R columns (64 or 128).
+template <class S, int R>
+__device__ __forceinline__ void sem_head(float (&acc)[R], uint32_t sm, uint32_t& it, int sh,
+                                         const float* __restrict__ bso, float* __restrict__ sem,
+                                         int classes, int cw, int row0, int n) {
+  fwd_product<S>(acc, sm, it, sm + S::kX + cw * 64 * 128, 0, (sh + 63) / 64);
+  store_cols(acc, bso, sem, classes, 0, classes, row0, n);
 }
 
+// r = bf16(relu([feature | d_enc] @ W_ch + b_ch)) into the s / r tile (the
+// x box, once the product has read d_enc there, and the box after it) and
+// to `rmap`: K = W + 64 (the tile's h boxes, then d_enc, its columns past
+// 32 zeros), N = 2R columns (64 or 128).
+template <class S, int W, int R>
+__device__ __forceinline__ void colour_hidden(float (&acc)[R], uint32_t sm, uint32_t& it,
+                                              const CUtensorMap* rmap,
+                                              const float* __restrict__ bch, int cwp, int cw,
+                                              int row0, int n) {
+  fwd_product<S>(acc, sm, it, sm + cw * 64 * 128, 0, W / 64 + 1);
+  tile_free(cw);
+  fwd_epilogue<true>(acc, bch, sm + S::kX, cw, cwp / 16);
+  tile_written(rmap, sm + S::kX, (cwp + 63) / 64, cw, row0, 0, n);
+}
+
+struct FwdArgs {
+  const bf16 *x, *d, *wp;
+  const float* bp;
+  const bf16* hw;
+  const float* hb;
+  const bf16* wso;
+  const float* bso;
+  const bf16* wch;
+  const float* bch;
+  const bf16* wco;
+  const float* bco;
+  float *out, *sem;
+  bf16 *acts, *s_sv, *feat, *r_sv;
+  int n, layers;
+  unsigned skip_mask;
+  int classes, cwp, cp, use_sem;
+};
+
+struct FieldFwdParams {
+  // x (N, 64), d (N, 32), wp (L, W + 64, W), hw (W, HO), wso (SH, CP), wch
+  // (W + 32, CWP), wco (CWP, 32); out: acts (L, N, W), s (N, SH), feat (N,
+  // W), r (N, CWP)
+  CUtensorMap x, d, wp, hw, wso, wch, wco, acts, s, feat, r;
+  const float *bp, *hb, *bso, *bch, *bco;
+  float* out;  // (N, 4): sigma, rgb logits
+  float* sem;  // (N, classes) or null
+  int n, layers;
+  unsigned skip_mask;
+  int classes, cwp, cp, use_sem, tiles;
+};
+
 template <int W>
-size_t fwd_smem() {
-  return (size_t)(kBM * (W + kFPad + kPad) + 2 * kKC * (Dims<W>::NCMAX + kPad) +
-                  kBM * (kHeadMax + kPad)) *
-         sizeof(bf16);
+__global__ void __launch_bounds__(kWsThreads, 1)
+    field_fwd_kernel(const __grid_constant__ FieldFwdParams p) {
+  using D = Dims<W>;
+  using S = FwdSmem<W, true>;
+  constexpr int SH = D::SH, SA = D::SA, KB = W / 64;
+  constexpr int NS = (SA + 63) / 64 * 64;  // [sem_hidden | sigma] product: whole boxes
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sm = fwd_setup<S>(smem_raw);
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t it = 0, xi = 0;
+
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      const int nsem = p.cp > 64 ? 2 : 1, nch = p.cwp > 64 ? 2 : 1;  // N = 128, else 64
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        push_trunk<S, W>(sm, it, &p.wp, p.layers, p.skip_mask);
+        for (int kc = 0; kc < KB; ++kc) push<S>(sm, it, &p.hw, 0, 64 * kc, 0, NS / 64);
+        if (p.use_sem)
+          for (int kc = 0; kc < (SH + 63) / 64; ++kc) push<S>(sm, it, &p.wso, 0, 64 * kc, 0, nsem);
+        for (int kc = 0; kc < KB; ++kc) push<S>(sm, it, &p.hw, SA, 64 * kc, 0, KB);
+        for (int kc = 0; kc <= KB; ++kc) push<S>(sm, it, &p.wch, 0, 64 * kc, 0, nch);
+        for (int kc = 0; kc < (p.cwp + 63) / 64; ++kc)
+          push<S>(sm, it, &p.wco, 0, 64 * kc, 0, 1);
+      }
+    } else if (warp == 1 && lane == 0) {  // x, then d_enc, into the x box
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        push_rows<S>(sm, xi, &p.x, tile * kBM, p.n);
+        push_rows<S>(sm, xi, &p.d, tile * kBM, p.n);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, t = threadIdx.x & 127;
+  {  // zeros in this warpgroup's rows of the s / r tile's second box: the
+     // columns a product reads past its K (s and r narrower than 128) then
+     // hold zeros or earlier finite values (the first box: x, d_enc, s, r)
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    for (int i = t; i < 64 * 8; i += 128) {
+      const uint32_t at = sm + S::kX + kBox + cw * 64 * 128 + i * 16;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(z.x), "r"(z.y),
+                   "r"(z.z), "r"(z.w)
+                   : "memory");
+    }
+    fence_proxy_async();
+    named_bar(1 + cw, 128);
+  }
+  float acc[D::NCMAX / 2];  // every product's: one of N columns uses acc[0, N / 2)
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int row0 = tile * kBM + cw * 64;
+    trunk_tile<S, W>(prefix<W / 2>(acc), sm, it, xi, &p.acts, p.bp, p.layers,
+                     p.skip_mask, cw, row0, p.n);
+    {  // [sem_hidden | sigma]: sigma = ho in f32, s = bf16(relu(ho))
+      auto& ho = prefix<NS / 2>(acc);
+      fwd_product<S>(ho, sm, it, sm + cw * 64 * 128, 0, KB);
+      if ((t & 3) == 0)  // column SH: ho[4 (SH / 8) + 2 h] of the lanes with t % 4 = 0
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pt = row0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8 * h;
+          if (pt < p.n) p.out[(size_t)pt * 4] = ho[4 * (SH / 8) + 2 * h] + p.hb[SH];
+        }
+      if (p.use_sem) {
+        tile_free(cw);
+        fwd_epilogue<true>(ho, p.hb, sm + S::kX, cw, SH / 16);
+        tile_written(&p.s, sm + S::kX, (SH + 63) / 64, cw, row0, 0, p.n);
+      }
+    }
+    if (p.use_sem) {  // sem = bf16(s) @ W_so + b_so, f32
+      if (p.cp > 64)
+        sem_head<S>(prefix<64>(acc), sm, it, SH, p.bso, p.sem, p.classes, cw, row0,
+                    p.n);
+      else
+        sem_head<S>(prefix<32>(acc), sm, it, SH, p.bso, p.sem, p.classes, cw, row0,
+                    p.n);
+    }
+    if (t == 0) tma_store_wait_read();  // s's store has read the x box
+    release(S::xempty(sm));             // x, then s: the x box is free for d_enc
+    ++xi;
+    {  // feature = bf16(ho + b), no ReLU, over h
+      auto& feat = prefix<W / 2>(acc);
+      fwd_product<S>(feat, sm, it, sm + cw * 64 * 128, 0, KB);
+      tile_free(cw);
+      fwd_epilogue<false>(feat, p.hb + SA, sm, cw, W / 16);
+      tile_written(&p.feat, sm, KB, cw, row0, 0, p.n);
+    }
+    // r = bf16(relu([feature | d_enc] @ W_ch + b_ch)); d_enc is in the x box
+    mbar_wait(S::xfull(sm), xi & 1);
+    if (p.cwp > 64)
+      colour_hidden<S, W>(prefix<64>(acc), sm, it, &p.r, p.bch, p.cwp, cw, row0, p.n);
+    else
+      colour_hidden<S, W>(prefix<32>(acc), sm, it, &p.r, p.bch, p.cwp, cw, row0, p.n);
+    {  // rgb logits = bf16(r) @ W_co + b_co, f32
+      auto& rgb = prefix<32>(acc);
+      fwd_product<S>(rgb, sm, it, sm + S::kX + cw * 64 * 128, 0, (p.cwp + 63) / 64);
+      store_cols(rgb, p.bco, p.out, 4, 1, 3, row0, p.n);
+    }
+    if (t == 0) tma_store_wait_read();  // r's store has read the x box
+    release(S::xempty(sm));             // d_enc, then r: free for the next tile's x
+    ++xi;
+  }
+  if (t == 0) tma_store_wait();
 }
 
 // ------------------------------------------- backward (C'), heads data pass
@@ -328,34 +388,46 @@ size_t heads_smem() {
          2 * D::NCMAX * sizeof(float);
 }
 
-struct FwdArgs {
-  const bf16 *x, *d, *wp;
-  const float* bp;
-  const bf16* hw;
-  const float* hb;
-  const bf16* wso;
-  const float* bso;
-  const bf16* wch;
-  const float* bch;
-  const bf16* wco;
-  const float* bco;
-  float *out, *sem;
-  bf16 *acts, *s_sv, *feat, *r_sv;
-  int n, layers;
-  unsigned skip_mask;
-  int classes, cwp, cp, use_sem;
-};
 
 template <int W>
 int fwd(const FwdArgs& a, cudaStream_t s) {
-  const size_t smem = fwd_smem<W>();
+  using D = Dims<W>;
+  using S = FwdSmem<W, true>;
+  FieldFwdParams p{};
+  int err;
+  if ((err = make_tma_map(&p.x, a.x, kFPad, a.n, 1)) ||
+      (err = make_tma_map(&p.d, a.d, kDPad, a.n, 1)) ||
+      (err = make_tma_map(&p.wp, a.wp, W, W + kFPad, a.layers)) ||
+      (err = make_tma_map(&p.hw, a.hw, D::HO, W, 1)) ||
+      (err = make_tma_map(&p.wch, a.wch, a.cwp, W + kDPad, 1)) ||
+      (err = make_tma_map(&p.wco, a.wco, kCO, a.cwp, 1)) ||
+      (err = make_tma_map(&p.acts, a.acts, W, a.n, a.layers)) ||
+      (err = make_tma_map(&p.feat, a.feat, W, a.n, 1)) ||
+      (err = make_tma_map(&p.r, a.r_sv, a.cwp, a.n, 1)))
+    return err;
+  if (a.use_sem && ((err = make_tma_map(&p.wso, a.wso, a.cp, D::SH, 1)) ||
+                    (err = make_tma_map(&p.s, a.s_sv, D::SH, a.n, 1))))
+    return err;
+  p.bp = a.bp;
+  p.hb = a.hb;
+  p.bso = a.bso;
+  p.bch = a.bch;
+  p.bco = a.bco;
+  p.out = a.out;
+  p.sem = a.sem;
+  p.n = a.n;
+  p.layers = a.layers;
+  p.skip_mask = a.skip_mask;
+  p.classes = a.classes;
+  p.cwp = a.cwp;
+  p.cp = a.cp;
+  p.use_sem = a.use_sem;
+  p.tiles = (a.n + kBM - 1) / kBM;
+  const int sms = sm_count(), grid = sms > 0 && sms < p.tiles ? sms : p.tiles;
   static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t e = allow_smem((const void*)field_fwd_kernel<W>, (int)smem, smem_set);
+  const cudaError_t e = allow_smem((const void*)field_fwd_kernel<W>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  field_fwd_kernel<W><<<(a.n + kBM - 1) / kBM, kThreads, smem, s>>>(
-      a.x, a.d, a.wp, a.bp, a.hw, a.hb, a.wso, a.bso, a.wch, a.bch, a.wco, a.bco, a.out, a.sem,
-      a.acts, a.s_sv, a.feat, a.r_sv, a.n, a.layers, a.skip_mask, a.classes, a.cwp, a.cp,
-      a.use_sem);
+  field_fwd_kernel<W><<<grid, kWsThreads, S::kBytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 

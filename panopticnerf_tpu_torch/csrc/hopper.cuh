@@ -26,31 +26,38 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ------------------------------------------------------------- mbarriers
+// Each takes the barrier's shared-window address (a 32-bit register), or a
+// pointer to it.
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
+  mbar_init(smem_u32(bar), count);
 }
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 // Arrives once and adds `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  mbar_expect_tx(smem_u32(bar), bytes);
 }
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t ok;
   asm volatile(
       "{\n.reg .pred p;\n"
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
       "selp.u32 %0, 1, 0, p;\n}\n"
       : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
+      : "r"(bar), "r"(parity)
       : "memory");
   return ok != 0;
 }
@@ -58,11 +65,14 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
 // counts the phase before its first as completed: parity 1 passes at once).
 // A wait of more than 2^35 cycles (~17 s) traps: a pipeline that cannot
 // finish ends its launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > (1ll << 35)) __trap();
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // ------------------------------------------------------------------- TMA
@@ -70,23 +80,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // One box of `map` at element coordinates (c0 innermost, c1, c2) into
 // shared memory; completes on `bar` (bytes of the whole box, out-of-bounds
 // elements zero-filled).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                          int c1, int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  tma_load(smem_u32(dst), map, smem_u32(bar), c0, c1, c2);
 }
 // One box from shared memory to `map` at (c0, c1, c2); elements out of
 // bounds are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                           int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2) {
+  tma_store(map, smem_u32(src), c0, c1, c2);
 }
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -141,12 +159,15 @@ __device__ __forceinline__ void stsm_x4_at(uint32_t addr, const uint32_t (&r)[4]
 // bytes, `sbo` = bytes between 8-row groups (1024), `lbo` unused (16).
 // MN-major: 64-element blocks of the MN dimension `lbo` bytes apart, 8-row
 // groups of the K dimension `sbo` bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
-  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
   d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
   d |= (uint64_t)1 << 62;
   return d;
+}
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return desc_sw128(smem_u32(p), lbo, sbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -167,10 +188,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x N, f32) += A (64 x 16) B (16 x N), bf16 operands in shared memory
-// (descriptors a, b); TA / TB = 1: the operand is MN-major. Accumulator
-// layout: thread t of the warpgroup holds d[4j + 2h + e] = row 16 (t / 32)
-// + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + e.
+// d (64 x N, f32) = A (64 x 16) B (16 x N) + (acc ? d : 0), bf16 operands in
+// shared memory (descriptors a, b); TA / TB = 1: the operand is MN-major.
+// Accumulator layout: thread t of the warpgroup holds d[4j + 2h + e] = row
+// 16 (t / 32) + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + e.
 #define PNT_D8(i)                                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -181,44 +202,55 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define PNT_R64                                                                            \
   PNT_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
           "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define PNT_R128                                                                             \
+#define PNT_R96                                                                             \
   PNT_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-          "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "   \
-          "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "  \
+          "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define PNT_R128                                                                           \
+  PNT_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
           "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "    \
           "%123, %124, %125, %126, %127"
 
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PNT_R32
       "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : PNT_D32(0)
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
 }
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" PNT_R64
       "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : PNT_D32(0), PNT_D32(32)
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
 }
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma(float (&d)[96], uint64_t a, uint64_t b, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" PNT_R96
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : PNT_D32(0), PNT_D32(32), PNT_D32(64)
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" PNT_R128
       "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : PNT_D32(0), PNT_D32(32), PNT_D32(64), PNT_D32(96)
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
 }
 #undef PNT_D8
 #undef PNT_D32
 #undef PNT_R32
 #undef PNT_R64
+#undef PNT_R96
 #undef PNT_R128
 
 // In a [col / 64][rows][64] bf16 buffer of 64 x 64 TMA boxes (1024-byte

@@ -2,22 +2,31 @@
 // whole-field kernels (field_train.cu: C, C'), for NVIDIA Hopper (sm_90a).
 //
 // - cp.async / ldmatrix / mma.sync.m16n8k16 (bf16 in, f32 accumulators)
-//   helpers;
-// - two block-wide GEMM loops over a 128-row tile held in shared memory,
-//   8 warps as 2 along rows x 4 along columns, the right operand streamed
-//   from global memory through a double-buffered cp.async ring of 32-deep
-//   chunks: `gemm_nn` (right operand K x NC, row-major) and `gemm_nt` (its
-//   transpose given, NC x K row-major). NC is a multiple of 32: each
-//   column warp holds NC / 32 m16n8 tiles. With kFull the width is the
-//   template's; otherwise `nc` (<= 32 * NT) is read at run time;
-// - the trunk's forward over one tile (kernel B's body, also C's first
-//   half);
+//   helpers and two block-wide GEMM loops over a 128-row tile held in
+//   shared memory, 8 warps as 2 along rows x 4 along columns, the right
+//   operand streamed from global memory through a double-buffered cp.async
+//   ring of 32-deep chunks: `gemm_nn` (right operand K x NC, row-major)
+//   and `gemm_nt` (its transpose given, NC x K row-major). NC is a
+//   multiple of 32: each column warp holds NC / 32 m16n8 tiles. With kFull
+//   the width is the template's; otherwise `nc` (<= 32 * NT) is read at
+//   run time. Only C''s heads data pass still uses them;
+// - the forward tile engine (kernel B, and C's trunk and heads), written
+//   for Hopper with wgmma, TMA and mbarrier rings (hopper.cuh): persistent
+//   over 128-point tiles, a producer warpgroup streaming every packed
+//   weight by TMA, two consumer warpgroups of 64 points each keeping the
+//   tile's [h | x] in shared memory as wgmma's A operand, each epilogue's
+//   bf16 result stored back into it by stmatrix and saved by a TMA store
+//   that overlaps the next layer's products;
 // - the trunk's backward (kernel B', also the trunk half of C'), three
-//   passes written for Hopper with wgmma, TMA and mbarrier rings
-//   (hopper.cuh): a persistent data pass over 128-point tiles, a split-K
-//   weight pass that also serves C''s head blocks, and in-order
-//   reductions; dW written as bf16 or as float32.
+//   passes written the same way: a persistent data pass over 128-point
+//   tiles, a split-K weight pass that also serves C''s head blocks, and
+//   in-order reductions; dW written as bf16 or as float32.
 //
+// What bounds the forward: ~1 MFLOP per point at W = 256, L = 8 (0.26 ms
+// of tensor-core time at 262,144 points), against the 4,096 bytes per
+// point of saved activations (0.32 ms at HBM's rate): the design floor is
+// the stores, which the engine overlaps with the products; the packed
+// weights are read again for every tile, from L2.
 // What bounds the trunk's backward: at W = 256, L = 8 the three-pass plan
 // moves ~9.3 KB per point in the data pass (the f32 upstream g, 8 masks
 // read from the saved activations, 8 bf16 g written, dx) and ~7.9 KB in
@@ -316,66 +325,6 @@ __device__ __forceinline__ void col_sums(float (&acc)[4][NT][4], int nc, float* 
   __syncthreads();
 }
 
-// Layer l reads packed weight rows [row_lo, row_lo + K).
-__device__ __forceinline__ int layer_row_lo(int l, int w) { return l == 0 ? w : 0; }
-__device__ __forceinline__ int layer_rows(int l, bool skip, int w) {
-  return l == 0 ? kFPad : (skip ? w + kFPad : w);
-}
-
-// ---------------------------------------------------------- trunk forward
-
-// The trunk over one 128-point tile (rows row0 ...): x into act[:, W : W +
-// 64] (async; waited for with the first weight chunk), then every layer's
-// bias + ReLU + bf16 rounding in the accumulator epilogue, into act[:, 0 :
-// W] and into acts (L, N, W). `act` is kBM x (W + 64 + kPad), `wbuf` 2 x
-// kKC x (W + kPad). Every read of x is over when it returns.
-template <int W>
-__device__ __forceinline__ void trunk_forward_tile(bf16* act, bf16* wbuf,
-                                                   const bf16* __restrict__ x,
-                                                   const bf16* __restrict__ wp,
-                                                   const float* __restrict__ bp,
-                                                   bf16* __restrict__ acts, int n, int layers,
-                                                   unsigned skip_mask, int row0) {
-  constexpr int LDA = W + kFPad + kPad, NI = W / 32;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < kBM * (kFPad / 8); i += kThreads) {
-    const int r = i / (kFPad / 8), seg = i % (kFPad / 8);
-    const bool ok = row0 + r < n;
-    cp_async16(act + r * LDA + W + seg * 8, x + (size_t)(ok ? row0 + r : 0) * kFPad + seg * 8, ok);
-  }
-  cp_async_commit();  // waited for with the first weight chunk
-
-  for (int l = 0; l < layers; ++l) {
-    const bool skip = (skip_mask >> l) & 1u;
-    const int lo = layer_row_lo(l, W);
-    float acc[4][NI][4];
-    zero_acc(acc);
-    gemm_nn<NI, true>(acc, act, LDA, lo, wbuf, wp + (size_t)l * (W + kFPad) * W + (size_t)lo * W,
-                      W, layer_rows(l, skip, W), W);
-    const float* bl = bp + (size_t)l * W;
-    for_each_pair<NI, true>(acc, W, [&](int r, int col, float v0, float v1) {
-      *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) =
-          __floats2bfloat162_rn(relu(v0 + bl[col]), relu(v1 + bl[col + 1]));
-    });
-    __syncthreads();
-    bf16* dst = acts + (size_t)l * n * W;
-    for (int i = tid; i < kBM * (W / 8); i += kThreads) {
-      const int r = i / (W / 8), seg = i % (W / 8);
-      if (row0 + r < n)
-        *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * W + seg * 8) =
-            *reinterpret_cast<const uint4*>(act + r * LDA + seg * 8);
-    }
-  }
-}
-
-template <int W>
-size_t trunk_fwd_smem() {
-  return (size_t)(kBM * (W + kFPad + kPad) + 2 * kKC * (W + kPad)) * sizeof(bf16);
-}
-
-// ------------------------------------------------------ trunk backward
-
 // g (f32 accumulators) * (act > 0), act (N, ld) bf16 global; rows past n
 // are zero (the heads' data pass of field_train.cu).
 template <int NT, bool kFull>
@@ -394,14 +343,16 @@ __device__ __forceinline__ void mask_by(float (&acc)[4][NT][4], int nc,
   });
 }
 
-// The backward kernels below are warp-specialised: warpgroup 0 produces
-// (its warps 0 and 1 issue TMA loads, one lane each), warpgroups 1 and 2
+// -------------------------------------------------- warp-specialised kernels
+
+// The kernels below are warp-specialised: warpgroup 0 produces (its
+// warps 0 and 1 issue TMA loads, one lane each), warpgroups 1 and 2
 // consume (wgmma, epilogues); setmaxnreg moves registers from the
 // producers to the consumers. The split must fit the pool the block
 // launches with, 384 x 168 registers (128 x 56 + 256 x 224 = 64,512; a
 // split that needs more waits for registers that never come). Every ring
 // stage is released by the 8 consumer warps.
-constexpr int kBwdThreads = 384;
+constexpr int kWsThreads = 384;
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use on the H100
 constexpr int kProducerRegs = 56, kConsumerRegs = 224;
 
@@ -411,9 +362,272 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // One consumer warp's release of a stage (8 arrivals complete it).
-__device__ __forceinline__ void release(uint64_t* bar) {
+__device__ __forceinline__ void release(uint32_t bar) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+__device__ __forceinline__ void release(uint64_t* bar) { release(smem_u32(bar)); }
+
+// A consumer thread's ldmatrix / stmatrix row in its warpgroup's 64 rows
+// of a 128-row tile of 64-column boxes (1024-aligned): lane l addresses
+// row l % 8 + 8 ((l / 8) % 2) of its warp's 16 rows in 8-column block
+// 2 jp + l / 16, i.e. chunk (2 jp) % 8 ^ l / 16 of 64-column box jp / 4;
+// r[q] then pairs with acc[8 jp + 2 q], acc[8 jp + 2 q + 1]. `lane_row`
+// is the byte offset of that row in box 0 at jp = 0, `at_jp` moves it to
+// group jp: one XOR with a constant per access.
+__device__ __forceinline__ uint32_t lane_row(int cw) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  return sw128_row(cw * 64 + 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) ^ ((lane >> 4) << 4);
+}
+__device__ __forceinline__ uint32_t at_jp(uint32_t row, int jp) {
+  return (row ^ (((2 * jp) & 7) << 4)) + (jp >> 2) * kBM * 128;
+}
+
+// ------------------------------------------------------ forward tile engine
+
+// Kernels B (mlp_train.cu) and C (field_train.cu) are one engine,
+// persistent over 128-point tiles (block b takes tiles b, b + gridDim.x,
+// ...). Shared memory, from a 1024-aligned base: the tile's [h | x] as
+// W / 64 + 1 boxes of 128 rows x 64 columns (wgmma's K-major A operand),
+// for C one more box (s, later r, take the x box and that one), the weight
+// ring, the barriers. A ring stage is 64 rows (K) of a packed weight, up to kNB
+// boxes of 64 columns (N), the MN-major B operand: the weights are K x N
+// with N contiguous, so a k16 step advances 2,048 bytes. Warp 0 of the
+// producer pushes every stage in the order the consumers take them; warp
+// 1 loads each tile's x (and for C, d_enc) into the x box, which the
+// consumers release after its last product. Each consumer warpgroup owns
+// 64 of the tile's points: a 64 x N f32 accumulator, one wgmma m64nNk16
+// chain per product, then the epilogue (f32 bias, ReLU, bf16) written by
+// stmatrix into the tile, where it is the next product's A operand and
+// the source of a TMA store that runs while the next products do. The two
+// warpgroups share only the ring and the x box. Every product runs whole
+// 64-row chunks: past a product's K the weights' rows lie outside their
+// tensor (TMA reads them as zeros) and the tile's columns hold zeros or
+// finite bf16 values. Shared memory is addressed by 32-bit shared-window
+// addresses, one register each, so that a 64 x 256 accumulator and the
+// loop state fit the 168 registers a thread has. No split-K, no atomics:
+// a second call gives the same bits.
+constexpr int kHeadMax = 128;    // widest head of C (CP, CWP)
+constexpr int kBox = kBM * 128;  // one 64-column box of a 128-row tile
+
+template <int W, bool kHeads>
+struct FwdSmem {
+  static constexpr int kNB = kHeads && W < kHeadMax ? kHeadMax / 64 : W / 64;
+  static constexpr int kStageBytes = kNB * 64 * 128;
+  static constexpr bool kXHeld = kHeads;      // C keeps the x box past the trunk
+  static constexpr int kX = (W / 64) * kBox;  // the x box; for C also s / r's first box
+  static constexpr int kRing = kX + (kHeads ? 2 : 1) * kBox;
+  static constexpr int kFree = kSmemMax - kRing - 1024 - 256;
+  static constexpr int kStages = kFree / kStageBytes < 4 ? kFree / kStageBytes : 4;
+  static constexpr int kBar = kRing + kStages * kStageBytes;  // full[], empty[], xfull, xempty
+  static constexpr int kBytes = kBar + 256 + 1024;  // + slack for the alignment
+  static_assert(kStages >= 3, "the forward needs three ring stages");
+  // shared-window addresses from the base `sm`
+  static __device__ __forceinline__ uint32_t stage(uint32_t sm, int st) {
+    return sm + kRing + st * kStageBytes;
+  }
+  static __device__ __forceinline__ uint32_t full(uint32_t sm, int st) {
+    return sm + kBar + 8 * st;
+  }
+  static __device__ __forceinline__ uint32_t empty(uint32_t sm, int st) {
+    return sm + kBar + 8 * (kStages + st);
+  }
+  static __device__ __forceinline__ uint32_t xfull(uint32_t sm) { return sm + kBar + 16 * kStages; }
+  static __device__ __forceinline__ uint32_t xempty(uint32_t sm) { return xfull(sm) + 8; }
+};
+
+// The 1024-aligned base of the dynamic shared memory, after one thread has
+// set up the engine's barriers: ring stages full (1 arrival + bytes) /
+// empty (8 consumer warps), the x box's the same.
+template <class S>
+__device__ __forceinline__ uint32_t fwd_setup(const unsigned char* smem_raw) {
+  const uint32_t sm = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(S::full(sm, i), 1);
+      mbar_init(S::empty(sm, i), 8);
+    }
+    mbar_init(S::xfull(sm), 1);
+    mbar_init(S::xempty(sm), 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// Producer: rows [row, row + 64) of `map` at depth z, columns from col0 in
+// `boxes` boxes, into the next ring stage (`it` counts the stages pushed).
+template <class S>
+__device__ __forceinline__ void push(uint32_t sm, uint32_t& it, const CUtensorMap* map, int col0,
+                                     int row, int z, int boxes) {
+  const int st = it % S::kStages;
+  mbar_wait(S::empty(sm, st), ((it / S::kStages) & 1) ^ 1);
+  mbar_expect_tx(S::full(sm, st), boxes * 64 * 128);
+  for (int b = 0; b < boxes; ++b)
+    tma_load(S::stage(sm, st) + b * 64 * 128, map, S::full(sm, st), col0 + 64 * b, row, z);
+  ++it;
+}
+
+// Consumer: acc (64 x 2R) = A B over the ring's next kc1 - kc0 stages (`it`
+// counts the stages taken); A = `a` (this warpgroup's rows of a tile),
+// boxes kc0 .. kc1 - 1.
+template <class S, int R>
+__device__ __forceinline__ void fwd_product(float (&acc)[R], uint32_t sm, uint32_t& it, uint32_t a,
+                                            int kc0, int kc1) {
+  int prev = -1;
+  for (int kc = kc0; kc < kc1; ++kc, ++it) {
+    const int st = it % S::kStages;
+    mbar_wait(S::full(sm, st), (it / S::kStages) & 1);
+    const uint32_t ak = a + kc * kBox, b = S::stage(sm, st);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // k16 steps: 32 bytes into A's rows, 16 rows of B
+      wgmma<0, 1>(acc, desc_sw128(ak + kk * 32, 16, 1024),
+                  desc_sw128(b + kk * 2048, 64 * 128, 1024), kc > kc0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done: release its stage
+    if (prev >= 0) release(S::empty(sm, prev));
+    prev = st;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(S::empty(sm, prev));
+}
+
+// The first R values of an accumulator: a kernel keeps one accumulator
+// array for all its products, so that every wgmma chain writes the same
+// registers (chains on separate arrays of other widths can leave ptxas no
+// consistent assignment, and it then serializes them through local memory).
+template <int R, int RA>
+__device__ __forceinline__ float (&prefix(float (&acc)[RA]))[R] {
+  static_assert(R <= RA, "a prefix of the accumulator");
+  return *reinterpret_cast<float(*)[R]>(&acc[0]);
+}
+
+// Before an epilogue overwrites a tile: every TMA store of this warpgroup
+// has read its source, and every warp's products are complete.
+__device__ __forceinline__ void tile_free(int cw) {
+  if ((threadIdx.x & 127) == 0) tma_store_wait_read();
+  named_bar(1 + cw, 128);
+}
+
+// The epilogue into a tile at `buf`: this warpgroup's rows of acc + bias
+// (f32), ReLU if kRelu, rounded to bf16, into columns [0, 16 jps).
+template <bool kRelu, int R>
+__device__ __forceinline__ void fwd_epilogue(const float (&acc)[R], const float* __restrict__ bias,
+                                             uint32_t buf, int cw, int jps) {
+  const int tq = threadIdx.x & 3;
+  const uint32_t row = buf + lane_row(cw);
+#pragma unroll
+  for (int jp = 0; jp < R / 8; ++jp) {
+    if (jp >= jps) break;
+    const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + 16 * jp + 2 * tq));
+    const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + 16 * jp + 8 + 2 * tq));
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // columns 16 jp + 8 (q / 2) + 2 tq, + 1
+      const float2 b = q < 2 ? b0 : b1;
+      float v0 = acc[8 * jp + 2 * q] + b.x, v1 = acc[8 * jp + 2 * q + 1] + b.y;
+      if (kRelu) {
+        v0 = relu(v0);
+        v1 = relu(v1);
+      }
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+      v[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    stsm_x4_at(at_jp(row, jp), v);
+  }
+}
+
+// After it: the writes fenced for the async proxy (wgmma, TMA), then one
+// lane stores `boxes` boxes of this warpgroup's rows to `map` at (64 kb,
+// row0, z), rows past n clipped.
+__device__ __forceinline__ void tile_written(const CUtensorMap* map, uint32_t buf, int boxes,
+                                             int cw, int row0, int z, int n) {
+  fence_proxy_async();
+  named_bar(1 + cw, 128);
+  if ((threadIdx.x & 127) == 0 && row0 < n) {
+    for (int kb = 0; kb < boxes; ++kb)
+      tma_store(map, buf + kb * kBox + cw * 64 * 128, 64 * kb, row0, z);
+    tma_store_commit();
+  }
+}
+
+// out[p * ld + off + c] = acc + bias[c] (f32) for this warpgroup's points
+// p < n and accumulator columns c < cols.
+template <int R>
+__device__ __forceinline__ void store_cols(const float (&acc)[R], const float* __restrict__ bias,
+                                           float* __restrict__ out, int ld, int off, int cols,
+                                           int row0, int n) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    if (8 * j >= cols) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = row0 + 16 * w + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * (lane & 3) + e;
+        if (p < n && c < cols) out[(size_t)p * ld + off + c] = acc[4 * j + 2 * h + e] + bias[c];
+      }
+    }
+  }
+}
+
+// Producer: the chunks of every trunk layer in the consumers' order (layer
+// 0: its 64 x rows; then each layer's W h rows, a skip layer's x rows
+// after them).
+template <class S, int W>
+__device__ __forceinline__ void push_trunk(uint32_t sm, uint32_t& it, const CUtensorMap* wmap,
+                                           int layers, unsigned skip_mask) {
+  for (int l = 0; l < layers; ++l) {
+    const int kc1 = l == 0 || ((skip_mask >> l) & 1u) ? W / 64 + 1 : W / 64;
+    for (int kc = l == 0 ? W / 64 : 0; kc < kc1; ++kc)
+      push<S>(sm, it, wmap, 0, 64 * kc, l, W / 64);
+  }
+}
+
+// Producer: the tile's rows (row0 ...) of a [point][column] bf16 tensor (x
+// or d_enc) into the x box, once the consumers released it (`xi` counts
+// the loads); a half past n is not loaded (its points are never stored).
+template <class S>
+__device__ __forceinline__ void push_rows(uint32_t sm, uint32_t& xi, const CUtensorMap* map,
+                                          int row0, int n) {
+  const int halves = row0 + 64 < n ? 2 : 1;
+  mbar_wait(S::xempty(sm), (xi & 1) ^ 1);
+  mbar_expect_tx(S::xfull(sm), halves * 64 * 128);
+  for (int hf = 0; hf < halves; ++hf)
+    tma_load(sm + S::kX + hf * 64 * 128, map, S::xfull(sm), 0, row0 + 64 * hf, 0);
+  ++xi;
+}
+
+// Consumer: the trunk over one tile for warpgroup cw (its points from
+// row0): layer l = bf16(relu([h | x] W_l + b_l)) into the tile's h boxes
+// and, by TMA, to acts[l]. The x box is released after the last layer
+// that reads it (layer 0 or the last skip layer), unless S::kXHeld.
+template <class S, int W>
+__device__ __forceinline__ void trunk_tile(float (&acc)[W / 2], uint32_t sm, uint32_t& it,
+                                           uint32_t& xi,
+                                           const CUtensorMap* amap, const float* __restrict__ bp,
+                                           int layers, unsigned skip_mask, int cw, int row0,
+                                           int n) {
+  int last_x = 0;
+  for (int l = 1; l < layers; ++l)
+    if ((skip_mask >> l) & 1u) last_x = l;
+  mbar_wait(S::xfull(sm), xi & 1);
+  for (int l = 0; l < layers; ++l) {
+    const int kc1 = l == 0 || ((skip_mask >> l) & 1u) ? W / 64 + 1 : W / 64;
+    fwd_product<S>(acc, sm, it, sm + cw * 64 * 128, l == 0 ? W / 64 : 0, kc1);
+    if (!S::kXHeld && l == last_x) {
+      release(S::xempty(sm));
+      ++xi;
+    }
+    tile_free(cw);
+    fwd_epilogue<true>(acc, bp + (size_t)l * W, sm, cw, W / 16);
+    tile_written(amap, sm, W / 64, cw, row0, l, n);
+  }
 }
 
 // ------------------------------------------------ trunk backward, data pass
@@ -465,22 +679,14 @@ __device__ __forceinline__ void data_epilogue(float (&acc)[W / 2], const unsigne
 #pragma unroll
   for (int i = 0; i < (W + 127) / 128; ++i)
     prev[i] = add && t + 128 * i < W ? db_out[t + 128 * i] : 0.f;
-  // ldmatrix / stmatrix: lane l addresses row l % 8 + 8 ((l / 8) % 2) of
-  // the warp's 16 rows in 8-column block 2 jp + l / 16, i.e. chunk
-  // (2 jp) % 8 ^ l / 16 of 64-column block jp / 4; r[q] then pairs with
-  // acc[8 jp + 2 q], acc[8 jp + 2 q + 1]
-  const uint32_t rsw =
-      sw128_row(cw * 64 + 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) ^ ((lane >> 4) << 4);
+  const uint32_t rsw = lane_row(cw);  // ldmatrix / stmatrix rows
   const uint32_t mrow = smem_u32(mask) + rsw, grow = smem_u32(gs) + rsw;
-  auto at = [](uint32_t row, int jp) {
-    return (row ^ (((2 * jp) & 7) << 4)) + (jp >> 2) * kBM * 128;
-  };
   mbar_wait(mfull, mi & 1);
   ++mi;
 #pragma unroll
   for (int jp = 0; jp < W / 16; ++jp) {
     uint32_t m[4];
-    ldsm_x4_at(m, at(mrow, jp));
+    ldsm_x4_at(m, at_jp(mrow, jp));
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
@@ -500,7 +706,7 @@ __device__ __forceinline__ void data_epilogue(float (&acc)[W / 2], const unsigne
           __floats2bfloat162_rn(acc[8 * jp + 2 * q], acc[8 * jp + 2 * q + 1]);
       v[q] = *reinterpret_cast<const uint32_t*>(&b);
     }
-    stsm_x4_at(at(grow, jp), v);
+    stsm_x4_at(at_jp(grow, jp), v);
   }
   fence_proxy_async();
   // column sums in place: value k = 2 j + e (column 8 j + 2 (lane % 4) + e)
@@ -556,7 +762,7 @@ __device__ __forceinline__ void data_epilogue(float (&acc)[W / 2], const unsigne
 // global memory between two layers that read x. db: one partial per block
 // and consumer warpgroup, summed over the block's tiles in order.
 template <int W>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, 1)
     trunk_bwd_data_kernel(const __grid_constant__ CUtensorMap wmap,  // wp (L, W + 64, W)
                           const __grid_constant__ CUtensorMap amap,  // acts (L, N, W)
                           const __grid_constant__ CUtensorMap gmap,  // gbuf (L, N, W) out
@@ -760,7 +966,7 @@ struct WgradSmem {
 };
 
 template <int NB>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, 1)
     wgrad_kernel(const __grid_constant__ WgradArgs args) {
   using S = WgradSmem<NB>;
   extern __shared__ unsigned char smem_raw[];
@@ -877,7 +1083,7 @@ int wgrad(const WgradArgs& a, int ctas, int splits, cudaStream_t s) {
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t e = allow_smem((const void*)wgrad_kernel<NB>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  wgrad_kernel<NB><<<dim3(ctas, splits), kBwdThreads, S::kBytes, s>>>(a);
+  wgrad_kernel<NB><<<dim3(ctas, splits), kWsThreads, S::kBytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -935,7 +1141,7 @@ int trunk_bwd(const bf16* x, const bf16* wp, const bf16* acts, const float* g, b
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t e = allow_smem((const void*)trunk_bwd_data_kernel<W>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  trunk_bwd_data_kernel<W><<<grid, kBwdThreads, S::kBytes, s>>>(
+  trunk_bwd_data_kernel<W><<<grid, kWsThreads, S::kBytes, s>>>(
       wmap, amap, a.map[2], g, db_part, gxs, dx, n, layers, skip_mask, tiles);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 

@@ -19,20 +19,24 @@
 // training step runs 393,216 points (131,072 coarse + 262,144 fine) through
 // the forward, dW = inp^T g and g_in = g W^T: ~1.2 TFLOP, against ~4 GB of
 // activation traffic — the function is compute-bound on the tensor cores
-// (989 TFLOP/s bf16 peak, ~300 FLOP/byte needed); the backward as planned
-// here, with saved activations, is HBM-bound. What the design does:
-//   - all products are bf16 with f32 accumulators;
-//   - forward: mma.sync.m16n8k16 fed by ldmatrix from shared memory (rows
-//     padded by 16 bytes: no bank conflicts); one block per 128-point tile
-//     keeps the tile's activations in shared memory across all L layers
-//     ([h | x] side by side, so a skip layer is one K = W + 64 product with
-//     no concat); weights stream through a double-buffered cp.async ring
-//     of 32-row chunks (the packed weights, 1.3 MB, stay in L2); bias +
-//     ReLU + bf16 rounding run in the accumulator epilogue;
+// (989 TFLOP/s bf16 peak, ~300 FLOP/byte needed); the plan here, with
+// saved activations, adds 4,096 bytes per point written by B and read by
+// B', which makes the backward HBM-bound and sets B's own floor (0.33 ms at
+// the fine N against 0.26 ms of products). What the design does:
+//   - all products are bf16 wgmma with f32 accumulators, operands in
+//     shared memory;
+//   - forward: the tile engine of mlp_common.cuh, persistent over
+//     128-point tiles: the tile's [h | x] stays in shared memory across
+//     all L layers (a skip layer is one K = W + 64 product with no
+//     concat); a producer warpgroup streams the packed weights (1.3 MB,
+//     from L2) by TMA through a 4-stage mbarrier ring and loads the next
+//     tile's x while the current tile's last layers run; two consumer
+//     warpgroups of 64 points each run wgmma, the epilogue (bias, ReLU,
+//     bf16) goes back into the tile by stmatrix, and a TMA store saves
+//     each activation while the next layer's products run;
 //   - backward: the TPU kernel carries dW across its sequential grid in
 //     VMEM; Hopper blocks run in parallel, so B' is three passes
-//     (mlp_common.cuh), each warp-specialised (a producer warpgroup issues
-//     TMA loads into mbarrier rings, two consumer warpgroups run wgmma):
+//     (mlp_common.cuh), each warp-specialised the same way:
 //       1. data pass, persistent over 128-point tiles: the tile's bf16 g
 //          stays in shared memory as wgmma's A operand; g -> mask -> db ->
 //          bf16 -> g W^T layer by layer, each layer's packed weight
@@ -49,38 +53,71 @@
 //     Activations are not recomputed: kernel B saves every layer's bf16
 //     activation (L x N x W: 1.07 GB for the fine field at N = 262,144,
 //     0.54 GB for the coarse); the values are those a recompute would give.
-//     With them the backward is HBM-bound, not compute-bound (mlp_common.cuh).
 //
-// The forward is still the first design: mma.sync at one 8-warp block per
-// SM. The GEMM loops, the trunk's tile forward and B''s passes live in
-// mlp_common.cuh, which kernels C / C' (field_train.cu) share.
+// The engine and B''s passes live in mlp_common.cuh, which kernels C / C'
+// (field_train.cu) share.
 
 #include "mlp_common.cuh"
 
 namespace {
 
+struct TrunkFwdParams {
+  CUtensorMap x, wp, acts;  // x (N, 64), wp (L, W + 64, W), acts (L, N, W) out
+  const float* bp;          // (L, W)
+  int n, layers;
+  unsigned skip_mask;
+  int tiles;
+};
+
 template <int W>
-__global__ void __launch_bounds__(kThreads, 1)
-    trunk_fwd_kernel(const bf16* __restrict__ x,    // (N, 64)
-                     const bf16* __restrict__ wp,   // (L, W + 64, W)
-                     const float* __restrict__ bp,  // (L, W)
-                     bf16* __restrict__ acts,       // (L, N, W)
-                     int n, int layers, unsigned skip_mask) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* act = reinterpret_cast<bf16*>(smem_raw);  // kBM x (W + 64 + kPad): [h | x]
-  bf16* wbuf = act + kBM * (W + kFPad + kPad);    // 2 x kKC x (W + kPad)
-  trunk_forward_tile<W>(act, wbuf, x, wp, bp, acts, n, layers, skip_mask, blockIdx.x * kBM);
+__global__ void __launch_bounds__(kWsThreads, 1)
+    trunk_fwd_kernel(const __grid_constant__ TrunkFwdParams p) {
+  using S = FwdSmem<W, false>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sm = fwd_setup<S>(smem_raw);
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t it = 0, xi = 0;
+
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x)
+        push_trunk<S, W>(sm, it, &p.wp, p.layers, p.skip_mask);
+    } else if (warp == 1 && lane == 0) {
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x)
+        push_rows<S>(sm, xi, &p.x, tile * kBM, p.n);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;
+  float acc[W / 2];
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x)
+    trunk_tile<S, W>(acc, sm, it, xi, &p.acts, p.bp, p.layers, p.skip_mask, cw,
+                     tile * kBM + cw * 64, p.n);
+  if ((threadIdx.x & 127) == 0) tma_store_wait();
 }
 
 template <int W>
 int fwd(const bf16* x, const bf16* wp, const float* bp, bf16* acts, int n, int layers,
         unsigned skip_mask, cudaStream_t s) {
-  const size_t smem = trunk_fwd_smem<W>();
+  using S = FwdSmem<W, false>;
+  TrunkFwdParams p{};
+  int err;
+  if ((err = make_tma_map(&p.x, x, kFPad, n, 1)) ||
+      (err = make_tma_map(&p.wp, wp, W, W + kFPad, layers)) ||
+      (err = make_tma_map(&p.acts, acts, W, n, layers)))
+    return err;
+  p.bp = bp;
+  p.n = n;
+  p.layers = layers;
+  p.skip_mask = skip_mask;
+  p.tiles = (n + kBM - 1) / kBM;
+  const int sms = sm_count(), grid = sms > 0 && sms < p.tiles ? sms : p.tiles;
   static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t e = allow_smem((const void*)trunk_fwd_kernel<W>, (int)smem, smem_set);
+  const cudaError_t e = allow_smem((const void*)trunk_fwd_kernel<W>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  trunk_fwd_kernel<W><<<(n + kBM - 1) / kBM, kThreads, smem, s>>>(x, wp, bp, acts, n, layers,
-                                                                  skip_mask);
+  trunk_fwd_kernel<W><<<grid, kWsThreads, S::kBytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -34,8 +34,8 @@ from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
     BM,
     MAX_LAYERS,
     WIDTHS,
-    _backward_failed,
     _check,
+    _launch_failed,
     _skip_mask,
     _stream,
     weight_splits,
@@ -56,6 +56,33 @@ def load() -> ctypes.CDLL:
     lib.field_bwd_launch.argtypes = [_P] * 33 + [_I, _I, _I, _U] + [_I] * 7 + [_P]
     lib.field_bwd_launch.restype = _I
     return lib
+
+
+def forward_plan_bytes(n: int, dims: FieldDims) -> int:
+    """Bytes of device memory kernel C moves for n points, each read or
+    written once: x_enc and d_enc (padded) read; sigma and the rgb logits
+    (f32), sem (f32, with the semantic head) written; what C' reads back
+    written: every trunk activation, s (with the semantic head),
+    bf16(feature) and r; the packed weights and biases read. Over HBM's
+    rate, the design's floor beside the function's operations bound."""
+    w, sh, cwp = dims.width, dims.sem_hidden, dims.cwp
+    sem = (2 * sh + 4 * dims.num_classes) if dims.use_sem else 0
+    point = 2 * (F_PAD + D_PAD) + 4 * 4 + 2 * (dims.layers * w + w + cwp) + sem
+    weights = (dims.layers * (2 * (w + F_PAD) * w + 4 * w) + (2 * w + 4) * dims.ho
+               + (2 * (w + D_PAD) + 4) * cwp + (2 * cwp + 4) * CO_PAD
+               + ((2 * sh + 4) * dims.cp if dims.use_sem else 0))
+    return n * point + weights
+
+
+def heads_data_plan_bytes(n: int, dims: FieldDims) -> int:
+    """Bytes of device memory the heads' data pass of C' moves for n
+    points, each read or written once: the upstream g_out and g_sem (f32),
+    the saved s and r read; the trunk's f32 upstream g, the bf16 g of
+    each head product (color_out, colour hidden, sem_out, the head block)
+    and dd written."""
+    sem = (4 * dims.num_classes + 2 * dims.sem_hidden + 2 * dims.cp) if dims.use_sem else 0
+    return n * (4 * 4 + 2 * dims.cwp + 4 * dims.width + 2 * (CO_PAD + dims.cwp + dims.ho + D_PAD)
+                + sem)
 
 
 def heads_weight_plan_bytes(n: int, dims: FieldDims) -> int:
@@ -124,7 +151,7 @@ def _launch_forward(lib, xp, dp, pk: FieldPacked, dims: FieldDims, n: int):
             n, w, dims.layers, _skip_mask(dims.skips, dims.layers), dims.num_classes, dims.cwp,
             dims.cp, int(dims.use_sem), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"field forward kernel launch failed: CUDA error {err}")
+        raise _launch_failed("field forward", err)
     return out, sem, saved
 
 
@@ -197,7 +224,7 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
             n, w, layers, mask, dims.num_classes, cwp, cp, int(dims.use_sem), splits, chunk,
             int(dw_dtype == f32), _stream(dev))
     if err != 0:
-        raise _backward_failed("field", err)
+        raise _launch_failed("field backward", err)
     field_backward_cuda.launches += 1
     dhb, dbso, dbch, dbco = torch.split(db_h, [ho, cp, cwp, CO_PAD])
     grads = FieldPacked(dwp, dbp, dhw, dhb, dwso, dbso if dims.use_sem else None, dwch, dbch,

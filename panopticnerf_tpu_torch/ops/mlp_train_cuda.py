@@ -87,6 +87,16 @@ def weight_splits(n: int) -> tuple:
     return splits, -(-per_split // POINT_STEP) * POINT_STEP
 
 
+def forward_plan_bytes(n: int, width: int, layers: int) -> int:
+    """Bytes of device memory kernel B moves for n points, each read or
+    written once: x_enc (padded to F_PAD) read, every layer's bf16
+    activation written (the output, and what B' reads back), the packed
+    weights and biases read. Over HBM's rate, the design's floor beside
+    the function's operations bound."""
+    return (n * (2 * F_PAD + 2 * layers * width)
+            + layers * (2 * (width + F_PAD) * width + 4 * width))
+
+
 def backward_plan_bytes(n: int, width: int, layers: int, skips) -> tuple:
     """(data pass, weight pass) bytes of device memory B''s three-pass plan
     moves for n points, each read or written once: the data pass reads the
@@ -104,10 +114,10 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _backward_failed(kernel: str, err: int) -> RuntimeError:
+def _launch_failed(kernel: str, err: int) -> RuntimeError:
     why = ("a TMA descriptor could not be encoded" if err == TMA_ENCODE_FAILED
            else f"CUDA error {err}")
-    return RuntimeError(f"{kernel} backward kernel launch failed: {why}")
+    return RuntimeError(f"{kernel} kernel launch failed: {why}")
 
 
 def trunk_forward_cuda(xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
@@ -126,7 +136,7 @@ def trunk_forward_cuda(xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
         err = lib.trunk_fwd_launch(xp.data_ptr(), wp.data_ptr(), bp.data_ptr(),
                                    acts.data_ptr(), n, width, layers, mask, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"trunk forward kernel launch failed: CUDA error {err}")
+        raise _launch_failed("trunk forward", err)
     trunk_forward_cuda.launches += 1
     return acts
 
@@ -161,7 +171,7 @@ def trunk_backward_cuda(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
             db_part.data_ptr(), gx_part.data_ptr(), dw_part.data_ptr(), dx.data_ptr(),
             dwp.data_ptr(), dbp.data_ptr(), n, width, layers, mask, splits, chunk, _stream(dev))
     if err != 0:
-        raise _backward_failed("trunk", err)
+        raise _launch_failed("trunk backward", err)
     trunk_backward_cuda.launches += 1
     return dx, dwp, dbp
 

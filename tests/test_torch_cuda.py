@@ -187,7 +187,10 @@ def _rel(a, b):
 @pytest.mark.parametrize("n,width,layers,skips", [
     (1, 256, 8, (5,)), (100, 256, 8, (5,)), (333, 256, 8, ()), (1000, 64, 3, (2,)),
     (77, 64, 2, (1,)), (4096, 128, 4, (1, 3)), (3000, 128, 5, (2,)), (20000, 256, 8, (5,)),
-    (140001, 256, 8, (5,))])
+    (140001, 256, 8, (5,)),
+    # ragged N around the 64-point halves and 128-point tiles of the forward
+    (63, 64, 1, ()), (127, 128, 4, (2,)), (129, 256, 4, ()), (1000, 256, 1, ()),
+    (129, 64, 8, (5,)), (63, 128, 8, (3, 5)), (127, 256, 8, (5,)), (1000, 128, 8, ())])
 def test_trunk_kernels_match_plain(cuda_device, n, width, layers, skips):
     """Kernels B and B' against their plain versions on the same packed
     inputs. The card sums in another order, so bf16 roundings flip in a
@@ -225,6 +228,20 @@ def test_trunk_backward_repeats_bit_for_bit(cuda_device, n, width, layers, skips
     torch.cuda.synchronize()
     for name, a, b in zip(("dx", "dW", "db"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("n,width,layers,skips", [
+    (140001, 256, 8, (5,)), (129, 256, 8, (5,)), (1000, 128, 4, (2,)), (63, 64, 1, ())])
+def test_trunk_forward_repeats_bit_for_bit(cuda_device, n, width, layers, skips):
+    """Two calls of B on the same inputs give the same bits (no split-K, no
+    atomics: every sum runs in one fixed order)."""
+    from panopticnerf_tpu_torch.ops.mlp_train_cuda import trunk_forward_cuda
+
+    xp, wp, bp, _ = _trunk_case(cuda_device, n, width, layers, skips, 3 * n + width)
+    first = trunk_forward_cuda(xp, wp, bp, skips)
+    second = trunk_forward_cuda(xp, wp, bp, skips)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_trunk_function_counts_launches(cuda_device):
@@ -308,7 +325,11 @@ def _field_case(device, n, width, layers, skips, use_sem, viewdirs, classes, cw,
 @pytest.mark.parametrize("n,width,layers,skips,use_sem,viewdirs,classes,cw", [
     (1, 256, 8, (5,), True, True, 19, 128), (100, 256, 8, (5,), True, True, 19, 128),
     (333, 128, 4, (2,), False, True, 19, 64), (4096, 64, 3, (), True, False, 5, 32),
-    (20000, 256, 8, (5,), True, True, 19, 128), (140001, 256, 8, (5,), True, True, 19, 128)])
+    (20000, 256, 8, (5,), True, True, 19, 128), (140001, 256, 8, (5,), True, True, 19, 128),
+    # ragged N, every width, 1 / 4 / 8 layers, the head widths on both sides of 64
+    (63, 64, 1, (), False, False, 19, 32), (127, 128, 4, (2,), True, False, 19, 128),
+    (129, 256, 8, (5,), False, True, 5, 64), (1000, 256, 4, (), True, True, 70, 96),
+    (1000, 64, 4, (2,), True, True, 70, 96), (129, 128, 8, (3, 5), True, True, 100, 128)])
 def test_field_kernels_match_plain(cuda_device, n, width, layers, skips, use_sem, viewdirs,
                                    classes, cw, dw_dtype):
     """Kernels C and C' against their plain versions on the same packed
@@ -348,6 +369,42 @@ def test_field_kernels_match_plain(cuda_device, n, width, layers, skips, use_sem
     for other in (again, repeat):
         for a, b in zip([got[0], got[1], *got[2]], [other[0], other[1], *other[2]]):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,width,layers,skips,use_sem,viewdirs,classes,cw", [
+    (140001, 256, 8, (5,), True, True, 19, 128), (129, 256, 8, (5,), False, False, 19, 128),
+    (1000, 64, 4, (2,), True, True, 70, 96)])
+def test_field_forward_repeats_bit_for_bit(cuda_device, n, width, layers, skips, use_sem,
+                                           viewdirs, classes, cw):
+    """Two calls of C on the same inputs give the same bits: every output
+    and every saved activation."""
+    from panopticnerf_tpu_torch.ops.field_train_cuda import field_forward_cuda
+
+    dims, pk, xp, dp, _, _ = _field_case(cuda_device, n, width, layers, skips, use_sem, viewdirs,
+                                         classes, cw, 5 * n + width)
+    out, sem, saved = field_forward_cuda(xp, dp, pk, dims)
+    out2, sem2, saved2 = field_forward_cuda(xp, dp, pk, dims)
+    torch.cuda.synchronize()
+    for a, b in zip((out, sem, *saved), (out2, sem2, *saved2)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dw_dtype", ["bfloat16", "float32"])
+def test_field_backward_recompute_equals_saved(cuda_device, dw_dtype):
+    """C' with its own recompute (saved None, as mode hybrid calls it) runs
+    C's forward, so it equals C' on C's saved activations bit for bit."""
+    from panopticnerf_tpu_torch.ops.field_train_cuda import field_backward_cuda, field_forward_cuda
+
+    dwt = getattr(torch, dw_dtype)
+    dims, pk, xp, dp, g_out, g_sem = _field_case(cuda_device, 300, 64, 3, (2,), True, True, 7,
+                                                 32, 21)
+    saved = field_forward_cuda(xp, dp, pk, dims)[2]
+    on_saved = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, saved, dwt)
+    recomputed = field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, None, dwt)
+    torch.cuda.synchronize()
+    for a, b in zip([on_saved[0], on_saved[1], *on_saved[2]],
+                    [recomputed[0], recomputed[1], *recomputed[2]]):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_field_modes_count_launches(cuda_device):

@@ -31,6 +31,7 @@ from panopticnerf_tpu_torch.ops.field_train import (
     pack_field,
     unpack_field_grads,
 )
+from panopticnerf_tpu_torch.ops.field_train_cuda import forward_plan_bytes, heads_data_plan_bytes
 
 X_DIM, D_DIM, CLASSES, COLOR = 63, 27, 5, 32
 
@@ -251,3 +252,26 @@ def test_fused_adapter_modes_match_pallas_field_apply(mode, dtype, level):
     got.update({k: v for k, v in grads.items() if k.startswith(sub)})
     assert any(np.abs(v).max() > 0 for k, v in got.items() if "/" in k)
     _assert_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("use_sem", [True, False])
+@pytest.mark.parametrize("n", [1, 262144])
+def test_forward_plan_bytes_flagship_hand_count(n, use_sem):
+    """Kernel C's design floor at the flagship field (W = 256, L = 8, 128-wide
+    semantic and colour heads, 19 classes): per point x_enc / d_enc padded
+    (128 + 64 bytes) read, sigma and rgb (16) and sem (76) written, and the
+    5,120 bytes C' reads back written (8 trunk activations 4,096, s 256,
+    feature 512, r 256); the packed weights and biases read once. C''s
+    heads data pass: g_out 16, g_sem 76, s 256, r 256 read; the trunk's f32
+    g 1,024 and the bf16 g of color_out 64, colour hidden 256, sem_out 64,
+    the head block 832, and dd 64 written."""
+    dims = FieldDims(x_dim=63, d_dim=27, width=256, sem_hidden=128, color_width=128,
+                     num_classes=19, layers=8, skips=(5,), use_sem=use_sem)
+    sem = 256 + 76 if use_sem else 0
+    weights = (8 * (320 * 256 * 2 + 256 * 4) + 256 * 416 * 2 + 416 * 4 + 288 * 128 * 2
+               + 128 * 4 + 128 * 32 * 2 + 32 * 4 + (128 * 32 * 2 + 32 * 4 if use_sem else 0))
+    assert forward_plan_bytes(n, dims) == n * (128 + 64 + 16 + 4096 + 512 + 256 + sem) + weights
+    if use_sem:
+        assert forward_plan_bytes(n, dims) - weights == n * (284 + 5120)
+    heads = 16 + 256 + 1024 + 64 + 256 + 832 + 64 + (76 + 256 + 64 if use_sem else 0)
+    assert heads_data_plan_bytes(n, dims) == n * heads

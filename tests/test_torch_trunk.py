@@ -23,7 +23,9 @@ from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
     MAX_SPLITS,
     POINT_STEP,
     TMA_ENCODE_FAILED,
-    _backward_failed,
+    _launch_failed,
+    backward_plan_bytes,
+    forward_plan_bytes,
     weight_splits,
 )
 
@@ -189,11 +191,26 @@ def test_weight_splits_cover_every_point_once(n):
     assert (counts == 1).all()
 
 
+@pytest.mark.parametrize("kernel", ["trunk backward", "trunk forward"])
 @pytest.mark.parametrize("err,why", [(TMA_ENCODE_FAILED, "a TMA descriptor could not be encoded"),
                                      (1, "CUDA error 1")])
-def test_backward_launch_failure_names_its_cause(err, why):
-    """A refused backward launch raises, and says whether a TMA descriptor
-    or CUDA refused it (the entry points' own code is not a CUDA error)."""
-    e = _backward_failed("trunk", err)
+def test_backward_launch_failure_names_its_cause(err, why, kernel):
+    """A refused launch (backward or forward) raises, and says whether a
+    TMA descriptor or CUDA refused it (the entry points' own code is not a
+    CUDA error)."""
+    e = _launch_failed(kernel, err)
     assert isinstance(e, RuntimeError)
-    assert str(e) == f"trunk backward kernel launch failed: {why}"
+    assert str(e) == f"{kernel} kernel launch failed: {why}"
+
+
+@pytest.mark.parametrize("n", [1, 131072, 262144])
+def test_forward_plan_bytes_flagship_hand_count(n):
+    """Kernel B's design floor at the flagship trunk (W = 256, L = 8): per
+    point 128 bytes of padded x_enc read and 8 x 256 x 2 = 4,096 bytes of
+    saved activations written; the packed weights (8 x 320 x 256 bf16) and
+    biases (8 x 256 f32) read once."""
+    want = n * (128 + 4096) + 8 * 320 * 256 * 2 + 8 * 256 * 4
+    assert forward_plan_bytes(n, 256, 8) == want
+    # the backward reads back exactly the activations B saved, bar the last
+    data, weight = backward_plan_bytes(n, 256, 8, (5,))
+    assert weight - n * (2 * 8 * 256 + 2 * 64 * 2) == n * 7 * 256 * 2

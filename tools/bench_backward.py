@@ -1,5 +1,6 @@
-"""Times kernels B' and C' (on saved activations) of the PyTorch port at the
-flagship step's point counts, with the device time of each of their passes.
+"""Times kernels B, B', C and C' (C' on saved activations) of the PyTorch
+port at the flagship step's point counts, with the device time of each CUDA
+kernel inside them.
 
     python tools/bench_backward.py [--root DIR]
 
@@ -11,9 +12,10 @@ skip at kernel layer 5, 128-wide semantic and colour heads, 19 classes,
 x_enc 63 and d_enc 27 columns; N = 131,072 (coarse) and 262,144 (fine).
 Prints one JSON line per (kernel, N): the median ms of 10 calls timed
 with CUDA events, the device ms of each CUDA kernel inside one call
-(torch.profiler, averaged over 3 calls), and the byte floor of the
-three-pass plan at 3.35 TB/s where the tree's wrappers define it. Needs a
-CUDA device.
+(torch.profiler, averaged over 3 calls), and, where the tree's wrappers
+define them, the byte floors at 3.35 TB/s: B's and C's design floor (their
+own I/O and the activations they save), and the three-pass plan's of B'
+and C'. Needs a CUDA device.
 """
 
 import argparse
@@ -90,6 +92,16 @@ def main(argv=None):
         xp, dp = t(x).to(torch.bfloat16), t(d).to(torch.bfloat16)
         g = t(rng.normal(size=(n, width)) * 1e-3)
         g_out, g_sem = t(rng.normal(size=(n, 4)) * 1e-3), t(rng.normal(size=(n, classes)) * 1e-3)
+        ms, passes = timed(lambda: mc.trunk_forward_cuda(xp, pk.wp, pk.bp, skips))
+        line = {"kernel": "B", "n": n, "ms": ms, "passes_ms": passes}
+        if hasattr(mc, "forward_plan_bytes"):
+            line["floor_ms"] = 1e3 * mc.forward_plan_bytes(n, width, layers) / PEAK_BYTES
+        print(json.dumps(line))
+        ms, passes = timed(lambda: fc.field_forward_cuda(xp, dp, pk, dims))
+        line = {"kernel": "C", "n": n, "ms": ms, "passes_ms": passes}
+        if hasattr(fc, "forward_plan_bytes"):
+            line["floor_ms"] = 1e3 * fc.forward_plan_bytes(n, dims) / PEAK_BYTES
+        print(json.dumps(line))
         acts = mc.trunk_forward_cuda(xp, pk.wp, pk.bp, skips)
         ms, passes = timed(lambda: mc.trunk_backward_cuda(xp, acts, g, pk.wp, skips))
         floor = getattr(mc, "backward_plan_bytes", None)
