@@ -56,20 +56,25 @@
 //     -> color_out^T -> mask -> W_ch^T -> g_feature, dd; g_sem -> sem_out^T
 //     -> mask; [g_s | g_sigma | g_feature] -> W_head^T — writing each
 //     product's bf16 g, db partials and the trunk's f32 upstream g; then
-//     B''s data pass for the trunk (wgmma, TMA and mbarrier rings,
-//     mlp_common.cuh); (2) split-K weight passes: B''s for the trunk, and
-//     the same kernel once more for the four head blocks together (the
-//     head block, sem_out, [feature | d_enc] with its two A sources, and
-//     color_out), plain stores of partials; (3) reductions over the splits
-//     and the db partials in a fixed order (no atomics: the step stays
-//     deterministic).
+//     B''s data pass for the trunk; (2) split-K weight passes: B''s for the
+//     trunk, and the same kernel once more for the four head blocks
+//     together (the head block, sem_out, [feature | d_enc] with its two A
+//     sources, and color_out), plain stores of partials; (3) reductions over
+//     the splits and the db partials in a fixed order (no atomics: the step
+//     stays deterministic). Every pass is written for Hopper with wgmma,
+//     TMA and mbarrier rings (mlp_common.cuh). The heads' data pass moves
+//     2,908 bytes per point at W = 256 (`heads_data_plan_bytes`: g_h in f32
+//     1,024, gb_ho 832) against ~0.33 MFLOP of products: HBM bound (0.23 ms
+//     at the fine N). Its design: persistent over tiles, one producer
+//     warpgroup streaming the head weights through a ring (re-read from L2
+//     for every tile, ~300 KB) and loading each tile's saved s and r into
+//     the tiles where the masked g of their products is written, two
+//     consumer warpgroups of 64 points whose products read every operand
+//     from shared memory, every bf16 g leaving by a TMA store that overlaps
+//     the next product.
 //   Without saved activations (mode "hybrid", whose forward is plain
 //   GEMMs in flax's placement) C' first runs C's forward to recompute them
 //   in the kernel's placement, as the TPU kernel recomputes in VMEM.
-//
-// C''s heads data pass is still the first design: mma.sync at one 8-warp
-// block per tile, the heads' column passes re-reading the tile from
-// shared memory.
 
 #include "mlp_common.cuh"
 
@@ -249,145 +254,394 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 // ------------------------------------------- backward (C'), heads data pass
 
+// Shared memory of the heads' data pass (offsets from a 1024-aligned base),
+// each tile 128 rows in 64-column boxes (wgmma's K-major A operand): the
+// [g_s | g_sigma | 0] tile (SA columns in whole boxes; s loads into its
+// first boxes, the mask of g_s), right after it the feature tile (g_feature;
+// before that g_co, then g_sem), so that the product with W_head runs over
+// both as one chain; the g_r tile (r loads into it, the mask of g_r); the
+// weight ring, each stage up to 128 rows (N) of a head weight by 64 K
+// columns (the K-major B operand of g W^T: four 16 KB stages at every
+// width); each consumer warp's column sums; barriers.
+constexpr int kHeadsDbw = kHeadMax;  // a consumer warp's column sums: the widest product's
+
 template <int W>
-__global__ void __launch_bounds__(kThreads, 1)
-    field_bwd_heads_kernel(const float* __restrict__ g_out,  // (N, 4) g_sigma, g_rgb logits
-                           const float* __restrict__ g_sem,  // (N, classes) or null
-                           const bf16* __restrict__ s_sv, const bf16* __restrict__ r_sv,
-                           const bf16* __restrict__ hw, const bf16* __restrict__ wso,
-                           const bf16* __restrict__ wch, const bf16* __restrict__ wco,
-                           float* __restrict__ g_h,     // (N, W) out: the trunk's upstream g
-                           bf16* __restrict__ gb_co,    // (N, 32) out: bf16 g of each product
-                           bf16* __restrict__ gb_r,     // (N, cwp)
-                           bf16* __restrict__ gb_sem,   // (N, cp)
-                           bf16* __restrict__ gb_ho,    // (N, HO)
-                           bf16* __restrict__ dd,       // (N, 32) out
-                           float* __restrict__ db_part, // (blocks, HO + cp + cwp + 32) out
-                           int n, int classes, int cwp, int cp, int use_sem) {
-  using D = Dims<W>;
-  constexpr int SH = D::SH, SA = D::SA, HO = D::HO;
-  constexpr int LDH = HO + kPad, LDC = kCO + kPad, LDS = kHeadMax + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* gho = reinterpret_cast<bf16*>(smem_raw);  // kBM x LDH: [g_s | g_sigma | 0 | g_feature]
-  bf16* gco = gho + kBM * LDH;                     // kBM x LDC
-  bf16* gr = gco + kBM * LDC;                      // kBM x LDS
-  bf16* gsem = gco;                                // kBM x LDS, once g_co and g_r are consumed
-  bf16* wbuf = gr + kBM * LDS;                     // 2 x NCMAX x (kKC + kPad)
-  float* dbw = reinterpret_cast<float*>(wbuf + 2 * D::NCMAX * (kKC + kPad));  // 2 x NCMAX
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kBM;
-  const int hb_len = HO + cp + cwp + kCO;
-  float* db_ho = db_part + (size_t)blockIdx.x * hb_len;
-  float* db_so = db_ho + HO;
-  float* db_ch = db_so + cp;
-  float* db_co = db_ch + cwp;
+struct HeadsSmem {
+  static constexpr int kSaBoxes = (Dims<W>::SA + 63) / 64;
+  static constexpr int kFBoxes = W / 64 > kHeadMax / 64 ? W / 64 : kHeadMax / 64;
+  static constexpr int kSa = 0, kF = kSaBoxes * kBox, kGr = kF + kFBoxes * kBox;
+  static constexpr int kRing = kGr + (kHeadMax / 64) * kBox;
+  static constexpr int kStageBytes = kHeadMax * 128;
+  static constexpr int kDbwBytes = 2 * 4 * kHeadsDbw * 4;
+  static constexpr int kFree = kSmemMax - kRing - kDbwBytes - 256 - 1024;
+  static constexpr int kStages = kFree / kStageBytes < 4 ? kFree / kStageBytes : 4;
+  static constexpr int kDbw = kRing + kStages * kStageBytes;
+  static constexpr int kBar = kDbw + kDbwBytes;  // full[], empty[], rfull[2], rempty[2], sfull[2], sempty[2]
+  static constexpr int kBytes = kBar + 256 + 1024;  // + slack for the alignment
+  static_assert(kStages >= 2, "the heads' data pass needs two ring stages");
+  static __device__ __forceinline__ uint32_t stage(uint32_t sm, int st) {
+    return sm + kRing + st * kStageBytes;
+  }
+  static __device__ __forceinline__ uint32_t full(uint32_t sm, int st) { return sm + kBar + 8 * st; }
+  static __device__ __forceinline__ uint32_t empty(uint32_t sm, int st) {
+    return sm + kBar + 8 * (kStages + st);
+  }
+  // per consumer warpgroup: its half of the r tile / of the s boxes
+  static __device__ __forceinline__ uint32_t rfull(uint32_t sm, int cw) {
+    return sm + kBar + 16 * kStages + 8 * cw;
+  }
+  static __device__ __forceinline__ uint32_t rempty(uint32_t sm, int cw) { return rfull(sm, cw) + 16; }
+  static __device__ __forceinline__ uint32_t sfull(uint32_t sm, int cw) { return rfull(sm, cw) + 32; }
+  static __device__ __forceinline__ uint32_t sempty(uint32_t sm, int cw) { return rfull(sm, cw) + 48; }
+};
 
-  // db of the biases the upstream g feeds directly (sigma, rgb, sem), rows
-  // in order; every other entry is written below or stays 0
-  for (int c = tid; c < hb_len; c += kThreads) db_ho[c] = 0.f;
-  __syncthreads();
-  if (tid < 4 || (use_sem && tid >= 32 && tid < 32 + classes)) {
-    const bool rgb = tid < 4;
-    const float* src = rgb ? g_out + tid : g_sem + (tid - 32);
-    const int ld = rgb ? 4 : classes;
-    float s = 0.f;
-    for (int r = 0; r < kBM && row0 + r < n; ++r) s += src[(size_t)(row0 + r) * ld];
-    if (!rgb)
-      db_so[tid - 32] = s;
-    else if (tid == 0)
-      db_ho[SH] = s;
-    else
-      db_co[tid - 1] = s;
-  }
+// Producer: rows [row0, row0 + 64 boxes) of `map` at column col (64 K
+// columns) into the next ring stage.
+template <class S>
+__device__ __forceinline__ void push_k(uint32_t sm, uint32_t& it, const CUtensorMap* map, int col,
+                                       int row0, int boxes) {
+  const int st = it % S::kStages;
+  mbar_wait(S::empty(sm, st), ((it / S::kStages) & 1) ^ 1);
+  mbar_expect_tx(S::full(sm, st), boxes * 64 * 128);
+  for (int b = 0; b < boxes; ++b)
+    tma_load(S::stage(sm, st) + b * 64 * 128, map, S::full(sm, st), col, row0 + 64 * b, 0);
+  ++it;
+}
 
-  // g_co = [g_rgb | 0] -> bf16
-  for (int i = tid; i < kBM * kCO; i += kThreads) {
-    const int r = i / kCO, c = i % kCO, p = row0 + r;
-    const bf16 b = __float2bfloat16_rn(p < n && c < 3 ? g_out[(size_t)p * 4 + 1 + c] : 0.f);
-    gco[r * LDC + c] = b;
-    if (p < n) gb_co[(size_t)p * kCO + c] = b;
-  }
-  {  // g_r = (g_co @ W_co^T) * (r > 0) -> bf16
-    float acc[4][kHeadMax / 32][4];
-    zero_acc(acc);
-    gemm_nt<kHeadMax / 32, false>(acc, gco, LDC, 0, wbuf, wco, kCO, kCO, cwp);
-    mask_by<kHeadMax / 32, false>(acc, cwp, r_sv, cwp, row0, n);
-    for_each_pair<kHeadMax / 32, false>(acc, cwp, [&](int r, int col, float v0, float v1) {
-      const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
-      *reinterpret_cast<__nv_bfloat162*>(gr + r * LDS + col) = b;
-      if (row0 + r < n) *reinterpret_cast<__nv_bfloat162*>(gb_r + (size_t)(row0 + r) * cwp + col) = b;
-    });
-    col_sums<kHeadMax / 32, false>(acc, cwp, dbw, db_ch);
-  }
-  {  // g_feature = (g_r @ W_ch^T)[:, :W] -> bf16 into gho
-    float acc[4][W / 32][4];
-    zero_acc(acc);
-    gemm_nt<W / 32, true>(acc, gr, LDS, 0, wbuf, wch, cwp, cwp, W);
-    for_each_pair<W / 32, true>(acc, W, [&](int r, int col, float& v0, float& v1) {
-      if (row0 + r >= n) v0 = v1 = 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(gho + r * LDH + SA + col) = __floats2bfloat162_rn(v0, v1);
-    });
-    col_sums<W / 32, true>(acc, W, dbw, db_ho + SA);
-  }
-  {  // dd = (g_r @ W_ch^T)[:, W : W + 32] -> bf16
-    float acc[4][1][4];
-    zero_acc(acc);
-    gemm_nt<1, true>(acc, gr, LDS, 0, wbuf, wch + (size_t)W * cwp, cwp, cwp, kDPad);
-    for_each_pair<1, true>(acc, kDPad, [&](int r, int col, float v0, float v1) {
-      if (row0 + r < n)
-        *reinterpret_cast<__nv_bfloat162*>(dd + (size_t)(row0 + r) * kDPad + col) =
-            __floats2bfloat162_rn(v0, v1);
-    });
-  }
-  if (use_sem) {  // g_s = (bf16(g_sem) @ W_so^T) * (s > 0) -> bf16 into gho
-    for (int i = tid; i < kBM * cp; i += kThreads) {
-      const int r = i / cp, c = i % cp, p = row0 + r;
-      const bf16 b = __float2bfloat16_rn(p < n && c < classes ? g_sem[(size_t)p * classes + c] : 0.f);
-      gsem[r * LDS + c] = b;
-      if (p < n) gb_sem[(size_t)p * cp + c] = b;
+// Producer: this warpgroup's 64 rows of `boxes` boxes of `map` (a saved
+// activation) into a tile at `dst`, once the consumers released them; a
+// half past n is not loaded (its g is 0).
+__device__ __forceinline__ void push_half(uint32_t full, uint32_t empty, uint32_t parity,
+                                          const CUtensorMap* map, uint32_t dst, int boxes,
+                                          int row0, int n) {
+  mbar_wait(empty, parity ^ 1);
+  mbar_expect_tx(full, row0 < n ? boxes * 64 * 128 : 0);
+  if (row0 < n)
+    for (int b = 0; b < boxes; ++b) tma_load(dst + b * kBox, map, full, 64 * b, row0, 0);
+}
+
+struct HeadsParams {
+  // loads: the head weights, wco (CWP, 32), wch (W + 32, CWP), wso (SH, CP),
+  // hw (W, HO), and the saved s (N, SH), r (N, CWP); stores: gb_co (N, 32),
+  // gb_r (N, CWP), gb_sem (N, CP), gb_ho (N, HO) and its first SA columns
+  CUtensorMap wco, wch, wso, hw, s, r, gco, gr, gsem, gho, gsa;
+  const float* g_out;  // (N, 4): g_sigma, g_rgb logits
+  const float* g_sem;  // (N, classes) or null
+  float* g_h;          // (N, W) out: the trunk's upstream g
+  bf16* dd;            // (N, 32) out
+  float* db_part;      // (2 x blocks, HO + CP + CWP + 32) out
+  int n, classes, cwp, cp, use_sem, tiles;
+};
+
+// The epilogue of one head product (or of an upstream g loaded into the
+// accumulator layout) on a consumer warpgroup's 64 x 2R f32 g: mask by the
+// tile's own bytes (the saved activation loaded there) in the first
+// `mask_jps` groups of 16 columns, bf16 rounding written over them by
+// stmatrix (the next product's A operand), the async-proxy fence, a TMA
+// store of `boxes` boxes of this warpgroup's rows of the tile at `src` to
+// `map` at column col0 (none if map is null), and the column sums of the
+// f32 g into db_out[0, cols <= 128): this block's earlier tiles plus this
+// one, in order.
+template <int R>
+__device__ __forceinline__ void heads_epilogue(float (&acc)[R], uint32_t tile, int mask_jps,
+                                               float* dbw, float* __restrict__ db_out, int cols,
+                                               bool add, const CUtensorMap* map, uint32_t src,
+                                               int boxes, int col0, int cw, int row0, int n) {
+  static_assert(2 * R <= kHeadsDbw, "a head product of at most 128 columns");
+  const int t = threadIdx.x & 127, w = t >> 5;
+  // this block's sum of its earlier tiles, loaded early
+  const float prev = add && t < cols ? db_out[t] : 0.f;
+  const uint32_t row = tile + lane_row(cw);
+#pragma unroll
+  for (int jp = 0; jp < R / 8; ++jp) {
+    const uint32_t at = at_jp(row, jp);
+    if (jp < mask_jps) {
+      uint32_t m[4];
+      ldsm_x4_at(m, at);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // act > 0: bf16 bits in [0x0001, 0x7f80] (NaN is not)
+          const uint32_t bits = (m[q] >> (16 * e)) & 0xffffu;
+          acc[8 * jp + 2 * q + e] = bits - 1u < 0x7f80u ? acc[8 * jp + 2 * q + e] : 0.f;
+        }
     }
-    float acc[4][SH / 32][4];
-    zero_acc(acc);
-    gemm_nt<SH / 32, true>(acc, gsem, LDS, 0, wbuf, wso, cp, cp, SH);
-    mask_by<SH / 32, true>(acc, SH, s_sv, SH, row0, n);
-    for_each_pair<SH / 32, true>(acc, SH, [&](int r, int col, float v0, float v1) {
-      *reinterpret_cast<__nv_bfloat162*>(gho + r * LDH + col) = __floats2bfloat162_rn(v0, v1);
-    });
-    col_sums<SH / 32, true>(acc, SH, dbw, db_ho);
-  } else {
-    for (int i = tid; i < kBM * SH; i += kThreads) gho[(i / SH) * LDH + i % SH] = __float2bfloat16_rn(0.f);
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(acc[8 * jp + 2 * q], acc[8 * jp + 2 * q + 1]);
+      v[q] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    stsm_x4_at(at, v);
   }
-  for (int i = tid; i < kBM * (SA - SH); i += kThreads) {  // [g_sigma | 0]
-    const int r = i / (SA - SH), c = i % (SA - SH), p = row0 + r;
-    gho[r * LDH + SH + c] = __float2bfloat16_rn(c == 0 && p < n ? g_out[(size_t)p * 4] : 0.f);
+  fence_proxy_async();
+  named_bar(1 + cw, 128);  // the tile is written; the last epilogue's sums are read
+  if (map && t == 0 && row0 < n) {
+    for (int kb = 0; kb < boxes; ++kb)
+      tma_store(map, src + kb * kBox + cw * 64 * 128, col0 + 64 * kb, row0, 0);
+    tma_store_commit();
+  }
+  warp_col_sums(acc, dbw + w * kHeadsDbw);
+  named_bar(1 + cw, 128);
+  if (t < cols) {
+    const float v =
+        ((dbw[t] + dbw[kHeadsDbw + t]) + dbw[2 * kHeadsDbw + t]) + dbw[3 * kHeadsDbw + t];
+    db_out[t] = add ? prev + v : v;
+  }
+}
+
+// This thread's two points: row0 + 16 w + (lane / 4) + 8 h, h = 0, 1.
+__device__ __forceinline__ int my_point(int row0, int h) {
+  return row0 + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * h;
+}
+
+// g_r = mask_r(bf16([g_rgb | 0]) @ W_co^T) -> the g_r tile, gb_r, db_ch:
+// g_co (written by the caller into the feature tile's first box) times the
+// ring's W_co stage, N = 2R columns (64 or 128).
+template <class S, int R, int RA>
+__device__ __forceinline__ void colour_out_bwd(float (&acc)[RA], uint32_t sm, uint32_t& it,
+                                               float* dbw, const HeadsParams& p, float* db,
+                                               bool add, int ti, int cw, int row0) {
+  auto& a = prefix<R>(acc);
+  fwd_product<S, R, true>(a, sm, it, sm + S::kF + cw * 64 * 128, 0, 1);
+  mbar_wait(S::rfull(sm, cw), ti & 1);
+  heads_epilogue(a, sm + S::kGr, R / 8, dbw, db, p.cwp, add, &p.gr, sm + S::kGr, R / 32, 0, cw,
+                 row0, p.n);
+}
+
+// g_sem (f32) into the accumulator layout -> bf16 in the feature tile's
+// first boxes, gb_sem, db_so; then g_s = bf16(g_sem) @ W_so^T (NS columns).
+template <class S, int R, int NS, int RA>
+__device__ __forceinline__ void sem_out_bwd(float (&acc)[RA], uint32_t sm, uint32_t& it,
+                                            float* dbw, const HeadsParams& p, float* db, bool add,
+                                            int cw, int row0) {
+  {
+    auto& a = prefix<R>(acc);
+    const int tq = threadIdx.x & 3;
+    const float* rows[2];  // this thread's two rows of g_sem from column 2 tq
+    bool in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pt = my_point(row0, h);
+      in[h] = pt < p.n;
+      rows[h] = p.g_sem + (size_t)(in[h] ? pt : 0) * p.classes + 2 * tq;
+    }
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          a[4 * j + 2 * h + e] =
+              in[h] && 8 * j + 2 * tq + e < p.classes ? rows[h][8 * j + e] : 0.f;
+    tile_free(cw);  // the feature tile's first box: gb_co's store has read it
+    heads_epilogue(a, sm + S::kF, 0, dbw, db, p.cp, add, &p.gsem, sm + S::kF, R / 32, 0, cw,
+                   row0, p.n);
+  }
+  fwd_product<S, NS / 2, true>(prefix<NS / 2>(acc), sm, it, sm + S::kF + cw * 64 * 128, 0,
+                               (p.cp + 63) / 64);
+}
+
+// Persistent over 128-point tiles (block b takes tiles b, b + gridDim.x,
+// ...). Warp 0 of the producer streams the head weights in the consumers'
+// order (W_co, W_so, W_ch's first W rows, its d_enc rows, W_head's
+// [sem_hidden | sigma | 0] columns then its feature columns), each chunk
+// the rows of one product's N by 64 K columns; warp 1 loads each consumer
+// warpgroup's rows of r into the g_r tile and of s into the first boxes of
+// the [g_s | g_sigma | 0] tile, once that warpgroup has finished with the
+// last tile's (after dd, after the product with W_head). Each consumer
+// warpgroup takes 64 points of the tile:
+//   g_co = [g_rgb | 0] (f32, read from global memory into the accumulator
+//     layout) -> bf16 into the feature tile, gb_co, db_co;
+//   g_r = mask_r(g_co W_co^T) -> the g_r tile, gb_r, db_ch;
+//   g_sem -> bf16 into the feature tile, gb_sem, db_so; g_s = mask_s(g_sem
+//     W_so^T) -> the [g_s | ...] tile, db_ho[0, SH); [g_sigma | 0] beside
+//     it (within g_s's box at W = 64) -> db_ho[SH, SA); that tile -> gb_ho's
+//     first SA columns;
+//   g_feature = g_r W_ch^T (rows [0, W)) -> the feature tile, gb_ho from
+//     column SA, db_ho[SA, HO); dd = g_r W_ch^T (rows [W, W + 32)) -> dd;
+//   g_h = [g_s | g_sigma | 0 | g_feature] W_head^T, one chain over both
+//     tiles (hw's columns from 0, then from SA) -> g_h in f32.
+// Every product is a wgmma chain from shared memory; the bf16 g of each is
+// written by stmatrix where the next product reads it and saved by a TMA
+// store that overlaps the next products. No product is wider than N = 128
+// (64 accumulator registers): at W = 256, g_feature and g_h run as two
+// halves of 128 output columns each (with N = 256 chains beside the
+// narrow ones, ptxas serialized every chain, C7512). db: one partial per
+// block and consumer warpgroup, summed over the block's tiles in order.
+template <int W>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    field_bwd_heads_kernel(const __grid_constant__ HeadsParams p) {
+  using D = Dims<W>;
+  using S = HeadsSmem<W>;
+  constexpr int SH = D::SH, SA = D::SA, HO = D::HO, KB = W / 64;
+  constexpr int NS = SH < 64 ? 64 : SH;  // g_s's product: whole boxes
+  constexpr int NH = W > kHeadMax ? 2 : 1, WH = W / NH, KBH = WH / 64;  // g_feature, g_h halves
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t sm = smem_u32(base);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(S::full(sm, i), 1);
+      mbar_init(S::empty(sm, i), 8);
+    }
+    for (int cw = 0; cw < 2; ++cw) {
+      mbar_init(S::rfull(sm, cw), 1);
+      mbar_init(S::rempty(sm, cw), 4);
+      mbar_init(S::sfull(sm, cw), 1);
+      mbar_init(S::sempty(sm, cw), 4);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  for (int i = tid; i < kBM * (HO / 8); i += kThreads) {  // for the head block's weight pass
-    const int r = i / (HO / 8), seg = i % (HO / 8);
-    if (row0 + r < n)
-      *reinterpret_cast<uint4*>(gb_ho + (size_t)(row0 + r) * HO + seg * 8) =
-          *reinterpret_cast<const uint4*>(gho + r * LDH + seg * 8);
-  }
-  {  // the trunk's upstream g = bf16(g_ho) @ W_head^T, f32
-    float acc[4][W / 32][4];
-    zero_acc(acc);
-    gemm_nt<W / 32, true>(acc, gho, LDH, 0, wbuf, hw, HO, HO, W);
-    for_each_pair<W / 32, true>(acc, W, [&](int r, int col, float v0, float v1) {
-      if (row0 + r < n)
-        *reinterpret_cast<float2*>(g_h + (size_t)(row0 + r) * W + col) = make_float2(v0, v1);
-    });
-  }
-}
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cwc = (p.cwp + 63) / 64;  // K chunks of the products with W_ch
 
-template <int W>
-size_t heads_smem() {
-  using D = Dims<W>;
-  return (size_t)(kBM * (D::HO + kPad) + kBM * (kCO + kPad) + kBM * (kHeadMax + kPad) +
-                  2 * D::NCMAX * (kKC + kPad)) *
-             sizeof(bf16) +
-         2 * D::NCMAX * sizeof(float);
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        push_k<S>(sm, it, &p.wco, 0, 0, cwc);
+        if (p.use_sem)
+          for (int kc = 0; kc < (p.cp + 63) / 64; ++kc)
+            push_k<S>(sm, it, &p.wso, 64 * kc, 0, NS / 64);
+        for (int hf = 0; hf < NH; ++hf)
+          for (int kc = 0; kc < cwc; ++kc) push_k<S>(sm, it, &p.wch, 64 * kc, WH * hf, KBH);
+        for (int kc = 0; kc < cwc; ++kc) push_k<S>(sm, it, &p.wch, 64 * kc, W, 1);
+        for (int hf = 0; hf < NH; ++hf) {  // W_head's [g_s | g_sigma | 0] columns, then SA + ...
+          for (int kc = 0; kc < S::kSaBoxes; ++kc)
+            push_k<S>(sm, it, &p.hw, 64 * kc, WH * hf, KBH);
+          for (int kc = 0; kc < KB; ++kc) push_k<S>(sm, it, &p.hw, SA + 64 * kc, WH * hf, KBH);
+        }
+      }
+    } else if (warp == 1 && lane == 0) {
+      uint32_t ti = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++ti) {
+        for (int cw = 0; cw < 2; ++cw)
+          push_half(S::rfull(sm, cw), S::rempty(sm, cw), ti & 1, &p.r,
+                    sm + S::kGr + cw * 64 * 128, cwc, tile * kBM + cw * 64, p.n);
+        for (int cw = 0; p.use_sem && cw < 2; ++cw)
+          push_half(S::sfull(sm, cw), S::sempty(sm, cw), ti & 1, &p.s,
+                    sm + S::kSa + cw * 64 * 128, (SH + 63) / 64, tile * kBM + cw * 64, p.n);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, t = threadIdx.x & 127, tq = threadIdx.x & 3;
+  float* dbw = reinterpret_cast<float*>(base + S::kDbw) + cw * 4 * kHeadsDbw;
+  const int hb_len = HO + p.cp + p.cwp + kCO;
+  float* db = p.db_part + (size_t)(2 * blockIdx.x + cw) * hb_len;
+  // db row: [db_head (HO) | db_so (CP) | db_ch (CWP) | db_co (32)], its
+  // parts addressed from `db` where they are used (fewer live registers)
+  float acc[kHeadMax / 2];  // every product's: a prefix each
+  uint32_t it = 0;
+  int ti = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++ti) {
+    const int row0 = tile * kBM + cw * 64;
+    const bool add = tile != (int)blockIdx.x;
+    // g_sigma of this thread's point h, loaded where it is used
+    const auto gsig = [&](int h) {
+      const int pt = my_point(row0, h);
+      return pt < p.n ? p.g_out[(size_t)pt * 4] : 0.f;
+    };
+    {  // g_co = [g_rgb | 0]: columns 0, 1 (tq = 0) and 2 (tq = 1) of each row
+      auto& a = prefix<32>(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) a[i] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pt = my_point(row0, h);
+        if (pt < p.n && tq < 2) {
+          a[2 * h] = p.g_out[(size_t)pt * 4 + 1 + 2 * tq];
+          if (tq == 0) a[2 * h + 1] = p.g_out[(size_t)pt * 4 + 2];
+        }
+      }
+      tile_free(cw);  // the feature tile: the last tile's products and stores are done with it
+      heads_epilogue(a, sm + S::kF, 0, dbw, db + HO + p.cp + p.cwp, kCO, add, &p.gco, sm + S::kF,
+                     1, 0, cw, row0, p.n);
+    }
+    if (p.cwp > 64)
+      colour_out_bwd<S, 64>(acc, sm, it, dbw, p, db + HO + p.cp, add, ti, cw, row0);
+    else
+      colour_out_bwd<S, 32>(acc, sm, it, dbw, p, db + HO + p.cp, add, ti, cw, row0);
+    auto& gs = prefix<NS / 2>(acc);
+    if (p.use_sem) {
+      if (p.cp > 64)
+        sem_out_bwd<S, 64, NS>(acc, sm, it, dbw, p, db + HO, add, cw, row0);
+      else
+        sem_out_bwd<S, 32, NS>(acc, sm, it, dbw, p, db + HO, add, cw, row0);
+      mbar_wait(S::sfull(sm, cw), ti & 1);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS / 2; ++i) gs[i] = 0.f;
+      if (!add)
+        for (int c = t; c < p.cp; c += 128) db[HO + c] = 0.f;
+    }
+    if (SH < 64 && tq == 0) {  // W = 64: g_sigma is column SH of g_s's box
+#pragma unroll
+      for (int h = 0; h < 2; ++h) gs[4 * (SH / 8) + 2 * h] = gsig(h);
+    }
+    tile_free(cw);  // the [g_s | ...] tile: the last tile's store has read it
+    heads_epilogue(gs, sm + S::kSa, p.use_sem ? SH / 16 : 0, dbw, db, SH < 64 ? SA : SH, add,
+                   SH < 64 ? &p.gsa : nullptr, sm + S::kSa, S::kSaBoxes, 0, cw, row0, p.n);
+    if (SH >= 64) {  // [g_sigma | 0] in the box after g_s's
+      auto& a = prefix<32>(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) a[i] = 0.f;
+      if (tq == 0) {
+        a[0] = gsig(0);
+        a[2] = gsig(1);
+      }
+      heads_epilogue(a, sm + S::kSa + (SH / 64) * kBox, 0, dbw, db + SH, SA - SH, add, &p.gsa,
+                     sm + S::kSa, S::kSaBoxes, 0, cw, row0, p.n);
+    }
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) {  // g_feature = g_r W_ch^T, columns [WH hf, WH (hf + 1))
+      auto& a = prefix<WH / 2>(acc);
+      fwd_product<S, WH / 2, true>(a, sm, it, sm + S::kGr + cw * 64 * 128, 0, cwc);
+      tile_free(cw);  // the feature tile: gb_sem's store has read it
+      const uint32_t f = sm + S::kF + hf * KBH * kBox;
+      heads_epilogue(a, f, 0, dbw, db + SA + WH * hf, WH, add, &p.gho, f, KBH, SA + WH * hf, cw,
+                     row0, p.n);
+    }
+    {  // dd = g_r W_ch^T, columns [W, W + 32), bf16
+      auto& a = prefix<32>(acc);
+      fwd_product<S, 32, true>(a, sm, it, sm + S::kGr + cw * 64 * 128, 0, cwc);
+#pragma unroll
+      for (int j = 0; j < kDPad / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pt = my_point(row0, h);
+          if (pt < p.n)
+            *reinterpret_cast<__nv_bfloat162*>(p.dd + (size_t)pt * kDPad + 8 * j + 2 * tq) =
+                __floats2bfloat162_rn(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+        }
+    }
+    tile_free(cw);  // gb_r's store has read the g_r tile: free for the next r
+    release(S::rempty(sm, cw));
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) {  // g_h = bf16(g_ho) W_head^T, f32, columns [WH hf, ...)
+      auto& a = prefix<WH / 2>(acc);
+      fwd_product<S, WH / 2, true>(a, sm, it, sm + S::kSa + cw * 64 * 128, 0, S::kSaBoxes + KB);
+#pragma unroll
+      for (int j = 0; j < WH / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pt = my_point(row0, h);
+          if (pt < p.n)
+            *reinterpret_cast<float2*>(p.g_h + (size_t)pt * W + WH * hf + 8 * j + 2 * tq) =
+                make_float2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+        }
+    }
+    if (p.use_sem) {
+      tile_free(cw);  // the [g_s | ...] store has read it: free for the next s
+      release(S::sempty(sm, cw));
+    }
+  }
+  if (t == 0) tma_store_wait();
 }
-
 
 template <int W>
 int fwd(const FwdArgs& a, cudaStream_t s) {
@@ -448,35 +702,61 @@ struct BwdArgs {
 template <int W, typename DW>
 int bwd(const BwdArgs& a, cudaStream_t s) {
   using D = Dims<W>;
-  const int blocks = (a.n + kBM - 1) / kBM;
-  const size_t smem = heads_smem<W>();
+  using S = HeadsSmem<W>;
+  HeadsParams hp{};
+  int err;
+  if ((err = make_tma_map(&hp.wco, a.wco, kCO, a.cwp, 1)) ||
+      (err = make_tma_map(&hp.wch, a.wch, a.cwp, W + kDPad, 1)) ||
+      (err = make_tma_map(&hp.hw, a.hw, D::HO, W, 1)) ||
+      (err = make_tma_map(&hp.r, a.r_sv, a.cwp, a.n, 1)) ||
+      (err = make_tma_map(&hp.gco, a.gb_co, kCO, a.n, 1)) ||
+      (err = make_tma_map(&hp.gr, a.gb_r, a.cwp, a.n, 1)) ||
+      (err = make_tma_map(&hp.gho, a.gb_ho, D::HO, a.n, 1)) ||
+      (err = make_tma_map(&hp.gsa, a.gb_ho, D::SA, a.n, 1, D::HO)))
+    return err;
+  if (a.use_sem && ((err = make_tma_map(&hp.wso, a.wso, a.cp, D::SH, 1)) ||
+                    (err = make_tma_map(&hp.s, a.s_sv, D::SH, a.n, 1)) ||
+                    (err = make_tma_map(&hp.gsem, a.gb_sem, a.cp, a.n, 1))))
+    return err;
+  hp.g_out = a.g_out;
+  hp.g_sem = a.g_sem;
+  hp.g_h = a.g_h;
+  hp.dd = a.dd;
+  hp.db_part = a.db_part_h;
+  hp.n = a.n;
+  hp.classes = a.classes;
+  hp.cwp = a.cwp;
+  hp.cp = a.cp;
+  hp.use_sem = a.use_sem;
+  hp.tiles = (a.n + kBM - 1) / kBM;
+  const int sms = sm_count(), grid = sms > 0 && sms < hp.tiles ? sms : hp.tiles;
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t e = allow_smem((const void*)field_bwd_heads_kernel<W>, (int)smem, smem_set);
+  cudaError_t e = allow_smem((const void*)field_bwd_heads_kernel<W>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  field_bwd_heads_kernel<W><<<blocks, kThreads, smem, s>>>(
-      a.g_out, a.g_sem, a.s_sv, a.r_sv, a.hw, a.wso, a.wch, a.wco, a.g_h, a.gb_co, a.gb_r,
-      a.gb_sem, a.gb_ho, a.dd, a.db_part_h, a.n, a.classes, a.cwp, a.cp, a.use_sem);
+  field_bwd_heads_kernel<W><<<grid, kWsThreads, S::kBytes, s>>>(hp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   // the head blocks' dW, one launch of the trunk's weight pass; `part`
   // holds each block's splits x rows (64-row slices) x columns in turn;
-  // map 0 (acts) is the one the trunk's passes encode
+  // map 0 (acts) is the one the trunk's passes encode, the others the
+  // heads' data pass encoded
   WgradArgs wa{};
   wa.n = a.n;
   wa.chunk = a.chunk;
-  int err = trunk_bwd<W, DW>(a.x, a.wp, a.acts, a.g_h, a.gbuf, a.db_part_t, a.gx_part,
-                             a.dw_part_t, a.dx, static_cast<DW*>(a.dwp), a.dbp, a.n, a.layers,
-                             a.skip_mask, a.splits, a.chunk, wa.map[0], s);
+  err = trunk_bwd<W, DW>(a.x, a.wp, a.acts, a.g_h, a.gbuf, a.db_part_t, a.gx_part,
+                         a.dw_part_t, a.dx, static_cast<DW*>(a.dwp), a.dbp, a.n, a.layers,
+                         a.skip_mask, a.splits, a.chunk, wa.map[0], s);
   if (err) return err;
+  wa.map[4] = hp.r;
+  wa.map[5] = hp.gho;
+  wa.map[7] = hp.gr;
+  wa.map[8] = hp.gco;
   if ((err = make_tma_map(&wa.map[2], a.feat, W, a.n, 1)) ||
-      (err = make_tma_map(&wa.map[3], a.d, kDPad, a.n, 1)) ||
-      (err = make_tma_map(&wa.map[4], a.r_sv, a.cwp, a.n, 1)) ||
-      (err = make_tma_map(&wa.map[5], a.gb_ho, D::HO, a.n, 1)) ||
-      (err = make_tma_map(&wa.map[7], a.gb_r, a.cwp, a.n, 1)) ||
-      (err = make_tma_map(&wa.map[8], a.gb_co, kCO, a.n, 1)))
+      (err = make_tma_map(&wa.map[3], a.d, kDPad, a.n, 1)))
     return err;
-  if (a.use_sem && ((err = make_tma_map(&wa.map[1], a.s_sv, D::SH, a.n, 1)) ||
-                    (err = make_tma_map(&wa.map[6], a.gb_sem, a.cp, a.n, 1))))
-    return err;
+  if (a.use_sem) {
+    wa.map[1] = hp.s;
+    wa.map[6] = hp.gsem;
+  }
   struct Reduce {
     const float* part;
     size_t stride, total;
@@ -512,7 +792,7 @@ int bwd(const BwdArgs& a, cudaStream_t s) {
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   const int hb_len = D::HO + a.cp + a.cwp + kCO;
-  reduce_db_kernel<<<(hb_len + 255) / 256, 256, 0, s>>>(a.db_part_h, a.db_h, blocks, hb_len);
+  reduce_db_kernel<<<(hb_len + 255) / 256, 256, 0, s>>>(a.db_part_h, a.db_h, 2 * grid, hb_len);
   return (int)cudaGetLastError();
 }
 
@@ -522,9 +802,11 @@ int bwd(const BwdArgs& a, cudaStream_t s) {
 // (ops/field_train_cuda.py) checks dtypes, shapes and contiguity, allocates
 // every output and scratch buffer, and requires W in {64, 128, 256},
 // sem_hidden = W / 2, CP and CWP multiples of 32 up to 128, 1 <= L <= 32
-// and n >= 1. Each returns 0 when every launch was accepted, else the CUDA
-// error code (kTmaEncodeFailed when a TMA descriptor cannot be encoded);
-// nothing synchronises.
+// and n >= 1; for C' it sizes db_part_t and db_part_h for two partials per
+// 128-point tile (the data passes run min(SMs, tiles) blocks of two). Each
+// returns 0 when every launch was accepted, else the CUDA error code
+// (kTmaEncodeFailed when a TMA descriptor cannot be encoded); nothing
+// synchronises.
 extern "C" int field_fwd_launch(const void* x, const void* d, const void* wp, const void* bp,
                                 const void* hw, const void* hb, const void* wso, const void* bso,
                                 const void* wch, const void* bch, const void* wco,
@@ -560,7 +842,8 @@ extern "C" int field_bwd_launch(const void* x, const void* d, const void* wp, co
                                 void* part, void* dx, void* dd, void* dwp, void* dbp, void* dhw,
                                 void* dwso, void* dwch, void* dwco, void* db_h, int n, int width,
                                 int layers, unsigned skip_mask, int classes, int cwp, int cp,
-                                int use_sem, int splits, int chunk, int dw_f32, void* stream) {
+                                int use_sem, int splits, int chunk, int dw_f32,
+                                void* stream) {
   const auto cb = [](const void* p) { return static_cast<const bf16*>(p); };
   const BwdArgs a{cb(x), cb(d), cb(wp), cb(hw), cb(wso), cb(wch), cb(wco), cb(acts), cb(s_sv),
                   cb(feat), cb(r_sv), static_cast<const float*>(g_out),

@@ -292,14 +292,18 @@ inline EncodeTiledFn encode_tiled() {
 // code).
 constexpr int kTmaEncodeFailed = 9001;
 
-// map <- the bf16 tensor (depth, rows, cols), row-major and contiguous, in
-// boxes of 64 columns x 64 rows x 1, 128-byte swizzle, zero fill out of
-// bounds. Returns 0 or kTmaEncodeFailed.
-inline int make_tma_map(CUtensorMap* map, const void* ptr, int cols, int rows, int depth) {
+// map <- the bf16 tensor (depth, rows, cols), row-major, rows `ld` columns
+// apart (0: contiguous, ld = cols), in boxes of 64 columns x 64 rows x 1,
+// 128-byte swizzle, zero fill out of bounds (a store writes nothing there:
+// with ld > cols, the map covers the first cols columns of a wider tensor).
+// Returns 0 or kTmaEncodeFailed.
+inline int make_tma_map(CUtensorMap* map, const void* ptr, int cols, int rows, int depth,
+                        int ld = 0) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return kTmaEncodeFailed;
+  const cuuint64_t row = (cuuint64_t)(ld ? ld : cols) * 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * 2 * rows};
+  const cuuint64_t strides[2] = {row, row * rows};
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r =

@@ -1,15 +1,6 @@
 // Device code shared by the trunk kernels (mlp_train.cu: B, B') and the
 // whole-field kernels (field_train.cu: C, C'), for NVIDIA Hopper (sm_90a).
 //
-// - cp.async / ldmatrix / mma.sync.m16n8k16 (bf16 in, f32 accumulators)
-//   helpers and two block-wide GEMM loops over a 128-row tile held in
-//   shared memory, 8 warps as 2 along rows x 4 along columns, the right
-//   operand streamed from global memory through a double-buffered cp.async
-//   ring of 32-deep chunks: `gemm_nn` (right operand K x NC, row-major)
-//   and `gemm_nt` (its transpose given, NC x K row-major). NC is a
-//   multiple of 32: each column warp holds NC / 32 m16n8 tiles. With kFull
-//   the width is the template's; otherwise `nc` (<= 32 * NT) is read at
-//   run time. Only C''s heads data pass still uses them;
 // - the forward tile engine (kernel B, and C's trunk and heads), written
 //   for Hopper with wgmma, TMA and mbarrier rings (hopper.cuh): persistent
 //   over 128-point tiles, a producer warpgroup streaming every packed
@@ -52,296 +43,15 @@
 
 namespace {
 
-constexpr int kBM = 128;       // points per block (forward, backward data pass)
-constexpr int kThreads = 256;  // 8 warps: 2 along points x 4 along columns
-constexpr int kFPad = 64;      // x_enc columns
-constexpr int kKC = 32;        // reduction depth of one staged chunk
-constexpr int kPad = 8;        // bf16 row padding (16 bytes)
+constexpr int kBM = 128;  // points per tile (forward, backward data passes)
+constexpr int kFPad = 64; // x_enc columns
 
 typedef __nv_bfloat16 bf16;
-
-// 16-byte async copy; with pred false the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  ldsm_x4_at(r, smem_u32(p));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }  // keeps NaN
 
 __device__ __forceinline__ void store_val(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-}
-
-// Columns of a block-wide GEMM's accumulator: accumulator [mi][nt][j]
-// holds row wm * 64 + mi * 16 + gq + (j >> 1) * 8, column
-// tile_col0<...>(nc) + nt * 8 + 2 * tq + (j & 1).
-template <int NT, bool kFull>
-__device__ __forceinline__ int gemm_cols(int nc) {
-  return kFull ? NT * 32 : nc;
-}
-template <int NT, bool kFull>
-__device__ __forceinline__ int tile_col0(int nc) {
-  return (threadIdx.x >> 5 & 3) * (gemm_cols<NT, kFull>(nc) / 4);
-}
-
-// acc[128 x NC] += A[:, a0 : a0 + K] @ B; A in shared memory (row stride
-// lda), B (K x NC) row-major in global memory (row stride ldb). K is a
-// multiple of 32; `wbuf` holds 2 x 32 x (NC + kPad). Ends synchronised.
-template <int NT, bool kFull>
-__device__ __forceinline__ void gemm_nn(float (&acc)[4][NT][4], const bf16* A, int lda, int a0,
-                                        bf16* wbuf, const bf16* __restrict__ B, int ldb, int K,
-                                        int nc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2;
-  const int ncols = gemm_cols<NT, kFull>(nc), nta = ncols / 32, ldw = ncols + kPad;
-  const int wcol = tile_col0<NT, kFull>(nc);
-  const int nchunks = K / kKC;
-  auto load = [&](int c) {
-    bf16* dst = wbuf + (c & 1) * kKC * ldw;
-    const bf16* src = B + (size_t)c * kKC * ldb;
-    const int segs = ncols / 8;
-    for (int i = tid; i < kKC * segs; i += kThreads) {
-      const int r = i / segs, seg = i % segs;
-      cp_async16(dst + r * ldw + seg * 8, src + (size_t)r * ldb + seg * 8, true);
-    }
-    cp_async_commit();
-  };
-  load(0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      load(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wb = wbuf + (c & 1) * kKC * ldw;
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(a[mi], A + (wm * 64 + mi * 16 + (lane & 15)) * lda + a0 + c * kKC + kk +
-                           (lane >> 4) * 8);
-      const bf16* brow = wb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ldw + wcol;
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        const int nt = 2 * p;
-        if (kFull || nt + 1 < nta) {
-          uint32_t b[4];
-          ldsm_x4_t(b, brow + nt * 8 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
-            mma_bf16(acc[mi][nt + 1], a[mi], b[2], b[3]);
-          }
-        } else if (nt < nta) {
-          uint32_t b[2];
-          ldsm_x2_t(b, brow + nt * 8);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
-        }
-      }
-      if ((NT & 1) && (kFull || NT - 1 < nta)) {
-        uint32_t b[2];
-        ldsm_x2_t(b, brow + (NT - 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][NT - 1], a[mi], b[0], b[1]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// acc[128 x NC] += A[:, a0 : a0 + K] @ Bt^T; Bt (NC x K) row-major in
-// global memory (row stride ldb): a weight whose rows are the product's
-// output columns, i.e. g @ W^T. `wbuf` holds 2 x NC x (32 + kPad). Ends
-// synchronised.
-template <int NT, bool kFull>
-__device__ __forceinline__ void gemm_nt(float (&acc)[4][NT][4], const bf16* A, int lda, int a0,
-                                        bf16* wbuf, const bf16* __restrict__ Bt, int ldb, int K,
-                                        int nc) {
-  constexpr int LDT = kKC + kPad;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2;
-  const int ncols = gemm_cols<NT, kFull>(nc), nta = ncols / 32;
-  const int wcol = tile_col0<NT, kFull>(nc);
-  const int nchunks = K / kKC;
-  auto load = [&](int c) {
-    bf16* dst = wbuf + (c & 1) * ncols * LDT;
-    for (int i = tid; i < ncols * (kKC / 8); i += kThreads) {
-      const int r = i / (kKC / 8), seg = i % (kKC / 8);
-      cp_async16(dst + r * LDT + seg * 8, Bt + (size_t)r * ldb + c * kKC + seg * 8, true);
-    }
-    cp_async_commit();
-  };
-  load(0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      load(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wb = wbuf + (c & 1) * ncols * LDT;
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(a[mi], A + (wm * 64 + mi * 16 + (lane & 15)) * lda + a0 + c * kKC + kk +
-                           (lane >> 4) * 8);
-      const bf16* bcol = wb + (wcol + (lane & 7)) * LDT + kk + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        const int nt = 2 * p;
-        if (kFull || nt + 1 < nta) {
-          uint32_t b[4];
-          ldsm_x4(b, bcol + (nt * 8 + ((lane >> 4) & 1) * 8) * LDT);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
-            mma_bf16(acc[mi][nt + 1], a[mi], b[2], b[3]);
-          }
-        } else if (nt < nta) {
-          uint32_t b[2];
-          ldsm_x2(b, bcol + nt * 8 * LDT);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][nt], a[mi], b[0], b[1]);
-        }
-      }
-      if ((NT & 1) && (kFull || NT - 1 < nta)) {
-        uint32_t b[2];
-        ldsm_x2(b, bcol + (NT - 1) * 8 * LDT);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][NT - 1], a[mi], b[0], b[1]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Calls f(row, col, v0, v1) for each pair of adjacent accumulator columns
-// (col even) of a block-wide GEMM of width nc (or NT * 32 with kFull).
-template <int NT, bool kFull, typename F>
-__device__ __forceinline__ void for_each_pair(float (&acc)[4][NT][4], int nc, F&& f) {
-  const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7, gq = lane >> 2, tq = lane & 3;
-  const int nta = gemm_cols<NT, kFull>(nc) / 32, c0 = tile_col0<NT, kFull>(nc);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (!kFull && nt >= nta) continue;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(wm * 64 + mi * 16 + gq + h * 8, c0 + nt * 8 + 2 * tq, acc[mi][nt][2 * h],
-          acc[mi][nt][2 * h + 1]);
-  }
-}
-
-// dst[col] = sum over the tile's 128 rows of the accumulator's column, in
-// a fixed order (a shuffle tree inside each warp, then the two row warps).
-// `dbw` holds 2 x NC floats. Starts and ends synchronised.
-template <int NT, bool kFull>
-__device__ __forceinline__ void col_sums(float (&acc)[4][NT][4], int nc, float* dbw,
-                                         float* __restrict__ dst) {
-  const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7, gq = lane >> 2, tq = lane & 3;
-  const int ncols = gemm_cols<NT, kFull>(nc), nta = ncols / 32;
-  const int c0 = tile_col0<NT, kFull>(nc);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (!kFull && nt >= nta) continue;
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s0 += acc[mi][nt][2 * h];
-        s1 += acc[mi][nt][2 * h + 1];
-      }
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    }
-    if (gq == 0) {
-      const int col = c0 + nt * 8 + 2 * tq;
-      dbw[wm * ncols + col] = s0;
-      dbw[wm * ncols + col + 1] = s1;
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < ncols; c += kThreads) dst[c] = dbw[c] + dbw[ncols + c];
-  __syncthreads();
-}
-
-// g (f32 accumulators) * (act > 0), act (N, ld) bf16 global; rows past n
-// are zero (the heads' data pass of field_train.cu).
-template <int NT, bool kFull>
-__device__ __forceinline__ void mask_by(float (&acc)[4][NT][4], int nc,
-                                        const bf16* __restrict__ act, int ld, int row0, int n) {
-  for_each_pair<NT, kFull>(acc, nc, [&](int r, int col, float& v0, float& v1) {
-    const int p = row0 + r;
-    if (p < n) {
-      const __nv_bfloat162 m =
-          *reinterpret_cast<const __nv_bfloat162*>(act + (size_t)p * ld + col);
-      v0 = __bfloat162float(m.x) > 0.f ? v0 : 0.f;
-      v1 = __bfloat162float(m.y) > 0.f ? v1 : 0.f;
-    } else {
-      v0 = v1 = 0.f;
-    }
-  });
-}
 
 // -------------------------------------------------- warp-specialised kernels
 
@@ -470,10 +180,20 @@ __device__ __forceinline__ void push(uint32_t sm, uint32_t& it, const CUtensorMa
 
 // Consumer: acc (64 x 2R) = A B over the ring's next kc1 - kc0 stages (`it`
 // counts the stages taken); A = `a` (this warpgroup's rows of a tile),
-// boxes kc0 .. kc1 - 1.
-template <class S, int R>
+// boxes kc0 .. kc1 - 1. B is a stage of 64 K-rows, MN-major (a packed
+// weight K x N, N contiguous); with kKMajorB a stage of N rows of 64 K
+// columns (a weight read as W^T: the product g W^T of a data pass). A
+// data pass's chain starts from a zeroed accumulator and always
+// accumulates, as the trunk's data pass does: its epilogues write the
+// accumulator, and with a first step that overwrites it instead, ptxas
+// serialized every chain of C''s heads pass (C7511).
+template <class S, int R, bool kKMajorB = false>
 __device__ __forceinline__ void fwd_product(float (&acc)[R], uint32_t sm, uint32_t& it, uint32_t a,
                                             int kc0, int kc1) {
+  if (kKMajorB) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  }
   int prev = -1;
   for (int kc = kc0; kc < kc1; ++kc, ++it) {
     const int st = it % S::kStages;
@@ -482,9 +202,13 @@ __device__ __forceinline__ void fwd_product(float (&acc)[R], uint32_t sm, uint32
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // k16 steps: 32 bytes into A's rows, 16 rows of B
-      wgmma<0, 1>(acc, desc_sw128(ak + kk * 32, 16, 1024),
-                  desc_sw128(b + kk * 2048, 64 * 128, 1024), kc > kc0 || kk > 0);
+    for (int kk = 0; kk < 4; ++kk) {  // k16 steps: 32 bytes into A's rows, 16 K of B
+      if (kKMajorB)
+        wgmma<0, 0>(acc, desc_sw128(ak + kk * 32, 16, 1024), desc_sw128(b + kk * 32, 16, 1024));
+      else
+        wgmma<0, 1>(acc, desc_sw128(ak + kk * 32, 16, 1024),
+                    desc_sw128(b + kk * 2048, 64 * 128, 1024), kc > kc0 || kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous chunk's products are done: release its stage
     if (prev >= 0) release(S::empty(sm, prev));
@@ -659,6 +383,38 @@ __device__ __forceinline__ void halve(float& a, float b, int lane, int o) {
   a = (hi ? b : a) + other;
 }
 
+// This warp's column sums of a consumer warpgroup's 64 x 2R accumulator
+// (f32), summed in place: the two rows of each thread, then a halving
+// exchange over the warp's 8 row groups; the warp's 2R sums go to
+// dbw_w[column].
+template <int R>
+__device__ __forceinline__ void warp_col_sums(float (&acc)[R], float* dbw_w) {
+  constexpr int RV = R / 2;  // sums per thread before the exchange
+  static_assert(RV >= 8, "the exchange needs 16 accumulator columns per thread");
+  const int lane = threadIdx.x & 31;
+  // value k = 2 j + e (column 8 j + 2 (lane % 4) + e) sits at acc[4 j + e]
+#define PNT_V(k) acc[4 * ((k) >> 1) + ((k)&1)]
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    acc[4 * j] += acc[4 * j + 2];
+    acc[4 * j + 1] += acc[4 * j + 3];
+  }
+#pragma unroll
+  for (int i = 0; i < RV / 2; ++i) halve(PNT_V(i), PNT_V(i + RV / 2), lane, 16);
+#pragma unroll
+  for (int i = 0; i < RV / 4; ++i) halve(PNT_V(i), PNT_V(i + RV / 4), lane, 8);
+#pragma unroll
+  for (int i = 0; i < RV / 8; ++i) halve(PNT_V(i), PNT_V(i + RV / 8), lane, 4);
+  // lane bits 4, 3, 2 chose which RV / 8 values the lane kept
+  const int k0 = (lane & 16 ? RV / 2 : 0) + (lane & 8 ? RV / 4 : 0) + (lane & 4 ? RV / 8 : 0);
+#pragma unroll
+  for (int i = 0; i < RV / 8; ++i) {
+    const int k = k0 + i;
+    dbw_w[8 * (k >> 1) + 2 * (lane & 3) + (k & 1)] = PNT_V(i);
+  }
+#undef PNT_V
+}
+
 // The epilogue of one layer on a consumer warpgroup's 64 x W accumulators
 // (f32 g): mask by the saved activation (the mask tile, ldmatrix), bf16
 // rounding into gs (the next product's A operand, stmatrix) and a TMA
@@ -672,9 +428,8 @@ __device__ __forceinline__ void data_epilogue(float (&acc)[W / 2], const unsigne
                                               uint64_t* mempty, uint32_t& mi,
                                               const CUtensorMap* gmap, float* __restrict__ db_out,
                                               int cw, int row0, int n, int layer, bool add) {
-  constexpr int R = W / 4;      // column sums per thread before the exchange
   constexpr int kWarpDbw = 512;  // floats in a warp's 16 rows of the mask tile (block 0)
-  const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+  const int t = threadIdx.x & 127, w = t >> 5;
   float prev[(W + 127) / 128];  // this block's sums of its earlier tiles, loaded early
 #pragma unroll
   for (int i = 0; i < (W + 127) / 128; ++i)
@@ -709,28 +464,7 @@ __device__ __forceinline__ void data_epilogue(float (&acc)[W / 2], const unsigne
     stsm_x4_at(at_jp(grow, jp), v);
   }
   fence_proxy_async();
-  // column sums in place: value k = 2 j + e (column 8 j + 2 (lane % 4) + e)
-  // sits at acc[4 j + e]
-#define PNT_V(k) acc[4 * ((k) >> 1) + ((k)&1)]
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j) {
-    acc[4 * j] += acc[4 * j + 2];
-    acc[4 * j + 1] += acc[4 * j + 3];
-  }
-#pragma unroll
-  for (int i = 0; i < R / 2; ++i) halve(PNT_V(i), PNT_V(i + R / 2), lane, 16);
-#pragma unroll
-  for (int i = 0; i < R / 4; ++i) halve(PNT_V(i), PNT_V(i + R / 4), lane, 8);
-#pragma unroll
-  for (int i = 0; i < R / 8; ++i) halve(PNT_V(i), PNT_V(i + R / 8), lane, 4);
-  // lane bits 4, 3, 2 chose which R / 8 values the lane kept
-  const int k0 = (lane & 16 ? R / 2 : 0) + (lane & 8 ? R / 4 : 0) + (lane & 4 ? R / 8 : 0);
-#pragma unroll
-  for (int i = 0; i < R / 8; ++i) {
-    const int k = k0 + i;
-    dbw[w * kWarpDbw + 8 * (k >> 1) + 2 * (lane & 3) + (k & 1)] = PNT_V(i);
-  }
-#undef PNT_V
+  warp_col_sums(acc, dbw + w * kWarpDbw);
   named_bar(1 + cw, 128);
   if (t == 0 && row0 < n) {
     for (int kb = 0; kb < W / 64; ++kb)

@@ -93,6 +93,16 @@ def heads_weight_plan_bytes(n: int, dims: FieldDims) -> int:
     return n * (2 * (2 * dims.width + D_PAD + 2 * dims.cwp + dims.ho + CO_PAD) + sem)
 
 
+def heads_partials(n: int, dims: FieldDims) -> tuple:
+    """(rows, columns) of the db partials of C''s heads data pass for n
+    points: one row per block and consumer warpgroup (the kernel runs
+    min(SMs, tiles) blocks of two, so 2 per 128-point tile always suffice),
+    each row the head block's HO columns, then sem_out's CP, the colour
+    hidden layer's CWP and color_out's CO_PAD, summed in order by the
+    reduction."""
+    return 2 * -(-n // BM), dims.ho + dims.cp + dims.cwp + CO_PAD
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -194,7 +204,7 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
     splits, chunk = weight_splits(n)
     blocks = -(-n // BM)
     ho, cp, cwp, sh = dims.ho, dims.cp, dims.cwp, dims.sem_hidden
-    hb_len = ho + cp + cwp + CO_PAD
+    parts, hb_len = heads_partials(n, dims)
     pad64 = lambda m: -(-m // 64) * 64
     # the head blocks' split-K partials, one after another (64-row slices)
     part_len = splits * (w * ho + pad64(sh) * cp + (w + 64) * cwp + pad64(cwp) * CO_PAD)
@@ -203,7 +213,7 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
     gbuf, gb_co, gb_r = e(layers, n, w, dt=bf), e(n, CO_PAD, dt=bf), e(n, cwp, dt=bf)
     gb_sem = e(n, cp, dt=bf) if dims.use_sem else None
     gb_ho = e(n, ho, dt=bf)
-    db_part_t, db_part_h, gx_part = e(2 * blocks, layers, w), e(blocks, hb_len), e(n, F_PAD)
+    db_part_t, db_part_h, gx_part = e(2 * blocks, layers, w), e(parts, hb_len), e(n, F_PAD)
     dw_part_t, part = e(splits, layers, w + F_PAD, w), e(part_len)
     dx, dd = e(n, F_PAD, dt=bf), e(n, D_PAD, dt=bf)
     dwp, dbp = e(layers, w + F_PAD, w, dt=dw_dtype), e(layers, w)

@@ -7,6 +7,8 @@ Two wrappers over the one kernel, each replacing a TPU kernel of
 - `intersect_groups_cuda` (A2, `intersect_groups_pallas`): G view groups,
   one table each (the kernel reads its group's table by `blockIdx.y`);
   plain version `ops.intersect.intersect_groups_plain`.
+`intersect_plan` gives a launch's lanes per ray and grid;
+`intersect_plan_bytes` the bytes A1 / A2 must move (their byte bound).
 The library is built with nvcc on first use (`ops/_nvcc.py`) and bound
 through ctypes; the kernel launches on PyTorch's current stream and does
 not synchronise. Each wrapper's `.launches` counts its own launches.
@@ -23,6 +25,8 @@ from panopticnerf_tpu_torch.ops.intersect import Primitives, RayIntervals
 
 MAX_K = 32
 SMEM_LIMIT = 48 * 1024  # bytes of shared memory without an opt-in attribute
+THREADS = 256           # threads per block (csrc/intersect.cu kThreads)
+BLOCKS_PER_SM = 4       # blocks of all groups together, per SM, that fill the card
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,9 +38,44 @@ def load() -> ctypes.CDLL:
     lib = _nvcc.load("intersect")
     fn = lib.intersect_rays_launch
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                   _P, _P, _P, _P, _P, _P]
+                   _P, _P, _P, _P, _P, _I, _I, _P]
     fn.restype = ctypes.c_int
     return lib
+
+
+def intersect_plan(g: int, m: int, p: int, k: int, sms: int) -> tuple[int, int]:
+    """-> (lanes per ray, blocks along each group's M rays) of a launch on
+    a card with `sms` SMs: the fewest lanes (4, 8, 16 or 32) that hold K
+    entries and one primitive each up to 32; enough blocks of 256 threads
+    that the G groups together put BLOCKS_PER_SM blocks on every SM, and
+    never more than the group's rays fill."""
+    if not (g >= 1 and m >= 1 and p >= 0 and 1 <= k <= MAX_K and sms >= 1):
+        raise ValueError(f"no intersection plan for G={g}, M={m}, P={p}, K={k}, SMs={sms}")
+    lanes = 4
+    while lanes < max(min(p, MAX_K), k):
+        lanes *= 2
+    rays = THREADS // lanes
+    blocks = min(-(-m // rays), max(1, -(-BLOCKS_PER_SM * sms // g)))
+    return lanes, blocks
+
+
+def intersect_plan_bytes(g: int, m: int, p: int, f: int, k: int) -> int:
+    """Bytes of device memory A1 / A2 must move, each input read once and
+    each output written once: the rays (f32 origin and direction), each
+    group's table (f32 affine map, int32 labels, bool valid, f32 cut
+    planes) and the (G, M, K) intervals (f32 t_in / t_out, int32 labels,
+    bool mask)."""
+    return g * (m * 2 * 3 * 4 + p * (12 * 4 + 4 + 4 + 1 + f * 4 * 4) + m * k * (4 + 4 + 4 + 4 + 1))
+
+
+_sms: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -80,6 +119,7 @@ def _launch(rays_o: torch.Tensor, rays_d: torch.Tensor, prims: Primitives,
     sem = torch.empty((g, m, k), dtype=torch.int32, device=dev)
     inst = torch.empty((g, m, k), dtype=torch.int32, device=dev)
     mask = torch.empty((g, m, k), dtype=torch.bool, device=dev)
+    lanes, blocks = intersect_plan(g, m, p, k, _sm_count(dev)) if g and m else (MAX_K, 1)
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -89,7 +129,7 @@ def _launch(rays_o: torch.Tensor, rays_d: torch.Tensor, prims: Primitives,
             prims.valid.data_ptr(), prims.cut_planes.data_ptr() if f else None,
             g, m, p, f, k, float(near), float(far),
             t_in.data_ptr(), t_out.data_ptr(), sem.data_ptr(), inst.data_ptr(),
-            mask.data_ptr(), stream)
+            mask.data_ptr(), lanes, blocks, stream)
     if err != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error {err}")
     return RayIntervals(t_in=t_in, t_out=t_out, semantic=sem, instance=inst, mask=mask)

@@ -34,13 +34,18 @@ def _to(device, w2p, sem, inst, valid, planes):
                       None if planes is None else t(planes))
 
 
-@pytest.mark.parametrize("p,f,k,dup", [(32, 0, 16, 0), (32, 8, 16, 0),
-                                       (5, 0, 8, 0), (24, 0, 16, 6),
-                                       (12, 4, 4, 3)])
-def test_intersect_kernel_matches_plain(cuda_device, p, f, k, dup):
-    rng = np.random.default_rng(p * 100 + f * 10 + k)
+# P at the 48 KB shared-memory limit of the table: 819 with F = 0, 261 with F = 8
+@pytest.mark.parametrize("p,f,k,dup,m", [
+    (32, 0, 16, 0, 5000), (32, 8, 16, 0, 5000), (5, 0, 8, 0, 5000), (24, 0, 16, 6, 5000),
+    (12, 4, 4, 3, 5000),
+    # ragged M, K 1 / 4 / 16 / 32, P 1 / 7 / 32 / 33 / the limit, ties (dup)
+    (1, 0, 1, 0, 31), (1, 4, 32, 0, 257), (7, 0, 4, 2, 33), (7, 8, 32, 3, 1),
+    (32, 0, 1, 4, 257), (32, 4, 32, 8, 33), (33, 0, 16, 5, 257), (33, 8, 4, 0, 31),
+    (261, 8, 16, 10, 257), (261, 8, 32, 0, 33), (819, 0, 32, 20, 257), (819, 0, 1, 3, 1)])
+def test_intersect_kernel_matches_plain(cuda_device, p, f, k, dup, m):
+    rng = np.random.default_rng(p * 100 + f * 10 + k + m)
     scene, centers = random_boxes(rng, p, f, dup)
-    o, d = random_rays(rng, 5000, centers, n_zero=16)
+    o, d = random_rays(rng, m, centers, n_zero=min(16, m // 4))
     prims = _to(cuda_device, *scene)
     ro, rd = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
     assert ro.is_contiguous() and prims.world_to_prim.is_contiguous()
@@ -89,6 +94,10 @@ def test_intersect_wrapper_rejects_bad_inputs(cuda_device):
     bad = prims._replace(semantic=prims.semantic.long())
     with pytest.raises(TypeError):
         intersect_rays_cuda(ro, rd, bad, 0.5, 40.0, 4)
+    # one primitive past the 48 KB table limit (261 with F = 8 fit)
+    (w2p, sem, inst, valid, planes), _ = random_boxes(rng, 262, 8)
+    with pytest.raises(ValueError):
+        intersect_rays_cuda(ro, rd, _to(cuda_device, w2p, sem, inst, valid, planes), 0.5, 40.0, 4)
 
 
 def test_tiny_render_cuda_matches_cpu(cuda_device):
@@ -132,28 +141,32 @@ def test_tiny_render_cuda_matches_cpu(cuda_device):
     assert intersect_rays_cuda.launches == before + 2
 
 
-def test_grouped_intersect_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("g,m,p,f,k,dup", [
+    (4, 300, 12, 4, 8, 2), (8, 256, 32, 0, 16, 4),  # the flagship step's shape
+    (3, 1, 7, 8, 32, 2), (5, 31, 33, 0, 4, 3), (2, 257, 1, 0, 1, 0), (8, 33, 261, 8, 16, 6),
+    (1, 257, 819, 0, 32, 10), (6, 257, 32, 8, 32, 8)])
+def test_grouped_intersect_kernel_matches_plain(cuda_device, g, m, p, f, k, dup):
     """Kernel A2 (the grouped wrapper, grid.y = G) against the per-group
     plain version: bit-equal, as for A1; its own launch counter."""
     from panopticnerf_tpu_torch.ops.intersect import intersect_groups, intersect_groups_plain
     from panopticnerf_tpu_torch.ops.intersect_cuda import intersect_groups_cuda
 
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(11 + g * m + p)
     scenes, rays = [], []
-    for _ in range(4):
-        scene, centers = random_boxes(rng, 12, 4, 2)
+    for _ in range(g):
+        scene, centers = random_boxes(rng, p, f, dup)
         scenes.append(scene)
-        rays.append(random_rays(rng, 300, centers, n_zero=4))
-    stack = lambda i: np.stack([s[i] for s in scenes])
+        rays.append(random_rays(rng, m, centers, n_zero=min(4, m // 4)))
+    stack = lambda i: None if f == 0 and i == 4 else np.stack([s[i] for s in scenes])
     prims = _to(cuda_device, *(stack(i) for i in range(5)))
     ro = torch.from_numpy(np.stack([r[0] for r in rays])).to(cuda_device)
     rd = torch.from_numpy(np.stack([r[1] for r in rays])).to(cuda_device)
     before = intersect_groups_cuda.launches
-    out = intersect_groups(ro, rd, prims, 0.5, 40.0, 8)
-    ref = intersect_groups_plain(ro, rd, prims, 0.5, 40.0, 8)
+    out = intersect_groups(ro, rd, prims, 0.5, 40.0, k)
+    ref = intersect_groups_plain(ro, rd, prims, 0.5, 40.0, k)
     torch.cuda.synchronize()
     assert intersect_groups_cuda.launches == before + 1
-    assert out.t_in.shape == (4, 300, 8)
+    assert out.t_in.shape == (g, m, k)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
@@ -288,6 +301,9 @@ def test_trunk_wrappers_reject_bad_inputs(cuda_device):
         trunk_backward_cuda(xp, acts[:2], g, wp, (2,))
 
 
+_RAGGED_N = (1, 63, 64, 65, 127, 129, 1000)
+
+
 def _field_case(device, n, width, layers, skips, use_sem, viewdirs, classes, cw, seed):
     """Seeded parameters (leaf order of FieldDims.leaves), packed in bf16,
     padded inputs and upstream gradients on `device`."""
@@ -329,7 +345,13 @@ def _field_case(device, n, width, layers, skips, use_sem, viewdirs, classes, cw,
     # ragged N, every width, 1 / 4 / 8 layers, the head widths on both sides of 64
     (63, 64, 1, (), False, False, 19, 32), (127, 128, 4, (2,), True, False, 19, 128),
     (129, 256, 8, (5,), False, True, 5, 64), (1000, 256, 4, (), True, True, 70, 96),
-    (1000, 64, 4, (2,), True, True, 70, 96), (129, 128, 8, (3, 5), True, True, 100, 128)])
+    (1000, 64, 4, (2,), True, True, 70, 96), (129, 128, 8, (3, 5), True, True, 100, 128),
+    # every width x CP 32 / 128 x CWP 32 / 64 / 128 x the semantic head on and off, at
+    # ragged N (each width meets every N)
+    *[(_RAGGED_N[i % len(_RAGGED_N)], width, 3, (2,), use_sem, i % 2 == 0, classes, cw)
+      for i, (width, classes, cw, use_sem) in enumerate(
+          (width, classes, cw, use_sem) for width in (64, 128, 256) for classes in (19, 100)
+          for cw in (27, 50, 100) for use_sem in (True, False))]])
 def test_field_kernels_match_plain(cuda_device, n, width, layers, skips, use_sem, viewdirs,
                                    classes, cw, dw_dtype):
     """Kernels C and C' against their plain versions on the same packed

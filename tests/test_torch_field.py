@@ -31,7 +31,11 @@ from panopticnerf_tpu_torch.ops.field_train import (
     pack_field,
     unpack_field_grads,
 )
-from panopticnerf_tpu_torch.ops.field_train_cuda import forward_plan_bytes, heads_data_plan_bytes
+from panopticnerf_tpu_torch.ops.field_train_cuda import (
+    forward_plan_bytes,
+    heads_data_plan_bytes,
+    heads_partials,
+)
 
 X_DIM, D_DIM, CLASSES, COLOR = 63, 27, 5, 32
 
@@ -275,3 +279,25 @@ def test_forward_plan_bytes_flagship_hand_count(n, use_sem):
         assert forward_plan_bytes(n, dims) - weights == n * (284 + 5120)
     heads = 16 + 256 + 1024 + 64 + 256 + 832 + 64 + (76 + 256 + 64 if use_sem else 0)
     assert heads_data_plan_bytes(n, dims) == n * heads
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("classes", [19, 64, 70, 128])
+@pytest.mark.parametrize("color_width", [27, 64, 96, 128])
+def test_heads_partials_cover_every_block(width, classes, color_width):
+    """The db partials of C''s heads data pass, for every width and head
+    combination the kernels take: two rows per 128-point tile cover the
+    min(SMs, tiles) blocks of two consumer warpgroups the kernel runs on
+    any card, and a row holds [db_head | db_sem_out | db_colour | db_rgb]
+    in the widths the wrapper splits it by."""
+    for use_sem in (True, False):
+        dims = FieldDims(x_dim=63, d_dim=27, width=width, sem_hidden=width // 2,
+                         color_width=color_width, num_classes=classes, layers=8, skips=(5,),
+                         use_sem=use_sem)
+        for n in (1, 127, 128, 129, 131072, 262145):
+            rows, cols = heads_partials(n, dims)
+            tiles = -(-n // 128)
+            for sms in (1, 78, 132, 10**6):
+                assert rows >= 2 * min(sms, tiles)
+            assert rows == 2 * tiles
+            assert cols == dims.ho + dims.cp + dims.cwp + 32

@@ -93,3 +93,60 @@ def test_intersect_rays_rejects_unknown_device():
     with pytest.raises(ValueError):
         intersect_rays(torch.from_numpy(o).to("meta"), torch.from_numpy(d).to("meta"),
                        tp, NEAR, FAR, 4)
+
+
+# ----------------------------------------------------- the CUDA launch plan
+
+# (G, M, P, K, SMs): the flagship view (A1) and step (A2), ragged M, every K
+# from 1 to 32 against P on both sides of 32, a card with few SMs
+_PLANS = [(1, 33088, 32, 16, 132), (8, 256, 32, 16, 132)] + [
+    (g, m, p, k, sms) for g, m, sms in ((1, 1, 132), (3, 31, 132), (5, 257, 8), (64, 33, 132))
+    for p in (0, 1, 7, 32, 33, 819) for k in (1, 4, 5, 16, 17, 32)]
+
+
+@pytest.mark.parametrize("g,m,p,k,sms", _PLANS)
+def test_intersect_plan_covers_every_ray(g, m, p, k, sms):
+    """The plan of `intersect_rays_launch`: the fewest lanes per ray (a
+    power of two from 4 to 32) that hold K list entries and one primitive
+    each up to 32; blocks of THREADS threads, none without a ray, enough of
+    them to put BLOCKS_PER_SM blocks on every SM where the rays allow."""
+    from panopticnerf_tpu_torch.ops.intersect_cuda import (
+        BLOCKS_PER_SM,
+        MAX_K,
+        THREADS,
+        intersect_plan,
+    )
+
+    lanes, blocks = intersect_plan(g, m, p, k, sms)
+    assert lanes in (4, 8, 16, 32) and lanes >= k and lanes >= min(p, MAX_K)
+    assert lanes == 4 or lanes // 2 < max(k, min(p, MAX_K))
+    rays = THREADS // lanes
+    assert 1 <= blocks and (blocks - 1) * rays < m  # every block has a ray
+    assert g * blocks >= min(BLOCKS_PER_SM * sms, g * -(-m // rays))
+
+
+@pytest.mark.parametrize("g,m,p,k,sms", [(0, 8, 4, 4, 132), (1, 0, 4, 4, 132),
+                                         (1, 8, 4, 0, 132), (1, 8, 4, 33, 132),
+                                         (1, 8, -1, 4, 132), (1, 8, 4, 4, 0)])
+def test_intersect_plan_rejects_impossible_launches(g, m, p, k, sms):
+    from panopticnerf_tpu_torch.ops.intersect_cuda import intersect_plan
+
+    with pytest.raises(ValueError):
+        intersect_plan(g, m, p, k, sms)
+
+
+def test_intersect_plan_bytes_hand_count():
+    """A1 at a flagship view (one table, N = 33,088 rays, P = 32, K = 16,
+    no cut planes) and A2 at the flagship step (G = 8 x M = 256), counted by
+    hand: rays 24 B each (f32 origin and direction); per primitive 48 B of
+    affine map, 4 + 4 B of labels, 1 B valid, 16 B per cut plane; per
+    output entry 4 + 4 B of t_in / t_out, 4 + 4 B of labels, 1 B of mask."""
+    from panopticnerf_tpu_torch.ops.intersect_cuda import intersect_plan_bytes
+
+    a1 = 33088 * 24 + 32 * 57 + 33088 * 16 * 17
+    assert a1 == 9_795_872
+    assert intersect_plan_bytes(1, 33088, 32, 0, 16) == a1
+    a2 = 8 * (256 * 24 + 32 * 57 + 256 * 16 * 17)
+    assert a2 == 620_800
+    assert intersect_plan_bytes(8, 256, 32, 0, 16) == a2
+    assert intersect_plan_bytes(1, 10, 3, 8, 4) == 10 * 24 + 3 * (57 + 8 * 16) + 10 * 4 * 17
