@@ -63,7 +63,22 @@ line is printed):
      trunk, 200 in field, 100 in hybrid: ms/step, rays/s, peak memory,
      falling finite loss, exact launch counts (A2 = steps; trunk: B = B' =
      2 x steps; field: C = C' = 2 x steps; hybrid: C' = 2 x steps; every
-     other count 0); then `run_evaluate` on the checkpoint it wrote.
+     other count 0); then `run_evaluate` on the checkpoint it wrote;
+ 11. the engine around the step, mode trunk, with train.ep_iter 50,
+     save_ep 2, eval_ep 2: (a) a 200-step `run_train` into a temporary
+     model_dir: step checkpoints at 100 and 200, in-training evaluations
+     at 100 and 200 with finite PSNR / mIoU / PQ, the sidecar's metric
+     miou_pq_mean, exact launch counts (A1 = evaluations x evaluated views,
+     A2 = 200, B = B' = 400, C = C' = 0), the wall time of the window
+     holding a save and an evaluation, of the evaluation and of one save
+     alone, and
+     `run_evaluate` with train.eval_step -1 on the best step; (b)
+     `python -m panopticnerf_tpu_torch.train_net` as a child process,
+     SIGTERM after its first log line (exit code 0, "checkpointing at step
+     k"), resumed in this process to 200: its losses from k and its final
+     parameters equal (a)'s bit for bit; (c) `run --type network` (rays/s
+     beside the card's name and power limit) and `run --type visualize
+     --trajectory 4` (the files written; A1 launches = test views + 4).
 The last two lines are the kernels' JSON (with each kernel's bound on the
 card, computed from this run's shapes and the work of the function the TPU
 kernel computes) and `{"ok": true, "device": ...}`.
@@ -72,7 +87,9 @@ kernel computes) and `{"ok": true, "device": ...}`.
 import json
 import os
 import re
+import signal
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -124,6 +141,8 @@ MIN_SIGN_SHARE = 0.99     # entries whose first Adam update has JAX's sign
 FIELD_REL = {"sigma": 5e-4, "sem": 8e-4, "rgb": 3e-3, "dd": 5e-4, "db": 5e-4,
              "bf16 out": 2e-3, "dW bf16": 3e-3, "dW f32": 7e-4, "rec": 3e-2}
 TRAIN_STEPS = {"trunk": 100, "field": 200, "hybrid": 100}
+ENGINE_STEPS = 200
+ENGINE_OPTS = ["train.ep_iter", "50", "train.save_ep", "2", "train.eval_ep", "2"]
 
 
 def check(cond, msg):
@@ -678,7 +697,7 @@ def train_phase(cfg, dev, engine, mode):
                 "C'": field_train_cuda.field_backward_cuda}
     steps = TRAIN_STEPS[mode]
     with tempfile.TemporaryDirectory() as tmp:
-        tcfg = dataclasses.replace(with_mode(cfg, mode), model_dir=tmp)
+        tcfg = dataclasses.replace(with_mode(cfg, mode), model_dir=tmp, record_dir=tmp)
         torch.cuda.reset_peak_memory_stats(dev)
         for fn in counters.values():
             fn.launches = 0
@@ -710,6 +729,129 @@ def train_phase(cfg, dev, engine, mode):
               f"mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
         check(all(np.isfinite(ev[k]) for k in ("psnr", "miou", "pq")), "non-finite scores")
     return launches, ms_step
+
+
+def engine_phase(dev, engine, run):
+    """11. The engine around the step on the card (see the module docstring)."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data.dataset import train_test_split
+    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
+    from panopticnerf_tpu_torch.train.checkpoint import all_steps, save_model
+
+    counters = {"A1": intersect_cuda.intersect_rays_cuda,
+                "A2": intersect_cuda.intersect_groups_cuda,
+                "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
+                "C": field_train_cuda.field_forward_cuda,
+                "C'": field_train_cuda.field_backward_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = lambda run_dir: ENGINE_OPTS + [
+            "model.pallas_mode", "trunk", "model_dir", f"{tmp}/{run_dir}",
+            "record_dir", f"{tmp}/record_{run_dir}", "result_dir", f"{tmp}/result"]
+        cfg = load_config(CFG_FILE, opts("a"))
+        tc = cfg.train
+        _, test_ids = train_test_split(cfg.data.synthetic_num_frames, cfg.data.test_every)
+        n_eval_views = len(test_ids if tc.eval_views <= 0 else test_ids[:tc.eval_views])
+
+        # (a) the cadence
+        zero()
+        t0 = time.perf_counter()
+        res = engine.run_train(cfg, dev, max_steps=ENGINE_STEPS, log=lambda *a: None)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps = all_steps(engine.torch_path(cfg, cfg.trained_model_dir))
+        print(f"engine (a): run_train of {ENGINE_STEPS} steps with saves and in-training "
+              f"evaluations in {wall:.2f} s; step checkpoints {steps}; launches {launches}")
+        check(steps == [100, 200], f"step checkpoints {steps}, expected [100, 200]")
+        check([e[0] for e in res["evals"]] == [100, 200],
+              f"in-training evaluations at {[e[0] for e in res['evals']]}, expected [100, 200]")
+        for step, secs, ev in res["evals"]:
+            print(f"  eval@{step} on {n_eval_views} view(s) in {secs:.3f} s: "
+                  f"PSNR {ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
+            check(all(np.isfinite(ev[k]) for k in ("psnr", "miou", "pq")),
+                  f"non-finite in-training scores at step {step}")
+        want = {"A1": len(res["evals"]) * n_eval_views, "A2": ENGINE_STEPS,
+                "B": 2 * ENGINE_STEPS, "B'": 2 * ENGINE_STEPS, "C": 0, "C'": 0}
+        check(launches == want, f"engine launch counts {launches}, expected {want}")
+        ends = np.cumsum([k for k, _ in res["windows"]])
+        ms = {int(e): 1000.0 * s / k for e, (k, s) in zip(ends, res["windows"])}
+        held = int(ends[np.searchsorted(ends, 101)])  # the window after the save and eval at 100
+        plain = [v for e, v in ms.items() if e not in (ends[0], held, ENGINE_STEPS)]
+        print(f"  window ending at step {held} (holds the save and the evaluation at 100): "
+              f"{ms[held]:.3f} ms/step over {int(held - ends[np.searchsorted(ends, 101) - 1])} "
+              f"steps, against a median {np.median(plain):.3f} ms/step of the windows without "
+              f"either; {card}")
+        t0 = time.perf_counter()
+        path = save_model(res["state"], f"{tmp}/save_alone", ENGINE_STEPS)
+        print(f"  one save_model of the training state alone: "
+              f"{1000.0 * (time.perf_counter() - t0):.1f} ms, "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB")
+        with open(engine.torch_path(cfg, cfg.best_metric_path)) as fh:
+            meta = json.load(fh)
+        print(f"  best sidecar {meta}")
+        check(meta["metric"] == "miou_pq_mean", f"sidecar metric {meta['metric']!r}")
+        ecfg = load_config(CFG_FILE, opts("a") + ["train.eval_step", "-1"])
+        ev = engine.run_evaluate(ecfg, dev, log=lambda *a: None)
+        print(f"  run_evaluate of the best (train.eval_step -1): step {ev['step']}, PSNR "
+              f"{ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
+        check(ev["step"] == meta["step"], f"eval_step -1 restored step {ev['step']}, "
+              f"the sidecar names {meta['step']}")
+
+        # (b) SIGTERM, then resume
+        child = subprocess.Popen(
+            [sys.executable, "-u", "-m", "panopticnerf_tpu_torch.train_net", "--cfg_file",
+             CFG_FILE, "--device", str(dev), "--max_steps", str(ENGINE_STEPS), *opts("b")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
+        lines = []
+        try:
+            for line in child.stdout:
+                lines.append(line)
+                if line.startswith("step "):
+                    child.send_signal(signal.SIGTERM)
+                    break
+            lines += child.stdout.readlines()
+            rc = child.wait(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        out = "".join(lines)
+        m = re.search(r"SIGTERM received: checkpointing at step (\d+) and exiting", out)
+        check(rc == 0 and m is not None, f"train_net under SIGTERM: rc {rc}, output:\n{out}")
+        k = int(m.group(1))
+        bcfg = load_config(CFG_FILE, opts("b") + ["train.resume", "true"])
+        res_b = engine.run_train(bcfg, dev, max_steps=ENGINE_STEPS, log=lambda *a: None)
+        dl = np.abs(res_b["losses"] - res["losses"][k:])
+        pa, pb = res["state"].model.state_dict(), res_b["state"].model.state_dict()
+        dp = max(float((pa[n] - pb[n]).abs().max()) for n in pa)
+        same = bool((dl == 0).all()) and all(torch.equal(pa[n], pb[n]) for n in pa)
+        print(f"engine (b): train_net checkpointed at step {k} on SIGTERM (rc {rc}); resumed "
+              f"to {ENGINE_STEPS}: max |loss - (a)| {dl.max():.3e} over {len(dl)} steps, max "
+              f"|param - (a)| {dp:.3e}; bit for bit: {same}")
+        check(len(dl) == ENGINE_STEPS - k, f"resumed run took {len(dl)} steps from {k}")
+        check(same, "SIGTERM + resume differs from the uninterrupted run")
+
+        # (c) the other entry points
+        zero()
+        net = run.main(["--type", "network", "--cfg_file", CFG_FILE, "--device", str(dev),
+                        *opts("a")])
+        print(f"engine (c): run --type network: {net['rays_per_sec']:.0f} rays/s, "
+              f"{net['iters_per_sec']:.2f} it/s (50 steps of {cfg.data.n_rays} rays); {card}")
+        zero()
+        files = run.main(["--type", "visualize", "--trajectory", "4", "--cfg_file", CFG_FILE,
+                          "--device", str(dev), *opts("a")])
+        a1 = counters["A1"].launches
+        pngs = [f for f in files if f.endswith(".png") and os.path.getsize(f) > 0]
+        print(f"  run --type visualize --trajectory 4: {len(files)} files ({len(pngs)} PNG), "
+              f"A1 launches {a1}")
+        check(a1 == len(test_ids) + 4, f"visualize launched A1 {a1} times, expected "
+              f"{len(test_ids)} test views + 4 frames")
+        check(len(pngs) == 6 * len(test_ids) + 4 * 4, f"visualize wrote {len(pngs)} PNG files")
 
 
 def main():
@@ -838,6 +980,11 @@ def main():
     del ds_t
     torch.cuda.empty_cache()
     train = {mode: train_phase(cfg, dev, engine, mode)[0] for mode in MODES}
+
+    # 11. the engine around the step
+    from panopticnerf_tpu_torch import run
+
+    engine_phase(dev, engine, run)
 
     # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
     # (C' on C's saved activations, as mode field runs it). No single PyTorch

@@ -2,8 +2,10 @@
 
 The JAX package beside it is the reference this port is held against; the
 layout mirrors it module for module. Ported so far, on the synthetic
-scene: the evaluation render (`run.py --type evaluate`) and the training
-step (`train_net.py`) in the three field modes of `model.pallas_mode`,
+scene: evaluation, visualisation and the throughput probe (`run.py
+--type evaluate / visualize / network`), and training (`train_net.py`:
+resume, warm start, save cadence, in-training evaluation, save_best, the
+SIGTERM checkpoint) in the three field modes of `model.pallas_mode`,
 with hand-written CUDA kernels for the ray x primitive intersection
 (`csrc/intersect.cu`), the fused trunk's forward and backward
 (`csrc/mlp_train.cu`) and the whole field's forward and backward
@@ -18,8 +20,9 @@ Layout:
   ops/       rays, intersection, fused trunk and field (+ CUDA kernels), encoding,
              sampling, composite
   render/    volume renderer (training and tiled full-image paths)
-  train/     losses, train step, optimizer
+  train/     losses, train step, optimizer, checkpoints, recorder
   eval/      PSNR / mIoU / PQ evaluator and panoptic fusion
+  viz/       images and label maps (PNG without PIL)
   csrc/      CUDA C++ kernel sources
 """
 

@@ -151,7 +151,7 @@ class ParallelConfig:
 class EvalConfig:
     lpips_weights: str = ""          # LPIPS is not ported yet: must stay empty
     fusion_rule: str = "match"       # "match" | "raw"
-    sky_rule: str = "off"            # the port implements "off" only so far
+    sky_rule: str = "off"            # "off" | "empty" | "support" | "soft[:w]"
     sky_class: int = -1
     sky_eps: float = 1e-4
 
@@ -174,6 +174,16 @@ class Config:
     @property
     def trained_model_dir(self) -> str:
         return os.path.join(self.model_dir, self.task, self.exp_name)
+
+    @property
+    def best_model_dir(self) -> str:
+        """Metric-selected checkpoint root (train.save_best), a sibling of
+        the step root."""
+        return os.path.join(self.model_dir, self.task, self.exp_name + "_best")
+
+    @property
+    def best_metric_path(self) -> str:
+        return os.path.join(self.model_dir, self.task, self.exp_name + "_best_metric.json")
 
     @property
     def record_path(self) -> str:

@@ -1,33 +1,48 @@
-"""Training and evaluation entry points (port of `panopticnerf_tpu/engine.py`).
+"""Training, evaluation, visualisation and throughput entry points (port of
+`panopticnerf_tpu/engine.py`).
 
-`run_train` trains from `init_params` on a device: the step loop with one
-stacked readback of the step's stats every `train.log_interval` steps, and
-at the end the params as `<model_dir>/torch/<exp_name>_<step>.npz`.
-`run_evaluate` builds the dataset on a device, restores such a checkpoint,
+`run_train` trains from `init_params` on a device: warm start
+(`train.init_from`), resume (`train.resume`), the step loop with one
+stacked readback of the step's stats every `train.log_interval` steps,
+recorder lines, saves every `train.save_ep` epochs and at the end, an
+evaluation of the EMA weights every `train.eval_ep` epochs with the
+metric-selected checkpoint (`train.save_best`), and a checkpoint at the
+next step boundary after SIGTERM. `run_evaluate` restores a checkpoint,
 renders every evaluated view (intersection kernel, then the tiled render)
-and scores PSNR / mIoU / PQ.
+and scores PSNR / mIoU / PQ; `run_visualize` writes images, label maps and
+a novel-pose trajectory; `run_network` times the training step.
 
-Not ported yet (ROADMAP Queue 1.4 / 1.6): resume, warm start
-(`train.init_from`), the in-training evaluation cadence and save_best, the
-SIGTERM checkpoint, the recorder, streaming, visualisation and the
-throughput probe.
+The port's checkpoints live under `<model_dir>/torch/`, which mirrors the
+reference's layout under `<model_dir>` (the JAX package's orbax roots hold
+nothing of the port's, because orbax scans them for step directories):
+  torch/<task>/<exp_name>/<step>.pt          step root (train/checkpoint.py)
+  torch/<task>/<exp_name>_best/<step>.pt     the metric-selected checkpoint
+  torch/<task>/<exp_name>_best_metric.json   its sidecar {value, step, metric}
+  torch/<exp_name>_<step>.npz                converted weights-only checkpoints
+                                             (tools/export_torch_params.py)
+
+Not ported yet (ROADMAP Queue 1): streaming (1.6), the panorama (1.7) and
+data parallelism (1.8).
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import re
+import signal
 import time
 
 import numpy as np
 import torch
 
 from panopticnerf_tpu_torch.config import Config
-from panopticnerf_tpu_torch.convert import load_npz, save_npz
 from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
 from panopticnerf_tpu_torch.eval import make_evaluator
 from panopticnerf_tpu_torch.models import init_params, make_network
 from panopticnerf_tpu_torch.ops.intersect import intersect_rays
+from panopticnerf_tpu_torch.ops.rays import full_image_uv, gen_rays_perspective
 from panopticnerf_tpu_torch.render import SceneBounds, render_image_rays
 from panopticnerf_tpu_torch.train import (
     eval_state_dict,
@@ -35,37 +50,66 @@ from panopticnerf_tpu_torch.train import (
     make_train_state,
     make_train_step,
 )
+from panopticnerf_tpu_torch.train.checkpoint import (
+    all_steps,
+    latest_step,
+    load_model,
+    load_network,
+    save_model,
+)
+from panopticnerf_tpu_torch.train.recorder import Recorder
+
+
+def torch_path(cfg: Config, path: str) -> str:
+    """A reference output path under `<model_dir>` (trained_model_dir,
+    best_model_dir, best_metric_path) moved under `<model_dir>/torch/`."""
+    return os.path.join(cfg.model_dir, "torch", os.path.relpath(path, cfg.model_dir))
 
 
 def checkpoint_path(cfg: Config) -> tuple[str, int]:
-    """The converted checkpoint `<model_dir>/torch/<exp_name>_<step>.npz`
-    to evaluate: step train.eval_step, or the latest when it is 0."""
-    if cfg.train.eval_step < 0:
-        raise NotImplementedError("train.eval_step -1 (best checkpoint) is not ported yet")
-    root = os.path.join(cfg.model_dir, "torch")
-    pat = re.compile(re.escape(cfg.exp_name) + r"_(\d+)\.npz$")
-    steps = sorted(int(m.group(1)) for f in (os.listdir(root) if os.path.isdir(root) else [])
-                   if (m := pat.match(f)))
-    want = cfg.train.eval_step or (steps[-1] if steps else None)
-    if want is None or want not in steps:
-        raise FileNotFoundError(
-            f"no converted checkpoint {cfg.exp_name}_{want or '<step>'}.npz under {root} "
-            f"(make one with tools/export_torch_params.py)")
-    return os.path.join(root, f"{cfg.exp_name}_{want}.npz"), want
+    """Where an evaluation reads its weights -> (a step root or a converted
+    `.npz`, step). train.eval_step -1: the best root's step; otherwise step
+    train.eval_step (0 = the latest) of the step root, or of the converted
+    `<model_dir>/torch/<exp_name>_<step>.npz` files."""
+    if cfg.train.eval_step == -1:
+        root = torch_path(cfg, cfg.best_model_dir)
+        step = latest_step(root)
+        if step is None:
+            raise FileNotFoundError(f"no best checkpoint under {root} (train.save_best)")
+        return root, step
+    root = torch_path(cfg, cfg.trained_model_dir)
+    npz_dir = os.path.join(cfg.model_dir, "torch")
+    pat = re.compile(re.escape(cfg.exp_name) + r"_(\d+)\.npz")
+    npz = {int(m.group(1)): os.path.join(npz_dir, f)
+           for f in (os.listdir(npz_dir) if os.path.isdir(npz_dir) else [])
+           if (m := pat.fullmatch(f))}
+    steps = all_steps(root)
+    want = cfg.train.eval_step or max(steps + list(npz), default=None)
+    if want in steps:
+        return root, want
+    if want in npz:
+        return npz[want], want
+    raise FileNotFoundError(
+        f"no checkpoint of step {want or '<latest>'} under {root}, nor a converted "
+        f"{cfg.exp_name}_{want or '<step>'}.npz under {npz_dir} "
+        f"(train one, or convert one with tools/export_torch_params.py)")
 
 
 def _restore_for_eval(cfg: Config, device: torch.device | str):
     ds, _, test_ids = make_dataset(cfg, device)
     model = make_network(cfg, device)
     path, step = checkpoint_path(cfg)
-    model.load_state_dict(load_npz(path))  # strict: topology must match
+    params, _ = load_network(model.state_dict(), path, step,  # strict: topology must match
+                             prefer_ema=cfg.train.ema_decay > 0)
+    model.load_state_dict(params)
     model.eval()
     return ds, test_ids, model, step
 
 
 def _intersect_and_render(cfg: Config, model, o, d, prims, bounds):
     """Interval intersection (the CUDA kernel on a CUDA device), then the
-    tiled full-image render."""
+    tiled full-image render. Every full-image render goes through here:
+    evaluated views and trajectory frames."""
     iv = None
     if cfg.render.use_primitives:
         iv = intersect_rays(o, d, prims, cfg.render.near, cfg.render.far,
@@ -83,6 +127,29 @@ def _render_view(cfg: Config, model, ds, view: int):
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _truth(ds, view: int, photo: bool = True) -> dict:
+    """The evaluator's ground truth of one view as flat host arrays: labels
+    and the valid mask always, rgb and depth when `photo`."""
+    flat = lambda t: t[view].reshape(-1).cpu().numpy() if t is not None else None
+    return dict(
+        gt_rgb=(ds.images[view].reshape(-1, 3).cpu().numpy().astype(np.float32) / 255.0
+                if photo else None),
+        gt_sem=flat(ds.gt_sem), gt_inst=flat(ds.gt_inst), valid=flat(ds.valid_mask),
+        gt_depth=flat(ds.depth) if photo else None)
+
+
+@torch.no_grad()
+def evaluate_views(cfg: Config, model, ds, view_ids) -> dict:
+    """Render `view_ids` with `model` and score them (every metric on every
+    view): the in-training evaluation."""
+    ev = make_evaluator(cfg)
+    hw = tuple(ds.images.shape[1:3])
+    for view in view_ids:
+        out = _render_view(cfg, model, ds, int(view))
+        ev.evaluate(out, image_hw=hw, **_truth(ds, int(view)))
+    return ev.summarize()
 
 
 def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
@@ -105,13 +172,7 @@ def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
         out = _render_view(cfg, model, ds, view)
         _sync(device)
         seconds.append(time.perf_counter() - t0)
-        gt_rgb = (ds.images[view].reshape(-1, 3).cpu().numpy().astype(np.float32) / 255.0
-                  if view in psnr_views else None)
-        gt_depth = (ds.depth[view].reshape(-1).cpu().numpy()
-                    if view in psnr_views else None)
-        ev.evaluate(out, gt_rgb, ds.gt_sem[view].reshape(-1).cpu().numpy(),
-                    ds.gt_inst[view].reshape(-1).cpu().numpy(),
-                    gt_depth=gt_depth, image_hw=hw)
+        ev.evaluate(out, image_hw=hw, **_truth(ds, view, photo=view in psnr_views))
         log(f"view {view}: rendered in {seconds[-1]:.3f} s")
     res = ev.summarize()
     names = None
@@ -125,50 +186,251 @@ def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
     return res
 
 
-def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = None,
-              log=print) -> dict:
-    """Train from `init_params` (seed train.seed) for `max_steps` steps
-    (default train.epochs * train.ep_iter), then write the params (the EMA
-    when tracked) to `<model_dir>/torch/<exp_name>_<steps>.npz`.
-
-    Returns `state`, `losses` (every step's loss_total, read back once at
-    the end), `windows` ((steps, seconds) between log readbacks, host clock
-    through the readback's synchronisation), `metrics` (the last log
-    line's stats), `checkpoint` and `steps`.
-    """
-    dev = torch.device(device)
-    ds, train_ids, _ = make_dataset(cfg, dev)
+def _build(cfg: Config, dev: torch.device):
+    ds, train_ids, test_ids = make_dataset(cfg, dev)
     model = make_network(cfg, dev)
     init_params(model, torch.Generator(dev).manual_seed(cfg.train.seed))
-    state = make_train_state(cfg, model)
+    return ds, train_ids, test_ids, model, make_train_state(cfg, model)
+
+
+def _selection_metric(res: dict):
+    """save_best's metric: (mIoU + PQ) / 2 when instances are scored, else
+    mIoU, else PSNR -> (value | None, kind)."""
+    if "miou" in res and "pq" in res:
+        return 0.5 * (float(res["miou"]) + float(res["pq"])), "miou_pq_mean"
+    if "miou" in res:
+        return float(res["miou"]), "miou"
+    return res.get("psnr"), "psnr"
+
+
+def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = None,
+              log=print) -> dict:
+    """Train for `max_steps` steps (default train.epochs * train.ep_iter),
+    from `init_params` (seed train.seed), a warm start or a resumed
+    checkpoint; the reference's train_net.py.
+
+    Returns `state`, `losses` (loss_total of every step this call ran,
+    read back once at the end), `windows` ((steps, seconds) between log
+    readbacks, host clock through the readback's synchronisation; saves
+    and evaluations fall into the window after them), `metrics` (the last
+    log line's stats), `evals` ((step, seconds, summary) of each in-training
+    evaluation), `checkpoint` (the last step save), `steps` (the step
+    reached) and `preempted`.
+    """
+    dev = torch.device(device)
+    ds, train_ids, test_ids, model, state = _build(cfg, dev)
     step_fn = make_train_step(cfg, model)
     view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
     generator = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
     tc = cfg.train
     total = max_steps if max_steps is not None else tc.epochs * tc.ep_iter
+    ckpt_dir = torch_path(cfg, cfg.trained_model_dir)
+    best_dir = torch_path(cfg, cfg.best_model_dir)
+    best_meta_path = torch_path(cfg, cfg.best_metric_path)
 
-    losses, windows, metrics = [], [], {}
-    _sync(dev)
-    t0, s0 = time.perf_counter(), 0
-    for step in range(total):
+    start = 0
+    if tc.init_from:
+        # partial merge: a narrower pretrained field warm-starts a wider
+        # model; unmatched parameters keep their fresh init
+        params, init_step = load_network(model.state_dict(), tc.init_from, strict=False)
+        model.load_state_dict(params)
+        if state.ema is not None:  # an average anchored at the fresh init would drag evals
+            state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        log(f"warm-started params from {tc.init_from} (step {init_step})")
+    if tc.resume:
+        _, restored = load_model(state, ckpt_dir, generator=generator)
+        if restored is not None:
+            start = restored
+            log(f"resumed from step {start}")
+
+    # The best value survives preemption through the sidecar: otherwise the
+    # first evaluation after a resume (> -inf) would replace the true best.
+    best_val, best_kind = -np.inf, None
+    if tc.resume and os.path.exists(best_meta_path):
+        with open(best_meta_path) as f:
+            meta = json.load(f)
+        best_val = float(meta["value"])
+        # a sidecar without a metric name was written by single-metric
+        # (mIoU or PSNR) selection, never by the (mIoU + PQ) / 2 mean
+        best_kind = meta.get("metric", "legacy")
+        log(f"best-metric state restored: {best_val:.4f} ({best_kind})")
+
+    eval_view_ids = test_ids if tc.eval_views <= 0 else test_ids[:tc.eval_views]
+    eval_model = None
+    preempted = [False]
+
+    def _on_term(signum, frame):
+        preempted[0] = True
+
+    losses, windows, metrics, evals = [], [], {}, []
+    saved, saved_step = None, None
+
+    def result(step: int, was_preempted: bool) -> dict:
+        return {"state": state,
+                "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
+                "windows": windows, "metrics": metrics, "evals": evals, "checkpoint": saved,
+                "steps": step, "preempted": was_preempted}
+
+    prev_handler = signal.signal(signal.SIGTERM, _on_term)
+    try:
+        with contextlib.closing(Recorder(cfg.record_path)) as recorder:
+            _sync(dev)
+            t0, s0 = time.perf_counter(), start
+            for step in range(start, total):
+                if preempted[0]:
+                    log(f"SIGTERM received: checkpointing at step {step} and exiting")
+                    saved = save_model(state, ckpt_dir, step, generator)
+                    return result(step, True)
+                stats = step_fn(state, ds, view_ids, generator)
+                losses.append(stats["loss_total"])
+                if (step + 1) % tc.log_interval == 0 or step + 1 == total:
+                    names = sorted(stats)  # one readback of every stat
+                    vals = torch.stack([stats[k].float() for k in names]).cpu().numpy()
+                    dt = time.perf_counter() - t0
+                    windows.append((step + 1 - s0, dt))
+                    metrics = dict(zip(names, vals.tolist()))
+                    metrics["rays_per_sec"] = (step + 1 - s0) * cfg.data.n_rays / dt
+                    recorder.update(metrics, step=step + 1)
+                    log(f"step {step + 1}/{total}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                                zip(names, vals.tolist()))
+                        + f", lr {lr_at(cfg, step):.3e}, {metrics['rays_per_sec']:.0f} rays/s, "
+                        f"{1000.0 * dt / (step + 1 - s0):.2f} ms/step")
+                    t0, s0 = time.perf_counter(), step + 1
+                if (step + 1) % tc.record_interval == 0:
+                    recorder.record("train")
+                    log(recorder.log_line((step + 1) // tc.ep_iter, tc.epochs, lr_at(cfg, step)))
+                if (step + 1) % (tc.save_ep * tc.ep_iter) == 0 or step + 1 == total:
+                    saved, saved_step = save_model(state, ckpt_dir, step + 1, generator), step + 1
+                if (step + 1) % (tc.eval_ep * tc.ep_iter) == 0:
+                    # one evaluation copy of the network, loaded with the EMA
+                    # weights when tracked; the training module is left alone
+                    if eval_model is None:
+                        eval_model = make_network(cfg, dev).eval()
+                    eval_model.load_state_dict(eval_state_dict(state))
+                    _sync(dev)
+                    te = time.perf_counter()
+                    res = evaluate_views(cfg, eval_model, ds, eval_view_ids)
+                    evals.append((step + 1, time.perf_counter() - te, res))
+                    log(f"eval@{step + 1}: " + ", ".join(
+                        f"{k}={v:.3f}" for k, v in res.items() if np.isscalar(v)))
+                    val, kind = _selection_metric(res)
+                    if best_kind == "legacy" and kind != "miou_pq_mean":
+                        # single-metric values stay comparable; against the mean
+                        # an old mIoU-only value would win forever (PQ <= mIoU),
+                        # so that case resets below
+                        best_kind = kind
+                    if best_kind is not None and kind != best_kind:
+                        log(f"best-metric sidecar used {best_kind!r}, this run selects on "
+                            f"{kind!r} — resetting best state")
+                        best_val = -np.inf
+                    best_kind = kind
+                    if tc.save_best and val is not None and float(val) > best_val:
+                        best_val = float(val)
+                        save_model(state, best_dir, step + 1, generator, max_to_keep=1)
+                        with open(best_meta_path, "w") as f:
+                            json.dump({"value": best_val, "step": step + 1, "metric": kind}, f)
+                        log(f"new best eval metric {best_val:.4f} -> saved best@{step + 1}")
+            if saved_step != total:
+                saved = save_model(state, ckpt_dir, total, generator)
+    finally:
+        # restore the caller's handler: a stale one would swallow a later SIGTERM
+        signal.signal(signal.SIGTERM, prev_handler)
+    return result(total, False)
+
+
+def _trajectory_poses(ds, n_frames: int):
+    """A smooth camera path through the perspective training poses:
+    translation lerp, rotation chord-lerp re-orthonormalised by SVD (slerp
+    for the small angles between frames of a driving sequence).
+    Returns [(c2w (3, 4) float32, nearest view id), ...]."""
+    c2w = ds.c2w.detach().cpu().numpy().astype(np.float64)
+    ids = np.arange(c2w.shape[0])
+    if ds.cam_model is not None:  # pinhole views only (fisheye poses jump)
+        keep = ds.cam_model.cpu().numpy() == 0
+        c2w, ids = c2w[keep], ids[keep]
+    if c2w.shape[0] < 2:
+        raise ValueError("trajectory rendering needs >= 2 perspective views")
+    out = []
+    for t in np.linspace(0.0, c2w.shape[0] - 1.0, n_frames):
+        i = min(int(np.floor(t)), c2w.shape[0] - 2)
+        a = t - i
+        R = (1 - a) * c2w[i, :, :3] + a * c2w[i + 1, :, :3]
+        u, _, vt = np.linalg.svd(R)
+        R = u @ vt
+        if np.linalg.det(R) < 0:
+            R = u @ np.diag([1.0, 1.0, -1.0]) @ vt
+        tr = (1 - a) * c2w[i, :, 3] + a * c2w[i + 1, :, 3]
+        pose = np.concatenate([R, tr[:, None]], axis=1).astype(np.float32)
+        out.append((pose, int(ids[int(round(t))])))
+    return out
+
+
+def render_trajectory(cfg: Config, model, ds, n_frames: int):
+    """Render novel interpolated poses (the reference's demo-video path):
+    rays regenerated for each pose, with the intrinsics and the primitive
+    table of the nearest training view. Yields (frame, nearest view,
+    RenderOut)."""
+    h, w = ds.images.shape[1:3]
+    dev = ds.images.device
+    uv = full_image_uv(h, w, dev) + 0.5
+    bounds = SceneBounds(ds.bounds_center, ds.bounds_scale)
+    for i, (pose, near_view) in enumerate(_trajectory_poses(ds, n_frames)):
+        o, d = gen_rays_perspective(uv, ds.K[near_view], torch.from_numpy(pose).to(dev))
+        prims = view_primitives(ds, near_view) if cfg.render.use_primitives else None
+        yield i, near_view, _intersect_and_render(cfg, model, o, d, prims, bounds)
+
+
+def run_visualize(cfg: Config, device: torch.device | str, log=print,
+                  panorama_hw: tuple | None = None, trajectory: int = 0) -> list:
+    """Images (rgb, depth, semantic, panoptic) and label maps of every test
+    view, then `trajectory` novel-pose frames (ids from 2,000,000), then
+    videos where imageio is present. Returns the files written."""
+    if panorama_hw is not None:
+        raise NotImplementedError(
+            "--panorama (render_panorama, 360-degree label transfer) is not ported yet: "
+            "ROADMAP 1.7")
+    from panopticnerf_tpu_torch.viz import Visualizer
+
+    ds, test_ids, model, _ = _restore_for_eval(cfg, device)
+    viz = Visualizer(cfg)
+    ev = make_evaluator(cfg)
+    hw = tuple(ds.images.shape[1:3])
+    written = []
+    for view in test_ids:
+        out = _render_view(cfg, model, ds, int(view))
+        sem, inst = ev.evaluate(out)
+        written += viz.write_view(int(view), out, hw, sem=sem, inst=inst)
+        if sem is not None and inst is not None:
+            written += viz.write_label_transfer(int(view), sem, inst, hw)
+    if trajectory > 0:
+        for i, _, out in render_trajectory(cfg, model, ds, trajectory):
+            sem_t, inst_t = ev.evaluate(out)
+            written += viz.write_view(2_000_000 + i, out, hw, sem=sem_t, inst=inst_t)
+        log(f"trajectory: rendered {trajectory} interpolated poses")
+    for suffix, name in (("_rgb.png", "rgb.mp4"), ("_semantic.png", "semantic.mp4"),
+                         ("_panoptic.png", "panoptic.mp4")):
+        video = viz.write_video(suffix, name)
+        if video:
+            written.append(video)
+    log(f"wrote {len(written)} files under {cfg.result_path}")
+    return written
+
+
+def run_network(cfg: Config, device: torch.device | str, iters: int = 50, log=print) -> dict:
+    """Throughput probe of the training step (the reference's run.py --type
+    network): one warm-up step, `iters` steps, one synchronisation."""
+    dev = torch.device(device)
+    ds, train_ids, _, model, state = _build(cfg, dev)
+    step_fn = make_train_step(cfg, model)
+    view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
+    generator = torch.Generator(dev).manual_seed(0)
+    float(step_fn(state, ds, view_ids, generator)["loss_total"])  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(iters):
         stats = step_fn(state, ds, view_ids, generator)
-        losses.append(stats["loss_total"])
-        if (step + 1) % tc.log_interval == 0 or step + 1 == total:
-            names = sorted(stats)
-            vals = torch.stack([stats[k].float() for k in names]).cpu().numpy()  # one readback
-            dt = time.perf_counter() - t0
-            windows.append((step + 1 - s0, dt))
-            metrics = dict(zip(names, vals.tolist()))
-            metrics["rays_per_sec"] = (step + 1 - s0) * cfg.data.n_rays / dt
-            log(f"step {step + 1}/{total}: " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                                        zip(names, vals.tolist()))
-                + f", lr {lr_at(cfg, step):.3e}, {metrics['rays_per_sec']:.0f} rays/s, "
-                f"{1000.0 * dt / (step + 1 - s0):.2f} ms/step")
-            t0, s0 = time.perf_counter(), step + 1
-    root = os.path.join(cfg.model_dir, "torch")
-    os.makedirs(root, exist_ok=True)
-    path = os.path.join(root, f"{cfg.exp_name}_{total}.npz")
-    save_npz(path, eval_state_dict(state))
-    log(f"wrote {path}")
-    return {"state": state, "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
-            "windows": windows, "metrics": metrics, "checkpoint": path, "steps": total}
+    float(stats["loss_total"])  # the one synchronisation
+    dt = time.perf_counter() - t0
+    rays_per_sec = cfg.data.n_rays * iters / dt
+    log(f"train-step throughput: {iters} iters in {dt:.2f}s -> "
+        f"{rays_per_sec:,.0f} rays/s ({iters / dt:.1f} it/s)")
+    return {"rays_per_sec": rays_per_sec, "iters_per_sec": iters / dt}

@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 
 from panopticnerf_tpu_torch.eval import metrics
-from panopticnerf_tpu_torch.eval.panoptic import fuse_panoptic
+from panopticnerf_tpu_torch.eval.panoptic import check_sky_rule, fuse_panoptic
 
 
 def _np(t):
@@ -27,6 +27,7 @@ class Evaluator:
                  sky_rule: str = "off", sky_class: int = 0, sky_eps: float = 1e-4):
         if fusion_rule not in ("match", "raw"):
             raise ValueError(f"unknown eval.fusion_rule {fusion_rule!r}")
+        check_sky_rule(sky_rule)
         self.num_classes = num_classes
         self.things = np.asarray(things, bool)
         self.ignore = ignore

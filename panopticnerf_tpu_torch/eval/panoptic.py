@@ -7,7 +7,14 @@
             matches sem(p) ("match" rule; inst_sem=None gives the raw argmax),
             if sem(p) is a thing class and the ray has primitive mass; else 0.
 
-Only `sky_rule="off"` (the default) is ported so far.
+`sky_rule` (eval.sky_rule) uses the fact that the 3D annotation covers
+every non-sky surface: "empty" labels a ray with no composited fixed mass
+`sky_class`; "support" also zeroes the probability of every class without
+fixed support on that ray (sky always kept); "soft:<w>" (w in [0, 1],
+default 0.5) scales unsupported classes by (1 - w) and blends empty rays
+toward the sky one-hot with weight w, pinning nothing. "off" is the plain
+fusion. The reference treats any other string as "empty"; the port raises
+ValueError for it.
 """
 
 from __future__ import annotations
@@ -16,6 +23,22 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+def check_sky_rule(sky_rule: str) -> Optional[float]:
+    """Validate eval.sky_rule; returns the blend weight w of "soft[:w]"
+    (None for the other rules)."""
+    if sky_rule in ("off", "empty", "support"):
+        return None
+    if sky_rule == "soft":
+        return 0.5
+    if sky_rule.startswith("soft:"):
+        try:
+            return float(sky_rule[5:])
+        except ValueError:
+            pass
+    raise ValueError(f"unknown eval.sky_rule {sky_rule!r}: "
+                     f"one of off, empty, support, soft[:w]")
 
 
 def fuse_panoptic(
@@ -33,8 +56,7 @@ def fuse_panoptic(
     """Returns (sem (N,), inst (N,)) int32 tensors on the input's device."""
     if sem_logits is None and sem_fixed is None:
         raise ValueError("fuse_panoptic needs sem_logits or sem_fixed")
-    if sky_rule != "off":
-        raise NotImplementedError(f"eval.sky_rule {sky_rule!r} is not ported yet")
+    soft_w = check_sky_rule(sky_rule)
     probs = None
     if sem_logits is not None:
         mx = sem_logits.amax(-1, keepdim=True)
@@ -49,7 +71,23 @@ def fuse_panoptic(
         elif fixed_blend > 0:
             probs = torch.where(has_fixed, (1 - fixed_blend) * probs + fixed_blend * fixed,
                                 probs)
+    empty = None
+    if sem_fixed is not None and sky_rule != "off" and sky_class is not None:
+        empty = sem_fixed.sum(-1) <= empty_eps
+        sky_onehot = torch.arange(sem_fixed.shape[-1], device=sem_fixed.device) == sky_class
+        supported = (sem_fixed > empty_eps) | sky_onehot
+        if sky_rule == "support":
+            probs = torch.where(supported, probs, 0.0)
+        elif soft_w is not None:
+            demoted = torch.where(supported, probs, (1.0 - soft_w) * probs)
+            toward_sky = (1.0 - soft_w) * probs + soft_w * torch.where(sky_onehot, 1.0, 0.0)
+            probs = torch.where(empty[:, None], toward_sky, demoted)
+            empty = None  # the blend decides empty rays; no hard pin
     sem = torch.argmax(probs, dim=-1).to(torch.int32)
+    if empty is not None:
+        # with "support" an empty ray keeps only the sky column; should its
+        # probability be exactly 0, argmax would fall back to class 0
+        sem = torch.where(empty, sky_class, sem).to(torch.int32)
 
     things_t = torch.as_tensor(np.asarray(things, bool), device=sem.device)
     is_thing = things_t[torch.clamp(sem, 0, things_t.shape[0] - 1).long()]

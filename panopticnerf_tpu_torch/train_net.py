@@ -3,10 +3,13 @@
     python -m panopticnerf_tpu_torch.train_net \\
         --cfg_file configs/synthetic_flagship.yaml [KEY VALUE ...]
 
-Trains from a seeded init and writes `<model_dir>/torch/<exp_name>_<step>.npz`,
-which `python -m panopticnerf_tpu_torch.run --type evaluate` reads. Runs on
-the first CUDA device by default; `--device cpu` runs the plain versions of
-the kernels instead. `--max_steps` overrides train.epochs * train.ep_iter.
+Trains from a seeded init (or `train.init_from`, or the latest checkpoint
+with `train.resume`, the default) and writes checkpoints under
+`<model_dir>/torch/<task>/<exp_name>/`, which `python -m
+panopticnerf_tpu_torch.run --type evaluate` reads. SIGTERM checkpoints at
+the next step boundary and exits with code 0. Runs on the first CUDA device
+by default; `--device cpu` runs the plain versions of the kernels instead.
+`--max_steps` overrides train.epochs * train.ep_iter.
 """
 
 import argparse

@@ -23,6 +23,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import panopticnerf_tpu_torch.ops.mlp_train, panopticnerf_tpu_torch.ops.mlp_train_cuda\n"
         "import panopticnerf_tpu_torch.ops.field_train, panopticnerf_tpu_torch.ops.field_train_cuda\n"
         "import panopticnerf_tpu_torch.models.fused_apply\n"
+        "import panopticnerf_tpu_torch.train.checkpoint, panopticnerf_tpu_torch.train.recorder\n"
+        "import panopticnerf_tpu_torch.viz, panopticnerf_tpu_torch.viz.png\n"
         "import chip_smoke\n"
         # chip_smoke imports the port inside main(); load what it loads
         "from panopticnerf_tpu_torch import engine, convert\n"

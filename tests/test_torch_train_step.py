@@ -85,16 +85,19 @@ def test_train_step_matches_jax(use_pallas, mode):
 
 def test_run_train_cli_then_evaluate(tmp_path):
     """`python -m panopticnerf_tpu_torch.train_net` for 3 steps on the CPU
-    writes `<model_dir>/torch/<exp_name>_3.npz`; the evaluation CLI reads it
-    and scores finite metrics. The per-step losses come back finite, and
-    the same seed gives the same run."""
+    writes `<model_dir>/torch/<task>/<exp_name>/3.pt`; the evaluation CLI
+    reads it and scores finite metrics. The per-step losses come back
+    finite, and the same seed gives the same run (train.resume off, so the
+    second run starts afresh)."""
     opts = STEP + ["model.use_pallas", "true", "train.log_interval", "2",
-                   "model_dir", str(tmp_path)]
+                   "train.resume", "false", "model_dir", str(tmp_path),
+                   "record_dir", str(tmp_path / "record")]
     logs = []
     res = engine.run_train(load_config(None, opts), "cpu", max_steps=3, log=logs.append)
     assert res["steps"] == 3 and len(res["losses"]) == 3
     assert np.isfinite(res["losses"]).all()
-    assert os.path.exists(tmp_path / "torch" / "default_3.npz")
+    assert res["checkpoint"] == str(tmp_path / "torch" / "panopticnerf" / "default" / "3.pt")
+    assert os.path.exists(res["checkpoint"]) and not res["preempted"]
     assert sum(line.startswith("step ") for line in logs) == 2    # steps 2 and 3
     again = train_net.main(["--device", "cpu", "--max_steps", "3", *opts])
     np.testing.assert_array_equal(again["losses"], res["losses"])

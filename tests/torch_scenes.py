@@ -1,6 +1,6 @@
 """Seeded random scenes for the port's intersection tests (numpy only, so
 that the card-only tests, which must run where JAX is absent, share them
-with the JAX parity tests)."""
+with the JAX parity tests), and the overrides of a tiny engine run."""
 
 import numpy as np
 
@@ -47,3 +47,25 @@ def random_rays(rng, n, centers, n_zero=0, n_away=0):
     if n_zero:
         d[-n_zero:] = 0.0
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def engine_opts(root, exp_name="enginetest", **train):
+    """KEY VALUE overrides of a tiny engine run (16x24, 6 views, a 2x16
+    field in float32, 64 rays) writing under `root`; `train` overrides
+    train.* keys (ep_iter 5; no saves, evaluations, recorder lines or
+    resume by default).
+    Both packages' `load_config(None, opts)` read them."""
+    t = dict(lr="5e-3", max_steps="100", ep_iter="5", log_interval="5",
+             record_interval="1000", save_ep="1000", eval_ep="1000", resume="false")
+    t.update({k: str(v) for k, v in train.items()})
+    return [
+        "exp_name", exp_name, "model_dir", f"{root}/models", "record_dir", f"{root}/records",
+        "result_dir", f"{root}/results",
+        "data.synthetic_image_hw", "16,24", "data.synthetic_num_frames", "6",
+        "data.synthetic_num_boxes", "3", "data.n_rays", "64", "data.views_per_batch", "4",
+        "data.max_primitives", "4", "data.max_intervals", "2", "data.test_every", "3",
+        "model.trunk_depth", "2", "model.trunk_width", "16", "model.color_width", "8",
+        "model.num_classes", "4", "model.compute_dtype", "float32", "model.use_pallas", "true",
+        "render.n_samples", "8", "render.n_importance", "8", "render.near", "0.5",
+        "render.far", "40.0", "render.use_primitives", "true", "render.ray_tile", "128",
+    ] + [x for k, v in t.items() for x in (f"train.{k}", v)]
