@@ -764,7 +764,8 @@ def engine_phase(dev, engine, run):
         res = engine.run_train(cfg, dev, max_steps=ENGINE_STEPS, log=lambda *a: None)
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
-        steps = all_steps(engine.torch_path(cfg, cfg.trained_model_dir))
+        roots = engine.port_roots(cfg)
+        steps = all_steps(roots.steps)
         print(f"engine (a): run_train of {ENGINE_STEPS} steps with saves and in-training "
               f"evaluations in {wall:.2f} s; step checkpoints {steps}; launches {launches}")
         check(steps == [100, 200], f"step checkpoints {steps}, expected [100, 200]")
@@ -791,7 +792,7 @@ def engine_phase(dev, engine, run):
         print(f"  one save_model of the training state alone: "
               f"{1000.0 * (time.perf_counter() - t0):.1f} ms, "
               f"{os.path.getsize(path) / 2**20:.1f} MiB")
-        with open(engine.torch_path(cfg, cfg.best_metric_path)) as fh:
+        with open(roots.best_metric) as fh:
             meta = json.load(fh)
         print(f"  best sidecar {meta}")
         check(meta["metric"] == "miou_pq_mean", f"sidecar metric {meta['metric']!r}")
@@ -841,7 +842,10 @@ def engine_phase(dev, engine, run):
         net = run.main(["--type", "network", "--cfg_file", CFG_FILE, "--device", str(dev),
                         *opts("a")])
         print(f"engine (c): run --type network: {net['rays_per_sec']:.0f} rays/s, "
-              f"{net['iters_per_sec']:.2f} it/s (50 steps of {cfg.data.n_rays} rays); {card}")
+              f"{1000.0 / net['iters_per_sec']:.3f} ms/step ({engine.NETWORK_ITERS} steps of "
+              f"{cfg.data.n_rays} rays after {tc.log_interval} warm-up steps), against a median "
+              f"{np.median(plain):.3f} ms/step of (a)'s windows without a save or an "
+              f"evaluation; {card}")
         zero()
         files = run.main(["--type", "visualize", "--trajectory", "4", "--cfg_file", CFG_FILE,
                           "--device", str(dev), *opts("a")])

@@ -12,14 +12,7 @@ renders every evaluated view (intersection kernel, then the tiled render)
 and scores PSNR / mIoU / PQ; `run_visualize` writes images, label maps and
 a novel-pose trajectory; `run_network` times the training step.
 
-The port's checkpoints live under `<model_dir>/torch/`, which mirrors the
-reference's layout under `<model_dir>` (the JAX package's orbax roots hold
-nothing of the port's, because orbax scans them for step directories):
-  torch/<task>/<exp_name>/<step>.pt          step root (train/checkpoint.py)
-  torch/<task>/<exp_name>_best/<step>.pt     the metric-selected checkpoint
-  torch/<task>/<exp_name>_best_metric.json   its sidecar {value, step, metric}
-  torch/<exp_name>_<step>.npz                converted weights-only checkpoints
-                                             (tools/export_torch_params.py)
+The port's checkpoints live under `<model_dir>/torch/` (`port_roots`).
 
 Not ported yet (ROADMAP Queue 1): streaming (1.6), the panorama (1.7) and
 data parallelism (1.8).
@@ -33,6 +26,7 @@ import os
 import re
 import signal
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,10 +54,24 @@ from panopticnerf_tpu_torch.train.checkpoint import (
 from panopticnerf_tpu_torch.train.recorder import Recorder
 
 
-def torch_path(cfg: Config, path: str) -> str:
-    """A reference output path under `<model_dir>` (trained_model_dir,
-    best_model_dir, best_metric_path) moved under `<model_dir>/torch/`."""
-    return os.path.join(cfg.model_dir, "torch", os.path.relpath(path, cfg.model_dir))
+class PortRoots(NamedTuple):
+    """Where the port keeps its checkpoints: the reference's layout under
+    `<model_dir>`, moved under `<model_dir>/torch/`. The JAX package's
+    orbax roots hold nothing of the port's, because orbax scans them for
+    step directories, so no port code uses `cfg.trained_model_dir`,
+    `cfg.best_model_dir` or `cfg.best_metric_path` bare."""
+    steps: str        # torch/<task>/<exp_name>/<step>.pt (train/checkpoint.py)
+    best: str         # torch/<task>/<exp_name>_best/<step>.pt, the metric-selected one
+    best_metric: str  # torch/<task>/<exp_name>_best_metric.json {value, step, metric}
+    converted: str    # torch/, holding weights-only <exp_name>_<step>.npz
+    #                   (tools/export_torch_params.py)
+
+
+def port_roots(cfg: Config) -> PortRoots:
+    base = os.path.join(cfg.model_dir, "torch")
+    under = lambda path: os.path.join(base, os.path.relpath(path, cfg.model_dir))
+    return PortRoots(under(cfg.trained_model_dir), under(cfg.best_model_dir),
+                     under(cfg.best_metric_path), base)
 
 
 def checkpoint_path(cfg: Config) -> tuple[str, int]:
@@ -71,14 +79,13 @@ def checkpoint_path(cfg: Config) -> tuple[str, int]:
     `.npz`, step). train.eval_step -1: the best root's step; otherwise step
     train.eval_step (0 = the latest) of the step root, or of the converted
     `<model_dir>/torch/<exp_name>_<step>.npz` files."""
+    roots = port_roots(cfg)
     if cfg.train.eval_step == -1:
-        root = torch_path(cfg, cfg.best_model_dir)
-        step = latest_step(root)
+        step = latest_step(roots.best)
         if step is None:
-            raise FileNotFoundError(f"no best checkpoint under {root} (train.save_best)")
-        return root, step
-    root = torch_path(cfg, cfg.trained_model_dir)
-    npz_dir = os.path.join(cfg.model_dir, "torch")
+            raise FileNotFoundError(f"no best checkpoint under {roots.best} (train.save_best)")
+        return roots.best, step
+    root, npz_dir = roots.steps, roots.converted
     pat = re.compile(re.escape(cfg.exp_name) + r"_(\d+)\.npz")
     npz = {int(m.group(1)): os.path.join(npz_dir, f)
            for f in (os.listdir(npz_dir) if os.path.isdir(npz_dir) else [])
@@ -224,9 +231,15 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     generator = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
     tc = cfg.train
     total = max_steps if max_steps is not None else tc.epochs * tc.ep_iter
-    ckpt_dir = torch_path(cfg, cfg.trained_model_dir)
-    best_dir = torch_path(cfg, cfg.best_model_dir)
-    best_meta_path = torch_path(cfg, cfg.best_metric_path)
+    ckpt_dir, best_dir, best_meta_path, _ = port_roots(cfg)
+    losses, windows, metrics, evals = [], [], {}, []
+    saved, saved_step = None, None
+
+    def result(step: int, was_preempted: bool) -> dict:
+        return {"state": state,
+                "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
+                "windows": windows, "metrics": metrics, "evals": evals, "checkpoint": saved,
+                "steps": step, "preempted": was_preempted}
 
     start = 0
     if tc.init_from:
@@ -242,6 +255,8 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
         if restored is not None:
             start = restored
             log(f"resumed from step {start}")
+            if start >= total:  # nothing to train, and no <total>.pt holding a later step
+                return result(start, False)
 
     # The best value survives preemption through the sidecar: otherwise the
     # first evaluation after a resume (> -inf) would replace the true best.
@@ -261,15 +276,6 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
 
     def _on_term(signum, frame):
         preempted[0] = True
-
-    losses, windows, metrics, evals = [], [], {}, []
-    saved, saved_step = None, None
-
-    def result(step: int, was_preempted: bool) -> dict:
-        return {"state": state,
-                "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
-                "windows": windows, "metrics": metrics, "evals": evals, "checkpoint": saved,
-                "steps": step, "preempted": was_preempted}
 
     prev_handler = signal.signal(signal.SIGTERM, _on_term)
     try:
@@ -416,21 +422,29 @@ def run_visualize(cfg: Config, device: torch.device | str, log=print,
     return written
 
 
-def run_network(cfg: Config, device: torch.device | str, iters: int = 50, log=print) -> dict:
+NETWORK_ITERS = 50  # timed steps of run_network, as the reference's probe
+
+
+def run_network(cfg: Config, device: torch.device | str, log=print) -> dict:
     """Throughput probe of the training step (the reference's run.py --type
-    network): one warm-up step, `iters` steps, one synchronisation."""
+    network): `train.log_interval` warm-up steps, as many as the median of
+    `run_train`'s log windows leaves out (the reference takes one, but a
+    step soon after a state is built can stall for 0.1-0.2 s on the card),
+    then NETWORK_ITERS steps and one synchronisation."""
     dev = torch.device(device)
     ds, train_ids, _, model, state = _build(cfg, dev)
     step_fn = make_train_step(cfg, model)
     view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
     generator = torch.Generator(dev).manual_seed(0)
-    float(step_fn(state, ds, view_ids, generator)["loss_total"])  # warm-up
+    for _ in range(max(cfg.train.log_interval, 1)):
+        stats = step_fn(state, ds, view_ids, generator)
+    float(stats["loss_total"])  # the warm-up's end
     t0 = time.perf_counter()
-    for _ in range(iters):
+    for _ in range(NETWORK_ITERS):
         stats = step_fn(state, ds, view_ids, generator)
     float(stats["loss_total"])  # the one synchronisation
     dt = time.perf_counter() - t0
-    rays_per_sec = cfg.data.n_rays * iters / dt
-    log(f"train-step throughput: {iters} iters in {dt:.2f}s -> "
-        f"{rays_per_sec:,.0f} rays/s ({iters / dt:.1f} it/s)")
-    return {"rays_per_sec": rays_per_sec, "iters_per_sec": iters / dt}
+    rays_per_sec = cfg.data.n_rays * NETWORK_ITERS / dt
+    log(f"train-step throughput: {NETWORK_ITERS} iters in {dt:.2f}s -> "
+        f"{rays_per_sec:,.0f} rays/s ({NETWORK_ITERS / dt:.1f} it/s)")
+    return {"rays_per_sec": rays_per_sec, "iters_per_sec": NETWORK_ITERS / dt}

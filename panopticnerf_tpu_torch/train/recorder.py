@@ -41,15 +41,15 @@ class SmoothedValue:
 
 
 class Recorder:
-    def __init__(self, record_dir: str, use_tensorboard: bool = True):
+    def __init__(self, record_dir: str):
         self.record_dir = record_dir
         self.jsonl_path = os.path.join(record_dir, "metrics.jsonl")
         os.makedirs(record_dir, exist_ok=True)
         self._jsonl = open(self.jsonl_path, "a")
         self.stats = defaultdict(SmoothedValue)
         self.step = 0
-        self._want_tb = use_tensorboard
         self._tb = None
+        self._tb_tried = False
         self._t_last = time.time()
 
     def update(self, scalars: Mapping[str, float], step: int | None = None):
@@ -59,8 +59,10 @@ class Recorder:
             self.stats[k].update(float(v))
 
     def _writer(self):
-        if self._want_tb:
-            self._want_tb = False
+        """The TensorBoard writer, made at the first call; None where
+        `torch.utils.tensorboard` does not import."""
+        if not self._tb_tried:
+            self._tb_tried = True
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:

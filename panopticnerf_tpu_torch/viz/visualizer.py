@@ -18,6 +18,8 @@ from panopticnerf_tpu_torch.config import Config
 from panopticnerf_tpu_torch.data import labels as L
 from panopticnerf_tpu_torch.viz.png import write_png
 
+VIDEO_FPS = 10
+
 
 def _np(t):
     return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
@@ -84,10 +86,10 @@ class Visualizer:
         return path
 
     def write_view(self, view: int, out, hw: tuple[int, int],
-                   sem: Optional[np.ndarray] = None, inst: Optional[np.ndarray] = None,
-                   gt_rgb: Optional[np.ndarray] = None) -> list[str]:
-        """rgb, depth, and where given semantic, panoptic and ground-truth
-        images of one flat (H*W) RenderOut."""
+                   sem: Optional[np.ndarray] = None,
+                   inst: Optional[np.ndarray] = None) -> list[str]:
+        """rgb, depth, and where given semantic and panoptic images of one
+        flat (H*W) RenderOut."""
         h, w = hw
         files = []
         rgb = (_np(out.rgb).reshape(h, w, 3).clip(0, 1) * 255).astype(np.uint8)
@@ -101,9 +103,6 @@ class Visualizer:
             files.append(self._save(f"{view:06d}_panoptic.png",
                                     self.colorize_panoptic(sem.reshape(h, w),
                                                            inst.reshape(h, w))))
-        if gt_rgb is not None:
-            files.append(self._save(f"{view:06d}_gt.png",
-                                    (gt_rgb.reshape(h, w, 3) * 255).astype(np.uint8)))
         return files
 
     def write_label_transfer(self, view: int, sem: np.ndarray, inst: np.ndarray,
@@ -118,8 +117,7 @@ class Visualizer:
         return [self._save(f"{view:06d}_labelsem.png", sem_raw.astype(np.uint8)),
                 self._save(f"{view:06d}_labelinst.png", enc.astype(np.uint16))]
 
-    def write_video(self, pattern_suffix: str = "_rgb.png", name: str = "video.mp4",
-                    fps: int = 10):
+    def write_video(self, pattern_suffix: str = "_rgb.png", name: str = "video.mp4"):
         """Assemble written frames into a video (imageio; best-effort)."""
         frames = sorted(glob.glob(os.path.join(self.out_dir, f"*{pattern_suffix}")))
         if not frames:
@@ -128,7 +126,7 @@ class Visualizer:
             import imageio.v2 as imageio
 
             path = os.path.join(self.out_dir, name)
-            with imageio.get_writer(path, fps=fps) as wtr:
+            with imageio.get_writer(path, fps=VIDEO_FPS) as wtr:
                 for f in frames:
                     wtr.append_data(imageio.imread(f))
             return path

@@ -26,19 +26,13 @@ def _train(tmp_path, steps, exp_name="enginetest", extra=(), **train):
     return cfg, res, logs
 
 
-def _roots(cfg):
-    return (engine.torch_path(cfg, cfg.trained_model_dir),
-            engine.torch_path(cfg, cfg.best_model_dir),
-            engine.torch_path(cfg, cfg.best_metric_path))
-
-
 def test_cadence_save_best_and_eval_step_best(tmp_path):
     """Saves every save_ep epochs and at the end (newest 3 kept), an
     evaluation every eval_ep epochs, the best in a sibling root with its
     sidecar, nothing inside the JAX package's orbax root; `train.eval_step
     -1` evaluates the best step."""
     cfg, res, logs = _train(tmp_path, 20, save_ep=1, eval_ep=2)
-    step_root, best_root, meta_path = _roots(cfg)
+    step_root, best_root, meta_path, _ = engine.port_roots(cfg)
     assert all_steps(step_root) == [10, 15, 20] and res["checkpoint"].endswith("20.pt")
     assert [e[0] for e in res["evals"]] == [10, 20]
     assert sum(line.startswith("eval@") for line in logs) == 2
@@ -59,7 +53,7 @@ def test_cadence_save_best_and_eval_step_best(tmp_path):
 
 def test_best_metric_survives_resume_and_legacy_sidecar_resets(tmp_path):
     cfg, _, _ = _train(tmp_path, 10, "bestresume", eval_ep=1)
-    meta_path = _roots(cfg)[2]
+    meta_path = engine.port_roots(cfg).best_metric
     kind = json.load(open(meta_path))["metric"]
     json.dump({"value": 1e9, "step": 10, "metric": kind}, open(meta_path, "w"))
     _, res, logs = _train(tmp_path, 20, "bestresume", eval_ep=1, resume="true")
@@ -103,7 +97,7 @@ def test_ema_through_engine_paths(tmp_path):
     assert ev["psnr"] == pytest.approx(want["psnr"], abs=0)
 
     _, res2, logs2 = _train(tmp_path, 3, "emawarm", ema_decay=0.9,
-                            init_from=_roots(cfg)[0])
+                            init_from=engine.port_roots(cfg).steps)
     assert any("warm-started params from" in line for line in logs2)
     s2 = res2["state"]
     for k, p in s2.model.state_dict().items():   # near the warm weights, not the fresh init
@@ -114,9 +108,10 @@ def test_warm_start_across_coarse_topology(tmp_path):
     """A full-coarse checkpoint warm-starts a proposal-coarse model: the
     fine field merges, the resized coarse trunk keeps its fresh init."""
     cfg, _, _ = _train(tmp_path, 5, "fullcoarse")
+    full = engine.port_roots(cfg).steps
     with warnings.catch_warnings(record=True) as ws:
         warnings.simplefilter("always")
-        _, res, logs = _train(tmp_path, 3, "propcoarse", init_from=_roots(cfg)[0],
+        _, res, logs = _train(tmp_path, 3, "propcoarse", init_from=full,
                               extra=["model.coarse_trunk_depth", "1",
                                      "model.coarse_trunk_width", "8"])
     assert any("warm-started" in line for line in logs)
@@ -145,6 +140,13 @@ def test_resume_equals_straight_run(tmp_path):
     for i, st in a.optimizer.state_dict()["state"].items():
         for k, v in st.items():
             assert torch.equal(v, b.optimizer.state_dict()["state"][i][k]), (i, k)
+
+    # a resume at or past the end trains nothing and saves no <max_steps>.pt
+    # holding the later step
+    cfg, done, logs = _train(tmp_path / "b", 8, resume="true", **over)
+    assert any("resumed from step 10" in line for line in logs)
+    assert done["steps"] == done["state"].step == 10 and len(done["losses"]) == 0
+    assert done["checkpoint"] is None and 8 not in all_steps(engine.port_roots(cfg).steps)
 
 
 def test_recorder_lines_every_record_interval(tmp_path):

@@ -39,14 +39,15 @@ def test_cadence_matches_jax(tmp_path):
     jax_engine.run_train(jcfg, max_steps=20, log=jlogs.append)
     engine.run_train(cfg, "cpu", max_steps=20, log=logs.append)
 
+    roots = engine.port_roots(cfg)
     jsteps = sorted(int(x) for x in os.listdir(jcfg.trained_model_dir) if x.isdigit())
-    assert all_steps(engine.torch_path(cfg, cfg.trained_model_dir)) == jsteps == [10, 20]
+    assert all_steps(roots.steps) == jsteps == [10, 20]
     evals = lambda ls: [line.split(":")[0] for line in ls if line.startswith("eval@")]
     assert evals(logs) == evals(jlogs) == ["eval@5", "eval@10", "eval@15", "eval@20"]
     jbest = [x for x in os.listdir(jcfg.best_model_dir) if x.isdigit()]
-    assert len(jbest) == len(all_steps(engine.torch_path(cfg, cfg.best_model_dir))) == 1
+    assert len(jbest) == len(all_steps(roots.best)) == 1
     jmeta = json.load(open(jcfg.best_metric_path))
-    meta = json.load(open(engine.torch_path(cfg, cfg.best_metric_path)))
+    meta = json.load(open(roots.best_metric))
     assert set(meta) == set(jmeta) and meta["metric"] == jmeta["metric"] == "miou_pq_mean"
     assert sum("saved best@" in line for line in logs) >= 1
     assert sum("saved best@" in line for line in jlogs) >= 1

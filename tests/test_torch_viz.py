@@ -85,7 +85,7 @@ class _Out(NamedTuple):
 
 @pytest.mark.parametrize("dataset,num_classes", [("synthetic", 4), ("kitti360", 19)])
 def test_visualizer_pngs_match_jax(tmp_path, dataset, num_classes):
-    """write_view (rgb, depth, semantic, panoptic, gt) and
+    """write_view (rgb, depth, semantic, panoptic) and
     write_label_transfer (8-bit ids, 16-bit sem * 1000 + inst) of the same
     maps: PIL decodes the port's files to the JAX Visualizer's pixels."""
     h, w = 6, 10
@@ -96,17 +96,16 @@ def test_visualizer_pngs_match_jax(tmp_path, dataset, num_classes):
     sem = rng.integers(0, num_classes, h * w).astype(np.int32)
     inst = np.where(rng.uniform(size=h * w) > 0.4, rng.integers(1, 3000, h * w), 0).astype(
         np.int32)
-    gt = rng.uniform(0, 1, (h * w, 3)).astype(np.float32)
     opts = ["data.dataset", dataset, "model.num_classes", str(num_classes)]
     jviz = JaxVisualizer(jax_load_config(None, opts + ["result_dir", str(tmp_path / "jax")]))
     viz = Visualizer(load_config(None, opts + ["result_dir", str(tmp_path / "port")]))
-    ref = (jviz.write_view(7, _Out(rgb, depth), (h, w), sem=sem, inst=inst, gt_rgb=gt)
+    ref = (jviz.write_view(7, _Out(rgb, depth), (h, w), sem=sem, inst=inst)
            + jviz.write_label_transfer(7, sem, inst, (h, w)))
     got = (viz.write_view(7, _Out(torch.from_numpy(rgb), torch.from_numpy(depth)), (h, w),
-                          sem=sem, inst=inst, gt_rgb=gt)
+                          sem=sem, inst=inst)
            + viz.write_label_transfer(7, sem, inst, (h, w)))
     assert [p.split("/")[-1] for p in got] == [p.split("/")[-1] for p in ref]
-    assert len(got) == 7
+    assert len(got) == 6
     for a, b in zip(ref, got):
         ia, ib = Image.open(a), Image.open(b)
         assert ia.mode == ib.mode, a
