@@ -78,12 +78,34 @@ line is printed):
      k"), resumed in this process to 200: its losses from k and its final
      parameters equal (a)'s bit for bit; (c) `run --type network` (rays/s
      beside the card's name and power limit) and `run --type visualize
-     --trajectory 4` (the files written; A1 launches = test views + 4).
+     --trajectory 4` (the files written; A1 launches = test views + 4);
+ 12. KITTI-360 on demo trees the port writes itself (`data/demo_tree.py`,
+     raycast on the card): (a) one sequence, 16 frames at KITTI-360's
+     rectified 376x1408 with 8 boxes and 2 concave buildings cut into
+     convex pieces (write time); (b) configs/kitti360_panoptic.yaml at full
+     width (8x256 fine, 4x64 coarse, ratio 0.5: 32 views of 188x704, P =
+     64, K = 16, F = 8, 2048 rays) with train.pretrain_steps 100:
+     `make_dataset` (build time, shapes, real cut planes), A1 vs plain on
+     every evaluated view's tables and A2 vs plain on 20 training batches,
+     bit for bit, with their times at these shapes; `run_train` for 200
+     steps (ms/step, finite loss, lower at the end than just after the
+     semantic losses start at step 100, one save and one in-training
+     evaluation at 200; launches A2 = 200, B = B' = 200, C = C' = 0, A1 =
+     the evaluation's views); `run_evaluate` (finite PSNR / mIoU / PQ,
+     A1 = the views with ground truth or held out); the label-transfer
+     export (16 + 16 PNGs, A1 = 16), read back by the loader as ground
+     truth bit for bit; (c) a configs/kitti360_360.yaml-shaped pool: two
+     sequences (seeds 0 and 1) of 8 frames with the left fisheye, 48 views,
+     data.stream_window 0, 50 steps of 4096 rays: the camera model of every
+     A2 group (both must occur), exact launches, and `run_evaluate` with
+     each fisheye view's valid mask.
 The last two lines are the kernels' JSON (with each kernel's bound on the
 card, computed from this run's shapes and the work of the function the TPU
 kernel computes) and `{"ok": true, "device": ...}`.
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -143,6 +165,16 @@ FIELD_REL = {"sigma": 5e-4, "sem": 8e-4, "rgb": 3e-3, "dd": 5e-4, "db": 5e-4,
 TRAIN_STEPS = {"trunk": 100, "field": 200, "hybrid": 100}
 ENGINE_STEPS = 200
 ENGINE_OPTS = ["train.ep_iter", "50", "train.save_ep", "2", "train.eval_ep", "2"]
+KITTI_CFG = os.path.join(REPO, "configs", "kitti360_panoptic.yaml")
+K360_CFG = os.path.join(REPO, "configs", "kitti360_360.yaml")
+KITTI_HW = (376, 1408)    # KITTI-360's rectified image size
+KITTI_FRAMES, KITTI_STEPS = 16, 200
+K360_FRAMES, K360_STEPS = 8, 50
+# f32 operations of one cut plane on a (ray, primitive) pair: the plane's
+# normal against the local origin and direction (two 3-term dot products),
+# the crossing depth (a subtraction and a division) and the clip (~2); an
+# estimate, like SLAB_OPS
+PLANE_OPS = 13
 
 
 def check(cond, msg):
@@ -858,6 +890,266 @@ def engine_phase(dev, engine, run):
         check(len(pngs) == 6 * len(test_ids) + 4 * 4, f"visualize wrote {len(pngs)} PNG files")
 
 
+def kitti_phase(dev, engine):
+    """12. KITTI-360 on demo trees (see the module docstring)."""
+    import shutil
+
+    from panopticnerf_tpu_torch import export_label_transfer, run, train_net
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import labels as L
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.data.dataset import batch_intervals, sample_ray_batch
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
+    from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
+    from panopticnerf_tpu_torch.train import step as step_module
+    from panopticnerf_tpu_torch.viz.png import read_png
+
+    counters = {"A1": intersect_cuda.intersect_rays_cuda,
+                "A2": intersect_cuda.intersect_groups_cuda,
+                "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
+                "C": field_train_cuda.field_forward_cuda,
+                "C'": field_train_cuda.field_backward_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def cli(main, *args):  # an entry point, its console lines kept out of this log
+        with contextlib.redirect_stdout(io.StringIO()):
+            return main([*args])
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the tree
+        t0 = time.perf_counter()
+        seq = write_demo_tree(f"{tmp}/tree", n_frames=KITTI_FRAMES, hw=KITTI_HW, n_boxes=8,
+                              seed=0, n_concave=2, frame_start=3353, device=dev)
+        res["tree_s"] = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(f"{tmp}/tree")
+                   for f in fs)
+        print(f"kitti (a): write_demo_tree {seq}, {KITTI_FRAMES} frames of {KITTI_HW[0]}x"
+              f"{KITTI_HW[1]}, stereo, 8 boxes + 2 concave buildings: {res['tree_s']:.2f} s, "
+              f"{size / 2**20:.1f} MiB")
+
+        # (b) configs/kitti360_panoptic.yaml at full width
+        opts = ["data.root", f"{tmp}/tree", "data.frame_num", str(KITTI_FRAMES),
+                "train.pretrain_steps", "100", "train.ep_iter", "100", "train.save_ep", "2",
+                "train.eval_ep", "2", "model_dir", f"{tmp}/m", "record_dir", f"{tmp}/rec",
+                "result_dir", f"{tmp}/res"]
+        cfg = load_config(KITTI_CFG, opts)
+        args = ["--cfg_file", KITTI_CFG, "--device", str(dev), *opts]
+        near, far, k = cfg.render.near, cfg.render.far, cfg.data.max_intervals
+        g, n = cfg.data.views_per_batch, cfg.data.n_rays
+        t0 = time.perf_counter()
+        ds, train_ids, test_ids = make_dataset(cfg, dev)
+        torch.cuda.synchronize()
+        res["build_s"] = time.perf_counter() - t0
+        check(ds.prim_planes is not None, "the demo tree's concave buildings gave no cut planes")
+        f = ds.prim_planes.shape[2]
+        n_real = int(((ds.prim_planes[..., :3] != 0).any(-1).any(-1) & ds.prim_valid).sum())
+        n_valid = ds.prim_valid.sum(1)
+        print(f"kitti (b): make_dataset in {res['build_s']:.2f} s: images "
+              f"{tuple(ds.images.shape)}, prim_w2p {tuple(ds.prim_w2p.shape)}, prim_planes "
+              f"{tuple(ds.prim_planes.shape)}, valid primitives per view "
+              f"{int(n_valid.min())}-{int(n_valid.max())}, (view, primitive) pairs with a "
+              f"real cut plane {n_real}; train {len(train_ids)} / test {len(test_ids)} views")
+        check(n_real > 0, "every cut plane is all-pass")
+        check(tuple(ds.images.shape) == (2 * KITTI_FRAMES, KITTI_HW[0] // 2, KITTI_HW[1] // 2, 3),
+              f"images {tuple(ds.images.shape)}")
+        has_gt = ds.gt_sem is not None
+        gt_views = (torch.nonzero((ds.gt_sem != 255).flatten(1).any(1)).flatten().tolist()
+                    if has_gt else [])
+        eval_views = sorted(set(gt_views) | set(int(v) for v in test_ids))
+        same, total, bad = True, 0, 0
+        for v in eval_views:
+            o, d = view_rays(ds, v)
+            prims = view_primitives(ds, v)
+            out = intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
+            ref = intersect_rays_plain(o, d, prims, near, far, k)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(out, ref))
+            nn_, nb, _ = compare(out, ref)
+            total, bad = total + nn_, bad + nb
+        print(f"  A1 vs plain on the {len(eval_views)} evaluated views' tables (N = {o.shape[0]}, "
+              f"P = {prims.world_to_prim.shape[0]}, F = {f}, K = {k}): {bad} of {total} entries "
+              f"differ; bit for bit: {same}")
+        check(same, "A1 differs from its plain version on the demo tree's tables")
+        gen = torch.Generator(dev).manual_seed(4321)
+        view_ids = torch.as_tensor(train_ids, device=dev)
+        same, hits = True, 0
+        for _ in range(20):
+            batch = sample_ray_batch(ds, view_ids, n, g, gen)
+            out = batch_intervals(ds, batch, near, far, k, g)
+            ref = batch_intervals(ds, batch, near, far, k, g, use_kernel=False)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(out, ref))
+            hits += int(out.mask.sum())
+        print(f"  A2 vs plain on 20 training batches (G = {g}, M = {n // g}): bit for bit: "
+              f"{same} ({hits} hit slots)")
+        check(same, "A2 differs from its plain version on the demo tree's tables")
+        # times at these shapes: A1 on the first test view, A2 on one batch
+        v = int(test_ids[0])
+        o, d = view_rays(ds, v)
+        prims = view_primitives(ds, v)
+        run_k = lambda: intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
+        run_p = lambda: intersect_rays_plain(o, d, prims, near, far, k)
+        t = {"a1_plain": time_ms(run_p), "a1": time_ms(run_k)}
+        t["a1_plain2"], t["a1_2"] = time_ms(run_p), time_ms(run_k)
+        t["a1_dev"], t["a1_host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
+        p_all, p_val = prims.world_to_prim.shape[0], int(prims.valid.sum())
+        t["a1_bound"] = bound(o.shape[0] * p_val * (SLAB_OPS + f * PLANE_OPS),
+                              intersect_cuda.intersect_plan_bytes(1, o.shape[0], p_all, f, k),
+                              PEAK_F32)
+        batch = sample_ray_batch(ds, view_ids, n, g, gen)
+        run_k = lambda: batch_intervals(ds, batch, near, far, k, g)
+        run_p = lambda: batch_intervals(ds, batch, near, far, k, g, use_kernel=False)
+        t["a2_plain"], t["a2"] = time_ms(run_p), time_ms(run_k)
+        t["a2_plain2"], t["a2_2"] = time_ms(run_p), time_ms(run_k)
+        t["a2_dev"], t["a2_host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
+        gv = batch.view.reshape(g, n // g)[:, 0]
+        t["a2_bound"] = bound((n // g) * int(ds.prim_valid[gv].sum()) * (SLAB_OPS + f * PLANE_OPS),
+                              intersect_cuda.intersect_plan_bytes(g, n // g, p_all, f, k), PEAK_F32)
+        res["t"] = t
+        print(f"  A1 at N = {o.shape[0]}, P = {p_all} ({p_val} valid), F = {f}, K = {k}: kernel "
+              f"{t['a1']:.4f} / {t['a1_2']:.4f} ms, plain {t['a1_plain']:.4f} / "
+              f"{t['a1_plain2']:.4f} ms (events, median of 20, P K P K); device {t['a1_dev']:.5f} "
+              f"ms, the wrapper's host time {t['a1_host']:.4f} ms; bound {t['a1_bound'][0]:.5f} "
+              f"ms ({t['a1_bound'][1]})")
+        print(f"  A2 (batch_intervals) at G = {g}, M = {n // g}, F = {f}: kernel {t['a2']:.4f} / "
+              f"{t['a2_2']:.4f} ms, plain {t['a2_plain']:.4f} / {t['a2_plain2']:.4f} ms; device "
+              f"{t['a2_dev']:.5f} ms, host {t['a2_host']:.4f} ms (the gathers of the group "
+              f"tables included); bound {t['a2_bound'][0]:.5f} ms ({t['a2_bound'][1]}); {card}")
+        del ds
+
+        # the training main path
+        zero()
+        t0 = time.perf_counter()
+        tr = cli(train_net.main, *args, "--max_steps", str(KITTI_STEPS))
+        wall = time.perf_counter() - t0
+        launches = counts()
+        losses = tr["losses"]
+        ms = [1000.0 * s / kk for kk, s in tr["windows"][1:]]
+        res["ms_step"] = float(np.median(ms))
+        n_eval = len(test_ids if cfg.train.eval_views <= 0 else test_ids[:cfg.train.eval_views])
+        at100, end = float(losses[100:110].mean()), float(losses[-10:].mean())
+        print(f"  train_net: {KITTI_STEPS} steps in {wall:.2f} s, median {res['ms_step']:.3f} "
+              f"ms/step over {len(ms)} windows after the first (range {min(ms):.3f}-"
+              f"{max(ms):.3f}); loss_total steps 1-10 {float(losses[:10].mean()):.4f}, 101-110 "
+              f"(the semantic losses on) {at100:.4f}, last 10 {end:.4f}; in-training "
+              f"evaluations {[(e[0], round(e[1], 3)) for e in tr['evals']]}; launches {launches}; "
+              f"{card}")
+        for step, secs, ev in tr["evals"]:
+            print(f"  eval@{step}: PSNR {ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
+        check(bool(np.isfinite(losses).all()), "non-finite KITTI-360 training loss")
+        check(end < at100, f"KITTI-360 loss did not fall after step 100 ({at100} -> {end})")
+        want = {"A1": len(tr["evals"]) * n_eval, "A2": KITTI_STEPS, "B": KITTI_STEPS,
+                "B'": KITTI_STEPS, "C": 0, "C'": 0}
+        check(len(tr["evals"]) == 1 and launches == want,
+              f"KITTI-360 launches {launches}, expected {want}")
+
+        zero()
+        ev = cli(run.main, "--type", "evaluate", *args, "train.eval_step", str(KITTI_STEPS))
+        a1 = counts()["A1"]
+        print(f"  run --type evaluate: {len(ev['views'])} views, render s/view median "
+              f"{np.median(ev['render_seconds']):.3f}; PSNR {ev['psnr']:.4f}, mIoU "
+              f"{ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 launches {a1}")
+        check(all(np.isfinite(ev[kk]) for kk in ("psnr", "miou", "pq")), "non-finite KITTI scores")
+        check(ev["views"] == eval_views and a1 == len(eval_views),
+              f"run_evaluate rendered {ev['views']} with A1 {a1}, expected {eval_views}")
+
+        zero()
+        t0 = time.perf_counter()
+        files = cli(export_label_transfer.main, "--out", f"{tmp}/export", *args,
+                    "train.eval_step", str(KITTI_STEPS))
+        secs, a1 = time.perf_counter() - t0, counts()["A1"]
+        check(len(files) == 2 * KITTI_FRAMES and a1 == KITTI_FRAMES,
+              f"the export wrote {len(files)} files with A1 {a1}")
+        shutil.rmtree(f"{tmp}/tree/data_2d_semantics")
+        shutil.copytree(f"{tmp}/export", f"{tmp}/tree/data_2d_semantics")
+        back, _, _ = make_dataset(cfg, "cpu")
+        exact = True
+        for i in range(KITTI_FRAMES):
+            sem = read_png(files[2 * i]).astype(np.int32)
+            enc = read_png(files[2 * i + 1]).astype(np.int32)
+            exact = (exact and np.array_equal(back.gt_sem[2 * i].numpy(), L.ids_to_trainids(sem))
+                     and np.array_equal(back.gt_inst[2 * i].numpy(), enc % 1000)
+                     and np.array_equal(enc // 1000, sem))
+        print(f"  export_label_transfer: {len(files)} PNGs in {secs:.2f} s (A1 {a1}); read back "
+              f"by the loader as data_2d_semantics bit for bit: {exact}")
+        check(exact, "the export's round trip through the loader is not exact")
+        del back
+
+        # (c) a configs/kitti360_360.yaml-shaped pool
+        seqs = list(load_config(K360_CFG, []).data.sequences)
+        t0 = time.perf_counter()
+        for i, sq in enumerate(seqs):
+            write_demo_tree(f"{tmp}/tree360", n_frames=K360_FRAMES, hw=KITTI_HW, n_boxes=8,
+                            seed=i, seq=sq, fisheye=True, n_concave=2, frame_start=3353,
+                            device=dev)
+        res["tree360_s"] = time.perf_counter() - t0
+        opts360 = ["data.root", f"{tmp}/tree360", "data.frame_num", str(K360_FRAMES),
+                   "data.stream_window", "0", "model_dir", f"{tmp}/m360",
+                   "record_dir", f"{tmp}/rec360", "result_dir", f"{tmp}/res360"]
+        cfg360 = load_config(K360_CFG, opts360)
+        args360 = ["--cfg_file", K360_CFG, "--device", str(dev), *opts360]
+        t0 = time.perf_counter()
+        ds, _, test360 = make_dataset(cfg360, dev)
+        torch.cuda.synchronize()
+        res["build360_s"] = time.perf_counter() - t0
+        cams = ds.cam_model.tolist()
+        print(f"kitti (c): {len(seqs)} fisheye trees of {K360_FRAMES} frames in "
+              f"{res['tree360_s']:.2f} s; make_dataset in {res['build360_s']:.2f} s: images "
+              f"{tuple(ds.images.shape)}, {cams.count(1)} fisheye views; "
+              f"{cfg360.data.n_rays} rays in G = {cfg360.data.views_per_batch} groups")
+        check(ds.images.shape[0] == 3 * K360_FRAMES * len(seqs) and cams.count(1) == K360_FRAMES
+              * len(seqs), f"the -360 pool holds {ds.images.shape[0]} views")
+        groups = []
+        batch_intervals_of_step = step_module.batch_intervals
+
+        def observed(ds_, batch, *a, **kw):  # the camera model of every A2 group
+            gg = cfg360.data.views_per_batch
+            groups.append(ds_.cam_model[batch.view.reshape(gg, -1)[:, 0]])
+            return batch_intervals_of_step(ds_, batch, *a, **kw)
+
+        step_module.batch_intervals = observed
+        zero()
+        try:
+            tr = cli(train_net.main, *args360, "--max_steps", str(K360_STEPS))
+        finally:
+            step_module.batch_intervals = batch_intervals_of_step
+        launches = counts()
+        models = torch.cat(groups).tolist()
+        ms360 = [1000.0 * s / kk for kk, s in tr["windows"][1:]]
+        res["ms_step360"] = float(np.median(ms360))
+        print(f"  train_net: {K360_STEPS} steps, median {res['ms_step360']:.3f} ms/step; A2 "
+              f"groups: {models.count(1)} fisheye, {models.count(0)} perspective; loss_total "
+              f"first 10 {float(tr['losses'][:10].mean()):.4f}, last 10 "
+              f"{float(tr['losses'][-10:].mean()):.4f}; launches {launches}; {card}")
+        check(bool(np.isfinite(tr["losses"]).all()), "non-finite -360 training loss")
+        check(models.count(1) > 0 and models.count(0) > 0,
+              "the -360 run did not mix fisheye and perspective groups")
+        want = {"A1": 0, "A2": K360_STEPS, "B": 2 * K360_STEPS, "B'": 2 * K360_STEPS,
+                "C": 0, "C'": 0}
+        check(launches == want, f"-360 launches {launches}, expected {want}")
+        zero()
+        ev = cli(run.main, "--type", "evaluate", *args360, "train.eval_step", str(K360_STEPS))
+        a1 = counts()["A1"]
+        fe = [v for v in ev["views"] if cams[v] == 1]
+        masked = [v for v in fe if not bool(engine._truth(ds, v)["valid"].all())]
+        print(f"  run --type evaluate: {len(ev['views'])} views ({len(fe)} fisheye, each with its valid "
+              f"mask: {len(masked)} of them mask pixels out); PSNR {ev['psnr']:.4f}, mIoU "
+              f"{ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 launches {a1}")
+        check(all(np.isfinite(ev[kk]) for kk in ("psnr", "miou", "pq")), "non-finite -360 scores")
+        check(a1 == len(ev["views"]) and fe and masked == fe,
+              f"-360 evaluation: A1 {a1}, fisheye views {fe}, masked {masked}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -989,6 +1281,9 @@ def main():
     from panopticnerf_tpu_torch import run
 
     engine_phase(dev, engine, run)
+
+    # 12. KITTI-360 on demo trees
+    kitti_phase(dev, engine)
 
     # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
     # (C' on C's saved activations, as mode field runs it). No single PyTorch

@@ -1,8 +1,11 @@
+import dataclasses
+
 import numpy as np
 import torch
 
 from panopticnerf_tpu_torch.data.dataset import (
     DeviceDataset,
+    concat_datasets,
     train_test_split,
     view_primitives,
     view_rays,
@@ -10,13 +13,31 @@ from panopticnerf_tpu_torch.data.dataset import (
 
 
 def make_dataset(cfg, device: torch.device | str):
-    """-> (DeviceDataset on `device`, train_ids, test_ids). The port builds
-    the synthetic scene only so far."""
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(f"dataset {cfg.data.dataset!r} is not ported yet")
-    from panopticnerf_tpu_torch.data.synthetic import build_synthetic_dataset
+    """-> (DeviceDataset on `device`, train_ids, test_ids): the synthetic
+    scene, or KITTI-360 with every sequence of `data.sequences` (else
+    `data.sequence`) in one view pool, built on the host and moved to the
+    device once. Streaming (`data.stream_window` > 0) is not ported yet and
+    raises, so that no run trains a different schedule of views silently."""
+    if cfg.data.stream_window > 0:
+        raise NotImplementedError(
+            f"data.stream_window {cfg.data.stream_window}: streaming a rotating window of "
+            f"views is not ported yet (ROADMAP 1.6); set data.stream_window 0 to keep the "
+            f"whole pool on the device")
+    if cfg.data.dataset == "synthetic":
+        from panopticnerf_tpu_torch.data.synthetic import build_synthetic_dataset
 
-    ds = build_synthetic_dataset(cfg, device, seed=cfg.train.seed)
+        ds = build_synthetic_dataset(cfg, device, seed=cfg.train.seed)
+    elif cfg.data.dataset == "kitti360":
+        from panopticnerf_tpu_torch.data.kitti360 import build_kitti360_dataset
+
+        seqs = list(cfg.data.sequences) or [cfg.data.sequence]
+        parts = [build_kitti360_dataset(
+            dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, sequence=sq)), "cpu")
+            for sq in seqs]
+        ds = DeviceDataset(*[None if t is None else t.to(device)
+                             for t in concat_datasets(parts)])
+    else:
+        raise ValueError(f"unknown dataset {cfg.data.dataset!r}")
     train_ids, test_ids = train_test_split(ds.images.shape[0], cfg.data.test_every)
     if len(test_ids) == 0:
         test_ids = train_ids[:1]
@@ -25,6 +46,7 @@ def make_dataset(cfg, device: torch.device | str):
 
 __all__ = [
     "DeviceDataset",
+    "concat_datasets",
     "make_dataset",
     "train_test_split",
     "view_primitives",

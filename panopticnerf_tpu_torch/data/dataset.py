@@ -6,7 +6,9 @@ evaluation path reads whole views from it (`view_rays`, `view_primitives`);
 the training step draws grouped ray batches from it (`sample_ray_batch`)
 and intersects them group by group (`batch_intervals`, kernel A2 on the
 card). Only grouped batches (`data.views_per_batch` G > 0) are ported: the
-fully mixed batch needs the per-ray intersection, not ported yet.
+fully mixed batch needs the per-ray intersection, not ported yet. Views of
+one pool may mix perspective and MEI fisheye cameras (`cam_model`), and
+`concat_datasets` joins the pools of several sequences.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ from panopticnerf_tpu_torch.ops.intersect import (
     intersect_groups,
     intersect_groups_plain,
 )
-from panopticnerf_tpu_torch.ops.rays import gen_rays_perspective
+from panopticnerf_tpu_torch.ops.rays import (
+    FisheyeParams,
+    gen_rays_perspective,
+    pixel_dirs_fisheye,
+)
 
 
 class DeviceDataset(NamedTuple):
@@ -43,8 +49,8 @@ class DeviceDataset(NamedTuple):
     gt_inst: Optional[torch.Tensor] = None    # (V, H, W) int32 eval GT instances
     prim_planes: Optional[torch.Tensor] = None  # (V, P, F, 4) local half-spaces
     cam_model: Optional[torch.Tensor] = None  # (V,) int32: 0 = perspective, 1 = fisheye
-    fisheye: Optional[torch.Tensor] = None    # (V, 7)
-    valid_mask: Optional[torch.Tensor] = None  # (V, H, W) bool
+    fisheye: Optional[torch.Tensor] = None    # (V, 7) [gamma1 gamma2 u0 v0 xi k1 k2]
+    valid_mask: Optional[torch.Tensor] = None  # (V, H, W) bool (the fisheye image circle)
 
 
 class RayBatch(NamedTuple):
@@ -113,13 +119,17 @@ def sample_ray_batch(ds: DeviceDataset, view_ids: torch.Tensor, n_rays: int,
 
 
 def _pixel_dirs(ds: DeviceDataset, vi: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Per-ray camera-frame directions (N, 3) of perspective views."""
-    if ds.cam_model is not None:
-        raise NotImplementedError("fisheye views are not ported yet")
+    """Per-ray camera-frame directions (N, 3): the pinhole model from
+    ds.K[vi], or where ds.cam_model[vi] == 1 the MEI unprojection with the
+    ray's own fisheye parameters (both computed, then selected)."""
     K = ds.K[vi]                                               # (N, 3, 3)
     x = (uv[:, 0] - K[:, 0, 2]) / K[:, 0, 0]
     y = (uv[:, 1] - K[:, 1, 2]) / K[:, 1, 1]
-    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    persp = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    if ds.cam_model is None:
+        return persp
+    fe = pixel_dirs_fisheye(uv, FisheyeParams(*ds.fisheye[vi].unbind(-1)))
+    return torch.where((ds.cam_model[vi] == 1)[:, None], fe, persp)
 
 
 def batch_intervals(ds: DeviceDataset, batch: RayBatch, near: float, far: float,
@@ -148,16 +158,22 @@ def batch_intervals(ds: DeviceDataset, batch: RayBatch, near: float, far: float,
 
 
 def view_rays(ds: DeviceDataset, view: int):
-    """All rays of one perspective view through pixel centres (+0.5), in
-    row-major pixel order."""
-    if ds.cam_model is not None:
-        raise NotImplementedError("fisheye views are not ported yet")
+    """All rays of one view (either camera model) through pixel centres
+    (+0.5), in row-major pixel order."""
     h, w = ds.images.shape[1:3]
     dev = ds.images.device
     vv, uu = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
                             indexing="ij")
     uv = torch.stack([uu.reshape(-1), vv.reshape(-1)], -1).to(torch.float32) + 0.5
-    return gen_rays_perspective(uv, ds.K[view], ds.c2w[view])
+    if ds.cam_model is None:
+        return gen_rays_perspective(uv, ds.K[view], ds.c2w[view])
+    vi = torch.full((uv.shape[0],), view, dtype=torch.long, device=dev)
+    dirs_cam = _pixel_dirs(ds, vi, uv)
+    c2w = ds.c2w[view]
+    d = dirs_cam @ c2w[:, :3].T
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    o = torch.broadcast_to(c2w[:, 3], d.shape).contiguous()
+    return o, d
 
 
 def view_primitives(ds: DeviceDataset, view: int) -> Primitives:
@@ -168,6 +184,54 @@ def view_primitives(ds: DeviceDataset, view: int) -> Primitives:
         valid=ds.prim_valid[view],
         cut_planes=ds.prim_planes[view] if ds.prim_planes is not None else None,
     )
+
+
+def concat_datasets(parts: list[DeviceDataset]) -> DeviceDataset:
+    """Concatenate datasets along the view axis (multi-sequence pools,
+    `data.sequences`). An optional field that some parts carry is filled
+    with neutral values in the others (all-pass cut planes, ignore labels,
+    perspective cameras, all-valid masks), so perspective-only and fisheye
+    sequences mix. Scene bounds: the envelope of the parts' bounds. All
+    parts share (H, W) and the primitive padding P."""
+    assert parts
+    if len(parts) == 1:
+        return parts[0]
+    h, w = parts[0].images.shape[1:3]
+    p = parts[0].prim_w2p.shape[1]
+    for d in parts[1:]:
+        if d.images.shape[1:3] != (h, w) or d.prim_w2p.shape[1] != p:
+            raise ValueError("all sequences must share image size and max_primitives")
+    dev = parts[0].images.device
+    n_views = lambda d: d.images.shape[0]
+    f = next((d.prim_planes.shape[2] for d in parts if d.prim_planes is not None), 1)
+    allpass = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    defaults = {
+        "prim_planes": lambda d: allpass.expand(n_views(d), p, f, 4),
+        "gt_sem": lambda d: torch.full((n_views(d), h, w), 255, dtype=torch.int32, device=dev),
+        "gt_inst": lambda d: torch.zeros((n_views(d), h, w), dtype=torch.int32, device=dev),
+        "cam_model": lambda d: torch.zeros((n_views(d),), dtype=torch.int32, device=dev),
+        "fisheye": lambda d: torch.tensor([1.0, 1, 0, 0, 0, 0, 0], device=dev).expand(
+            n_views(d), 7),
+        "valid_mask": lambda d: torch.ones((n_views(d), h, w), dtype=torch.bool, device=dev),
+    }
+
+    def cat(field):
+        vals = [getattr(d, field) for d in parts]
+        if all(v is None for v in vals):
+            return None
+        if any(v is None for v in vals):
+            if field not in defaults:
+                raise ValueError(f"mixed None/non-None for {field}")
+            vals = [v if v is not None else defaults[field](d) for v, d in zip(vals, parts)]
+        return torch.cat(vals, dim=0)
+
+    centers = torch.stack([d.bounds_center for d in parts])
+    center = centers.mean(0)
+    radii = torch.stack([1.0 / d.bounds_scale + torch.linalg.vector_norm(d.bounds_center - center)
+                         for d in parts])
+    fields = {k: cat(k) for k in DeviceDataset._fields if k not in ("bounds_center",
+                                                                     "bounds_scale")}
+    return DeviceDataset(bounds_center=center, bounds_scale=1.0 / radii.max(), **fields)
 
 
 def train_test_split(num_views: int, test_every: int) -> tuple[np.ndarray, np.ndarray]:

@@ -160,16 +160,19 @@ def evaluate_views(cfg: Config, model, ds, view_ids) -> dict:
 
 
 def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
-    """Label-transfer mIoU / PQ on every view with semantic ground truth,
-    PSNR (and SSIM, depth errors) on the held-out test views.
+    """Label-transfer mIoU / PQ on every view with semantic ground truth
+    (none when the dataset has no ground truth), PSNR (and SSIM, depth
+    errors) on the held-out test views.
 
     Returns the evaluator summary plus `step` (checkpoint), `views` and
     `render_seconds` (host time per view, render through synchronise).
     """
     ds, test_ids, model, step = _restore_for_eval(cfg, device)
     ev = make_evaluator(cfg)
-    has_gt = (ds.gt_sem != 255).flatten(1).any(1).cpu().numpy()
-    views = sorted(set(np.nonzero(has_gt)[0].tolist()) | set(int(v) for v in test_ids))
+    sem_views = []
+    if ds.gt_sem is not None:  # a tree without data_2d_semantics has none
+        sem_views = np.nonzero((ds.gt_sem != 255).flatten(1).any(1).cpu().numpy())[0].tolist()
+    views = sorted(set(sem_views) | set(int(v) for v in test_ids))
     psnr_views = set(int(v) for v in test_ids)
     hw = tuple(ds.images.shape[1:3])
 

@@ -15,8 +15,11 @@ from panopticnerf_tpu_torch.ops.intersect import (
     top_k_intervals,
 )
 from panopticnerf_tpu_torch.ops.rays import (
+    FisheyeParams,
     full_image_uv,
+    gen_rays_fisheye,
     gen_rays_perspective,
+    pixel_dirs_fisheye,
     pixel_dirs_perspective,
     rays_from_dirs,
 )
@@ -32,12 +35,13 @@ from panopticnerf_tpu_torch.ops.sampling import (
 )
 
 __all__ = [
-    "BIG", "CompositeOut", "Primitives", "RayIntervals", "composite",
+    "BIG", "CompositeOut", "FisheyeParams", "Primitives", "RayIntervals", "composite",
     "compute_weights", "field_hybrid_apply", "field_train_apply",
-    "fixed_map_from_weights", "full_image_uv", "fused_trunk_train", "gen_rays_perspective", "guided_split", "guided_z",
+    "fixed_map_from_weights", "full_image_uv", "fused_trunk_train", "gen_rays_fisheye",
+    "gen_rays_perspective", "guided_split", "guided_z",
     "intersect_groups", "intersect_groups_plain", "intersect_rays",
     "intersect_rays_plain", "labeled_containment", "merge_sorted", "merge_z",
-    "pixel_dirs_perspective", "posenc_dim", "positional_encoding",
+    "pixel_dirs_fisheye", "pixel_dirs_perspective", "posenc_dim", "positional_encoding",
     "ray_box_intervals", "rays_from_dirs", "sample_pdf",
     "samples_in_intervals", "stratified_z", "top_k_intervals",
 ]

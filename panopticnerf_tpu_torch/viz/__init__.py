@@ -1,3 +1,8 @@
-from panopticnerf_tpu_torch.viz.visualizer import Visualizer, depth_to_color, semantic_raw_ids
+from panopticnerf_tpu_torch.viz.visualizer import (
+    Visualizer,
+    depth_to_color,
+    label_transfer_maps,
+    semantic_raw_ids,
+)
 
-__all__ = ["Visualizer", "depth_to_color", "semantic_raw_ids"]
+__all__ = ["Visualizer", "depth_to_color", "label_transfer_maps", "semantic_raw_ids"]

@@ -58,6 +58,17 @@ def semantic_raw_ids(sem: np.ndarray, num_classes: int) -> np.ndarray:
     return np.asarray(sem, np.int32)
 
 
+def label_transfer_maps(sem: np.ndarray, inst: np.ndarray, hw: tuple[int, int],
+                        num_classes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Fused (sem, inst) of one view -> the KITTI-360 data_2d_semantics
+    encoding: (H, W) uint8 raw semantic ids, (H, W) uint16
+    semantic * 1000 + instance % 1000."""
+    h, w = hw
+    sem_raw = semantic_raw_ids(np.asarray(sem).reshape(h, w), num_classes)
+    enc = sem_raw.astype(np.int32) * 1000 + (np.asarray(inst).reshape(h, w) % 1000)
+    return sem_raw.astype(np.uint8), enc.astype(np.uint16)
+
+
 class Visualizer:
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -110,12 +121,9 @@ class Visualizer:
         """KITTI-360 submission-style label maps (the format of
         data_2d_semantics): 8-bit raw semantic ids, and 16-bit
         semantic * 1000 + instance."""
-        h, w = hw
-        sem_raw = semantic_raw_ids(np.asarray(sem).reshape(h, w), self.cfg.model.num_classes)
-        inst = np.asarray(inst).reshape(h, w)
-        enc = sem_raw.astype(np.int32) * 1000 + (inst % 1000)
-        return [self._save(f"{view:06d}_labelsem.png", sem_raw.astype(np.uint8)),
-                self._save(f"{view:06d}_labelinst.png", enc.astype(np.uint16))]
+        sem_raw, enc = label_transfer_maps(sem, inst, hw, self.cfg.model.num_classes)
+        return [self._save(f"{view:06d}_labelsem.png", sem_raw),
+                self._save(f"{view:06d}_labelinst.png", enc)]
 
     def write_video(self, pattern_suffix: str = "_rgb.png", name: str = "video.mp4"):
         """Assemble written frames into a video (imageio; best-effort)."""

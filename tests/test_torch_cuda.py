@@ -483,3 +483,74 @@ def test_field_wrappers_reject_bad_inputs(cuda_device):
         field_backward_cuda(xp, dp, g_out, g_sem, pk, dims, None, torch.float16)
     with pytest.raises(ValueError):
         field_backward_cuda(xp, dp, g_out[:10], g_sem, pk, dims)
+
+
+def test_intersect_kernels_on_demo_tree_cut_planes(cuda_device, tmp_path):
+    """A1 on every view and A2 on grouped training batches of a demo tree
+    the port writes itself (fisheye views, two concave buildings cut into
+    convex pieces with real half-spaces): bit-equal to their plain
+    versions."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.data.dataset import batch_intervals, sample_ray_batch
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.ops.intersect import intersect_rays, intersect_rays_plain
+    from panopticnerf_tpu_torch.ops.intersect_cuda import intersect_groups_cuda
+
+    root = str(tmp_path / "tree")
+    write_demo_tree(root, n_frames=4, hw=(96, 128), n_boxes=6, seed=2, fisheye=True,
+                    n_concave=2, device=cuda_device)
+    cfg = load_config(None, ["data.dataset", "kitti360", "data.root", root, "data.frame_num",
+                             "4", "data.ratio", "0.5", "data.use_fisheye", "true",
+                             "data.max_primitives", "16", "data.max_intervals", "8",
+                             "data.n_rays", "512", "data.views_per_batch", "4",
+                             "model.num_classes", "19"])
+    ds, train_ids, _ = make_dataset(cfg, cuda_device)
+    planes = ds.prim_planes[ds.prim_valid]
+    assert bool((planes[..., :3] != 0).any(-1).any())          # real cut planes
+    hits = 0
+    for view in range(ds.images.shape[0]):
+        o, d = view_rays(ds, view)
+        prims = view_primitives(ds, view)
+        out = intersect_rays(o, d, prims, 0.5, 120.0, 8)
+        ref = intersect_rays_plain(o, d, prims, 0.5, 120.0, 8)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), view
+        hits += int(out.mask.sum())
+    assert hits > 0
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    view_ids = torch.as_tensor(train_ids, device=cuda_device)
+    before = intersect_groups_cuda.launches
+    for _ in range(5):
+        batch = sample_ray_batch(ds, view_ids, 512, 4, gen)
+        out = batch_intervals(ds, batch, 0.5, 120.0, 8, 4)
+        ref = batch_intervals(ds, batch, 0.5, 120.0, 8, 4, use_kernel=False)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    assert intersect_groups_cuda.launches == before + 5
+
+
+def test_demo_tree_written_on_the_card_equals_the_cpu_one(cuda_device, tmp_path):
+    """The writer's float64 raycast gives the same bits on the card as on
+    the CPU (where tests/test_torch_kitti360.py holds it against the JAX
+    writer): every file of the two trees decodes to the same arrays."""
+    import filecmp
+    import os
+
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.viz.png import read_png
+
+    kw = dict(n_frames=3, hw=(60, 88), n_boxes=5, seed=3, fisheye=True, n_concave=2)
+    write_demo_tree(str(tmp_path / "cpu"), **kw, device="cpu")
+    write_demo_tree(str(tmp_path / "card"), **kw, device=cuda_device)
+    files = [os.path.relpath(os.path.join(d, f), tmp_path / "cpu")
+             for d, _, fs in os.walk(tmp_path / "cpu") for f in fs]
+    assert len(files) > 20
+    for rel in files:
+        a, b = str(tmp_path / "cpu" / rel), str(tmp_path / "card" / rel)
+        if rel.endswith(".png"):
+            assert np.array_equal(read_png(a), read_png(b)), rel
+        elif rel.endswith(".npy"):
+            assert np.array_equal(np.load(a), np.load(b)), rel
+        else:
+            assert filecmp.cmp(a, b, shallow=False), rel
