@@ -2,8 +2,9 @@
 """GPU smoke test of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version, runs the port's evaluation of the
 committed flagship checkpoint against the JAX package's recorded scores,
-replays one recorded JAX training step in each field mode, and trains the
-flagship through the kernels in each mode.
+replays one recorded JAX training step in each field mode, trains the
+flagship through the kernels in each mode, and drives the engine, KITTI-360
+demo trees, streaming, the panorama, mixed batches and keep-M.
 
     python3 chip_smoke.py          # from the repo root, on a machine with one NVIDIA GPU
 
@@ -79,7 +80,7 @@ line is printed):
      parameters equal (a)'s bit for bit; (c) `run --type network` (rays/s
      beside the card's name and power limit) and `run --type visualize
      --trajectory 4` (the files written; A1 launches = test views + 4);
- 12. KITTI-360 on demo trees the port writes itself (`data/demo_tree.py`,
+ 12. KITTI-360 on a demo tree the port writes itself (`data/demo_tree.py`,
      raycast on the card): (a) one sequence, 16 frames at KITTI-360's
      rectified 376x1408 with 8 boxes and 2 concave buildings cut into
      convex pieces (write time); (b) configs/kitti360_panoptic.yaml at full
@@ -94,11 +95,35 @@ line is printed):
      the evaluation's views); `run_evaluate` (finite PSNR / mIoU / PQ,
      A1 = the views with ground truth or held out); the label-transfer
      export (16 + 16 PNGs, A1 = 16), read back by the loader as ground
-     truth bit for bit; (c) a configs/kitti360_360.yaml-shaped pool: two
-     sequences (seeds 0 and 1) of 8 frames with the left fisheye, 48 views,
-     data.stream_window 0, 50 steps of 4096 rays: the camera model of every
-     A2 group (both must occur), exact launches, and `run_evaluate` with
-     each fisheye view's valid mask.
+     truth bit for bit;
+ 13. streaming, the panorama, mixed batches and keep-M: (a)
+     configs/kitti360_360.yaml as shipped (data.stream_window 64, 4096
+     rays, both fields 8x256) on two demo sequences (seeds 0 and 1) of 32
+     frames with the left fisheye (192 views, 168 for training), cut to
+     100 steps, data.stream_refresh_steps 25, train.pretrain_steps 50:
+     `train_net` (every refresh, the host seconds each advance() blocked
+     and whether its copy was done, every A2 group's view in the resident
+     window, fisheye and perspective groups both, launches A2 = 100, B =
+     B' = 200, ms/step and peak device memory beside the host pool's and
+     one window's bytes); the same seed stopped at 60 and resumed to 100,
+     every resident window held against its host slice bit for bit, equal
+     to the first run bit for bit; the same run at data.stream_window 0
+     (ms/step, peak memory); `run --type evaluate` at stream_window 64 and
+     0, equal bit for bit (A1 = views, each fisheye view with its valid
+     mask); (b) `run --type visualize --panorama 512,1024` on (a)'s
+     checkpoint (A1 = test views + 1, the four panorama files), the
+     panorama's A1 bit for bit with its plain version on its 524,288 rays
+     (F = 8), its times and the render's seconds, and a 32x64 panorama on
+     the card against the CPU within RENDER_GAP; (c) phase 12's config
+     with data.views_per_batch 0 for 100 steps (A2 = 0, B = B' = 100, a
+     finite falling loss, ms/step beside the grouped run's), 30 steps in
+     model.pallas_mode field (A2 = 0, C = C' = 30, B = B' = 0), and
+     `intersect_rays_per_ray` on one batch, card against CPU (masks and
+     ids equal, depths within PER_RAY_DT); (d) `run_evaluate` of the
+     flagship checkpoint with render.eval_keep_samples 96 (PSNR / mIoU /
+     PQ and s/view beside phase 5's, A1 = views), 128 (= S) equal to the
+     untruncated render bit for bit, and the first 4096 rays of a view on
+     the card against the CPU within RENDER_GAP.
 The last two lines are the kernels' JSON (with each kernel's bound on the
 card, computed from this run's shapes and the work of the function the TPU
 kernel computes) and `{"ok": true, "device": ...}`.
@@ -169,7 +194,20 @@ KITTI_CFG = os.path.join(REPO, "configs", "kitti360_panoptic.yaml")
 K360_CFG = os.path.join(REPO, "configs", "kitti360_360.yaml")
 KITTI_HW = (376, 1408)    # KITTI-360's rectified image size
 KITTI_FRAMES, KITTI_STEPS = 16, 200
-K360_FRAMES, K360_STEPS = 8, 50
+# phase 13 (a): frames per sequence (of the config's 64), steps, and the cuts
+# of data.stream_refresh_steps (500) and train.pretrain_steps (20000) that
+# give 3 refreshes with the semantic losses on
+K360_FRAMES, K360_STEPS, K360_REFRESH, K360_PRETRAIN = 32, 100, 25, 50
+PANO_HW = (512, 1024)
+MIXED_STEPS, MIXED_FIELD_STEPS = 100, 30
+KEEP_M = 96
+# a render on the card against the same render on the CPU (plain versions):
+# bf16 products accumulate in another order, so ReLU masks and, under
+# keep-M, near-tied coarse weights can flip; a wrong op moves most rays
+RENDER_GAP = {"rgb max": 0.1, "rgb mean": 2e-3, "depth": 2e-2, "agree": 0.99}
+# the per-ray intersection's depths, card against the CPU: the same float32
+# ops; a few ulps of a depth up to render.far = 120 m
+PER_RAY_DT = 1e-4
 # f32 operations of one cut plane on a (ray, primitive) pair: the plane's
 # normal against the local origin and direction (two 3-term dot products),
 # the crossing depth (a subtraction and a division) and the clip (~2); an
@@ -890,8 +928,55 @@ def engine_phase(dev, engine, run):
         check(len(pngs) == 6 * len(test_ids) + 4 * 4, f"visualize wrote {len(pngs)} PNG files")
 
 
-def kitti_phase(dev, engine):
-    """12. KITTI-360 on demo trees (see the module docstring)."""
+def kernel_counters():
+    """The six kernels' wrappers, by the names of their launch counts."""
+    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
+
+    return {"A1": intersect_cuda.intersect_rays_cuda, "A2": intersect_cuda.intersect_groups_cuda,
+            "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
+            "C": field_train_cuda.field_forward_cuda, "C'": field_train_cuda.field_backward_cuda}
+
+
+def zero_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def cli(main, *args, out=None):
+    """Run an entry point with its console lines kept out of this log
+    (appended to the list `out` when given)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main([*args])
+    if out is not None:
+        out.append(buf.getvalue())
+    return result
+
+
+def same_scores(a, b):
+    """Two evaluator summaries equal value for value (NaN equal to NaN),
+    host timings aside."""
+    keys = set(a) - {"render_seconds"}
+    return keys == set(b) - {"render_seconds"} and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k]), equal_nan=True) for k in keys)
+
+
+def render_gap(gpu, cpu):
+    """(rgb max |d|, rgb mean |d|, depth max |d| / depth scale, share of rays
+    whose learned semantic argmax agrees) of two RenderOuts of the same rays."""
+    d_rgb = (gpu.rgb.cpu() - cpu.rgb).abs()
+    d_depth = (gpu.depth.cpu() - cpu.depth).abs().max() / cpu.depth.abs().max().clamp_min(1e-6)
+    agree = (gpu.sem_logits.cpu().argmax(-1) == cpu.sem_logits.argmax(-1)).float().mean()
+    return float(d_rgb.max()), float(d_rgb.mean()), float(d_depth), float(agree)
+
+
+def kitti_phase(dev, engine, tmp):
+    """12. KITTI-360 on a demo tree (see the module docstring); returns its
+    timings and what phase 13 (c) trains on again."""
     import shutil
 
     from panopticnerf_tpu_torch import export_label_transfer, run, train_net
@@ -900,254 +985,532 @@ def kitti_phase(dev, engine):
     from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
     from panopticnerf_tpu_torch.data.dataset import batch_intervals, sample_ray_batch
     from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
-    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
+    from panopticnerf_tpu_torch.ops import intersect_cuda
     from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
-    from panopticnerf_tpu_torch.train import step as step_module
     from panopticnerf_tpu_torch.viz.png import read_png
 
-    counters = {"A1": intersect_cuda.intersect_rays_cuda,
-                "A2": intersect_cuda.intersect_groups_cuda,
-                "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
-                "C": field_train_cuda.field_forward_cuda,
-                "C'": field_train_cuda.field_backward_cuda}
-
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def counts():
-        return {k: fn.launches for k, fn in counters.items()}
-
-    def cli(main, *args):  # an entry point, its console lines kept out of this log
-        with contextlib.redirect_stdout(io.StringIO()):
-            return main([*args])
-
+    zero, counts = zero_counts, launch_counts
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        # (a) the tree
-        t0 = time.perf_counter()
-        seq = write_demo_tree(f"{tmp}/tree", n_frames=KITTI_FRAMES, hw=KITTI_HW, n_boxes=8,
-                              seed=0, n_concave=2, frame_start=3353, device=dev)
-        res["tree_s"] = time.perf_counter() - t0
-        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(f"{tmp}/tree")
-                   for f in fs)
-        print(f"kitti (a): write_demo_tree {seq}, {KITTI_FRAMES} frames of {KITTI_HW[0]}x"
-              f"{KITTI_HW[1]}, stereo, 8 boxes + 2 concave buildings: {res['tree_s']:.2f} s, "
-              f"{size / 2**20:.1f} MiB")
+    # (a) the tree
+    t0 = time.perf_counter()
+    seq = write_demo_tree(f"{tmp}/tree", n_frames=KITTI_FRAMES, hw=KITTI_HW, n_boxes=8,
+                          seed=0, n_concave=2, frame_start=3353, device=dev)
+    res["tree_s"] = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(f"{tmp}/tree")
+               for f in fs)
+    print(f"kitti (a): write_demo_tree {seq}, {KITTI_FRAMES} frames of {KITTI_HW[0]}x"
+          f"{KITTI_HW[1]}, stereo, 8 boxes + 2 concave buildings: {res['tree_s']:.2f} s, "
+          f"{size / 2**20:.1f} MiB")
 
-        # (b) configs/kitti360_panoptic.yaml at full width
-        opts = ["data.root", f"{tmp}/tree", "data.frame_num", str(KITTI_FRAMES),
-                "train.pretrain_steps", "100", "train.ep_iter", "100", "train.save_ep", "2",
-                "train.eval_ep", "2", "model_dir", f"{tmp}/m", "record_dir", f"{tmp}/rec",
-                "result_dir", f"{tmp}/res"]
-        cfg = load_config(KITTI_CFG, opts)
-        args = ["--cfg_file", KITTI_CFG, "--device", str(dev), *opts]
-        near, far, k = cfg.render.near, cfg.render.far, cfg.data.max_intervals
-        g, n = cfg.data.views_per_batch, cfg.data.n_rays
-        t0 = time.perf_counter()
-        ds, train_ids, test_ids = make_dataset(cfg, dev)
-        torch.cuda.synchronize()
-        res["build_s"] = time.perf_counter() - t0
-        check(ds.prim_planes is not None, "the demo tree's concave buildings gave no cut planes")
-        f = ds.prim_planes.shape[2]
-        n_real = int(((ds.prim_planes[..., :3] != 0).any(-1).any(-1) & ds.prim_valid).sum())
-        n_valid = ds.prim_valid.sum(1)
-        print(f"kitti (b): make_dataset in {res['build_s']:.2f} s: images "
-              f"{tuple(ds.images.shape)}, prim_w2p {tuple(ds.prim_w2p.shape)}, prim_planes "
-              f"{tuple(ds.prim_planes.shape)}, valid primitives per view "
-              f"{int(n_valid.min())}-{int(n_valid.max())}, (view, primitive) pairs with a "
-              f"real cut plane {n_real}; train {len(train_ids)} / test {len(test_ids)} views")
-        check(n_real > 0, "every cut plane is all-pass")
-        check(tuple(ds.images.shape) == (2 * KITTI_FRAMES, KITTI_HW[0] // 2, KITTI_HW[1] // 2, 3),
-              f"images {tuple(ds.images.shape)}")
-        has_gt = ds.gt_sem is not None
-        gt_views = (torch.nonzero((ds.gt_sem != 255).flatten(1).any(1)).flatten().tolist()
-                    if has_gt else [])
-        eval_views = sorted(set(gt_views) | set(int(v) for v in test_ids))
-        same, total, bad = True, 0, 0
-        for v in eval_views:
-            o, d = view_rays(ds, v)
-            prims = view_primitives(ds, v)
-            out = intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
-            ref = intersect_rays_plain(o, d, prims, near, far, k)
-            torch.cuda.synchronize()
-            same = same and all(torch.equal(a, b) for a, b in zip(out, ref))
-            nn_, nb, _ = compare(out, ref)
-            total, bad = total + nn_, bad + nb
-        print(f"  A1 vs plain on the {len(eval_views)} evaluated views' tables (N = {o.shape[0]}, "
-              f"P = {prims.world_to_prim.shape[0]}, F = {f}, K = {k}): {bad} of {total} entries "
-              f"differ; bit for bit: {same}")
-        check(same, "A1 differs from its plain version on the demo tree's tables")
-        gen = torch.Generator(dev).manual_seed(4321)
-        view_ids = torch.as_tensor(train_ids, device=dev)
-        same, hits = True, 0
-        for _ in range(20):
-            batch = sample_ray_batch(ds, view_ids, n, g, gen)
-            out = batch_intervals(ds, batch, near, far, k, g)
-            ref = batch_intervals(ds, batch, near, far, k, g, use_kernel=False)
-            torch.cuda.synchronize()
-            same = same and all(torch.equal(a, b) for a, b in zip(out, ref))
-            hits += int(out.mask.sum())
-        print(f"  A2 vs plain on 20 training batches (G = {g}, M = {n // g}): bit for bit: "
-              f"{same} ({hits} hit slots)")
-        check(same, "A2 differs from its plain version on the demo tree's tables")
-        # times at these shapes: A1 on the first test view, A2 on one batch
-        v = int(test_ids[0])
+    # (b) configs/kitti360_panoptic.yaml at full width
+    opts = ["data.root", f"{tmp}/tree", "data.frame_num", str(KITTI_FRAMES),
+            "train.pretrain_steps", "100", "train.ep_iter", "100", "train.save_ep", "2",
+            "train.eval_ep", "2", "model_dir", f"{tmp}/m", "record_dir", f"{tmp}/rec",
+            "result_dir", f"{tmp}/res"]
+    cfg = load_config(KITTI_CFG, opts)
+    args = ["--cfg_file", KITTI_CFG, "--device", str(dev), *opts]
+    near, far, k = cfg.render.near, cfg.render.far, cfg.data.max_intervals
+    g, n = cfg.data.views_per_batch, cfg.data.n_rays
+    t0 = time.perf_counter()
+    ds, train_ids, test_ids = make_dataset(cfg, dev)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    check(ds.prim_planes is not None, "the demo tree's concave buildings gave no cut planes")
+    f = ds.prim_planes.shape[2]
+    n_real = int(((ds.prim_planes[..., :3] != 0).any(-1).any(-1) & ds.prim_valid).sum())
+    n_valid = ds.prim_valid.sum(1)
+    print(f"kitti (b): make_dataset in {res['build_s']:.2f} s: images "
+          f"{tuple(ds.images.shape)}, prim_w2p {tuple(ds.prim_w2p.shape)}, prim_planes "
+          f"{tuple(ds.prim_planes.shape)}, valid primitives per view "
+          f"{int(n_valid.min())}-{int(n_valid.max())}, (view, primitive) pairs with a "
+          f"real cut plane {n_real}; train {len(train_ids)} / test {len(test_ids)} views")
+    check(n_real > 0, "every cut plane is all-pass")
+    check(tuple(ds.images.shape) == (2 * KITTI_FRAMES, KITTI_HW[0] // 2, KITTI_HW[1] // 2, 3),
+          f"images {tuple(ds.images.shape)}")
+    has_gt = ds.gt_sem is not None
+    gt_views = (torch.nonzero((ds.gt_sem != 255).flatten(1).any(1)).flatten().tolist()
+                if has_gt else [])
+    eval_views = sorted(set(gt_views) | set(int(v) for v in test_ids))
+    same, total, bad = True, 0, 0
+    for v in eval_views:
         o, d = view_rays(ds, v)
         prims = view_primitives(ds, v)
-        run_k = lambda: intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
-        run_p = lambda: intersect_rays_plain(o, d, prims, near, far, k)
-        t = {"a1_plain": time_ms(run_p), "a1": time_ms(run_k)}
-        t["a1_plain2"], t["a1_2"] = time_ms(run_p), time_ms(run_k)
-        t["a1_dev"], t["a1_host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
-        p_all, p_val = prims.world_to_prim.shape[0], int(prims.valid.sum())
-        t["a1_bound"] = bound(o.shape[0] * p_val * (SLAB_OPS + f * PLANE_OPS),
-                              intersect_cuda.intersect_plan_bytes(1, o.shape[0], p_all, f, k),
-                              PEAK_F32)
-        batch = sample_ray_batch(ds, view_ids, n, g, gen)
-        run_k = lambda: batch_intervals(ds, batch, near, far, k, g)
-        run_p = lambda: batch_intervals(ds, batch, near, far, k, g, use_kernel=False)
-        t["a2_plain"], t["a2"] = time_ms(run_p), time_ms(run_k)
-        t["a2_plain2"], t["a2_2"] = time_ms(run_p), time_ms(run_k)
-        t["a2_dev"], t["a2_host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
-        gv = batch.view.reshape(g, n // g)[:, 0]
-        t["a2_bound"] = bound((n // g) * int(ds.prim_valid[gv].sum()) * (SLAB_OPS + f * PLANE_OPS),
-                              intersect_cuda.intersect_plan_bytes(g, n // g, p_all, f, k), PEAK_F32)
-        res["t"] = t
-        print(f"  A1 at N = {o.shape[0]}, P = {p_all} ({p_val} valid), F = {f}, K = {k}: kernel "
-              f"{t['a1']:.4f} / {t['a1_2']:.4f} ms, plain {t['a1_plain']:.4f} / "
-              f"{t['a1_plain2']:.4f} ms (events, median of 20, P K P K); device {t['a1_dev']:.5f} "
-              f"ms, the wrapper's host time {t['a1_host']:.4f} ms; bound {t['a1_bound'][0]:.5f} "
-              f"ms ({t['a1_bound'][1]})")
-        print(f"  A2 (batch_intervals) at G = {g}, M = {n // g}, F = {f}: kernel {t['a2']:.4f} / "
-              f"{t['a2_2']:.4f} ms, plain {t['a2_plain']:.4f} / {t['a2_plain2']:.4f} ms; device "
-              f"{t['a2_dev']:.5f} ms, host {t['a2_host']:.4f} ms (the gathers of the group "
-              f"tables included); bound {t['a2_bound'][0]:.5f} ms ({t['a2_bound'][1]}); {card}")
-        del ds
-
-        # the training main path
-        zero()
-        t0 = time.perf_counter()
-        tr = cli(train_net.main, *args, "--max_steps", str(KITTI_STEPS))
-        wall = time.perf_counter() - t0
-        launches = counts()
-        losses = tr["losses"]
-        ms = [1000.0 * s / kk for kk, s in tr["windows"][1:]]
-        res["ms_step"] = float(np.median(ms))
-        n_eval = len(test_ids if cfg.train.eval_views <= 0 else test_ids[:cfg.train.eval_views])
-        at100, end = float(losses[100:110].mean()), float(losses[-10:].mean())
-        print(f"  train_net: {KITTI_STEPS} steps in {wall:.2f} s, median {res['ms_step']:.3f} "
-              f"ms/step over {len(ms)} windows after the first (range {min(ms):.3f}-"
-              f"{max(ms):.3f}); loss_total steps 1-10 {float(losses[:10].mean()):.4f}, 101-110 "
-              f"(the semantic losses on) {at100:.4f}, last 10 {end:.4f}; in-training "
-              f"evaluations {[(e[0], round(e[1], 3)) for e in tr['evals']]}; launches {launches}; "
-              f"{card}")
-        for step, secs, ev in tr["evals"]:
-            print(f"  eval@{step}: PSNR {ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
-        check(bool(np.isfinite(losses).all()), "non-finite KITTI-360 training loss")
-        check(end < at100, f"KITTI-360 loss did not fall after step 100 ({at100} -> {end})")
-        want = {"A1": len(tr["evals"]) * n_eval, "A2": KITTI_STEPS, "B": KITTI_STEPS,
-                "B'": KITTI_STEPS, "C": 0, "C'": 0}
-        check(len(tr["evals"]) == 1 and launches == want,
-              f"KITTI-360 launches {launches}, expected {want}")
-
-        zero()
-        ev = cli(run.main, "--type", "evaluate", *args, "train.eval_step", str(KITTI_STEPS))
-        a1 = counts()["A1"]
-        print(f"  run --type evaluate: {len(ev['views'])} views, render s/view median "
-              f"{np.median(ev['render_seconds']):.3f}; PSNR {ev['psnr']:.4f}, mIoU "
-              f"{ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 launches {a1}")
-        check(all(np.isfinite(ev[kk]) for kk in ("psnr", "miou", "pq")), "non-finite KITTI scores")
-        check(ev["views"] == eval_views and a1 == len(eval_views),
-              f"run_evaluate rendered {ev['views']} with A1 {a1}, expected {eval_views}")
-
-        zero()
-        t0 = time.perf_counter()
-        files = cli(export_label_transfer.main, "--out", f"{tmp}/export", *args,
-                    "train.eval_step", str(KITTI_STEPS))
-        secs, a1 = time.perf_counter() - t0, counts()["A1"]
-        check(len(files) == 2 * KITTI_FRAMES and a1 == KITTI_FRAMES,
-              f"the export wrote {len(files)} files with A1 {a1}")
-        shutil.rmtree(f"{tmp}/tree/data_2d_semantics")
-        shutil.copytree(f"{tmp}/export", f"{tmp}/tree/data_2d_semantics")
-        back, _, _ = make_dataset(cfg, "cpu")
-        exact = True
-        for i in range(KITTI_FRAMES):
-            sem = read_png(files[2 * i]).astype(np.int32)
-            enc = read_png(files[2 * i + 1]).astype(np.int32)
-            exact = (exact and np.array_equal(back.gt_sem[2 * i].numpy(), L.ids_to_trainids(sem))
-                     and np.array_equal(back.gt_inst[2 * i].numpy(), enc % 1000)
-                     and np.array_equal(enc // 1000, sem))
-        print(f"  export_label_transfer: {len(files)} PNGs in {secs:.2f} s (A1 {a1}); read back "
-              f"by the loader as data_2d_semantics bit for bit: {exact}")
-        check(exact, "the export's round trip through the loader is not exact")
-        del back
-
-        # (c) a configs/kitti360_360.yaml-shaped pool
-        seqs = list(load_config(K360_CFG, []).data.sequences)
-        t0 = time.perf_counter()
-        for i, sq in enumerate(seqs):
-            write_demo_tree(f"{tmp}/tree360", n_frames=K360_FRAMES, hw=KITTI_HW, n_boxes=8,
-                            seed=i, seq=sq, fisheye=True, n_concave=2, frame_start=3353,
-                            device=dev)
-        res["tree360_s"] = time.perf_counter() - t0
-        opts360 = ["data.root", f"{tmp}/tree360", "data.frame_num", str(K360_FRAMES),
-                   "data.stream_window", "0", "model_dir", f"{tmp}/m360",
-                   "record_dir", f"{tmp}/rec360", "result_dir", f"{tmp}/res360"]
-        cfg360 = load_config(K360_CFG, opts360)
-        args360 = ["--cfg_file", K360_CFG, "--device", str(dev), *opts360]
-        t0 = time.perf_counter()
-        ds, _, test360 = make_dataset(cfg360, dev)
+        out = intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
+        ref = intersect_rays_plain(o, d, prims, near, far, k)
         torch.cuda.synchronize()
-        res["build360_s"] = time.perf_counter() - t0
-        cams = ds.cam_model.tolist()
-        print(f"kitti (c): {len(seqs)} fisheye trees of {K360_FRAMES} frames in "
-              f"{res['tree360_s']:.2f} s; make_dataset in {res['build360_s']:.2f} s: images "
-              f"{tuple(ds.images.shape)}, {cams.count(1)} fisheye views; "
-              f"{cfg360.data.n_rays} rays in G = {cfg360.data.views_per_batch} groups")
-        check(ds.images.shape[0] == 3 * K360_FRAMES * len(seqs) and cams.count(1) == K360_FRAMES
-              * len(seqs), f"the -360 pool holds {ds.images.shape[0]} views")
-        groups = []
-        batch_intervals_of_step = step_module.batch_intervals
+        same = same and all(torch.equal(a, b) for a, b in zip(out, ref))
+        nn_, nb, _ = compare(out, ref)
+        total, bad = total + nn_, bad + nb
+    print(f"  A1 vs plain on the {len(eval_views)} evaluated views' tables (N = {o.shape[0]}, "
+          f"P = {prims.world_to_prim.shape[0]}, F = {f}, K = {k}): {bad} of {total} entries "
+          f"differ; bit for bit: {same}")
+    check(same, "A1 differs from its plain version on the demo tree's tables")
+    gen = torch.Generator(dev).manual_seed(4321)
+    view_ids = torch.as_tensor(train_ids, device=dev)
+    same, hits = True, 0
+    for _ in range(20):
+        batch = sample_ray_batch(ds, view_ids, n, g, gen)
+        out = batch_intervals(ds, batch, near, far, k, g)
+        ref = batch_intervals(ds, batch, near, far, k, g, use_kernel=False)
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b) for a, b in zip(out, ref))
+        hits += int(out.mask.sum())
+    print(f"  A2 vs plain on 20 training batches (G = {g}, M = {n // g}): bit for bit: "
+          f"{same} ({hits} hit slots)")
+    check(same, "A2 differs from its plain version on the demo tree's tables")
+    # times at these shapes: A1 on the first test view, A2 on one batch
+    v = int(test_ids[0])
+    o, d = view_rays(ds, v)
+    prims = view_primitives(ds, v)
+    run_k = lambda: intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
+    run_p = lambda: intersect_rays_plain(o, d, prims, near, far, k)
+    t = {"a1_plain": time_ms(run_p), "a1": time_ms(run_k)}
+    t["a1_plain2"], t["a1_2"] = time_ms(run_p), time_ms(run_k)
+    t["a1_dev"], t["a1_host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
+    p_all, p_val = prims.world_to_prim.shape[0], int(prims.valid.sum())
+    t["a1_bound"] = bound(o.shape[0] * p_val * (SLAB_OPS + f * PLANE_OPS),
+                          intersect_cuda.intersect_plan_bytes(1, o.shape[0], p_all, f, k),
+                          PEAK_F32)
+    batch = sample_ray_batch(ds, view_ids, n, g, gen)
+    run_k = lambda: batch_intervals(ds, batch, near, far, k, g)
+    run_p = lambda: batch_intervals(ds, batch, near, far, k, g, use_kernel=False)
+    t["a2_plain"], t["a2"] = time_ms(run_p), time_ms(run_k)
+    t["a2_plain2"], t["a2_2"] = time_ms(run_p), time_ms(run_k)
+    t["a2_dev"], t["a2_host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
+    gv = batch.view.reshape(g, n // g)[:, 0]
+    t["a2_bound"] = bound((n // g) * int(ds.prim_valid[gv].sum()) * (SLAB_OPS + f * PLANE_OPS),
+                          intersect_cuda.intersect_plan_bytes(g, n // g, p_all, f, k), PEAK_F32)
+    res["t"] = t
+    print(f"  A1 at N = {o.shape[0]}, P = {p_all} ({p_val} valid), F = {f}, K = {k}: kernel "
+          f"{t['a1']:.4f} / {t['a1_2']:.4f} ms, plain {t['a1_plain']:.4f} / "
+          f"{t['a1_plain2']:.4f} ms (events, median of 20, P K P K); device {t['a1_dev']:.5f} "
+          f"ms, the wrapper's host time {t['a1_host']:.4f} ms; bound {t['a1_bound'][0]:.5f} "
+          f"ms ({t['a1_bound'][1]})")
+    print(f"  A2 (batch_intervals) at G = {g}, M = {n // g}, F = {f}: kernel {t['a2']:.4f} / "
+          f"{t['a2_2']:.4f} ms, plain {t['a2_plain']:.4f} / {t['a2_plain2']:.4f} ms; device "
+          f"{t['a2_dev']:.5f} ms, host {t['a2_host']:.4f} ms (the gathers of the group "
+          f"tables included); bound {t['a2_bound'][0]:.5f} ms ({t['a2_bound'][1]}); {card}")
+    del ds
 
-        def observed(ds_, batch, *a, **kw):  # the camera model of every A2 group
-            gg = cfg360.data.views_per_batch
-            groups.append(ds_.cam_model[batch.view.reshape(gg, -1)[:, 0]])
-            return batch_intervals_of_step(ds_, batch, *a, **kw)
+    # the training main path
+    zero()
+    t0 = time.perf_counter()
+    tr = cli(train_net.main, *args, "--max_steps", str(KITTI_STEPS))
+    wall = time.perf_counter() - t0
+    launches = counts()
+    losses = tr["losses"]
+    ms = [1000.0 * s / kk for kk, s in tr["windows"][1:]]
+    res["ms_step"] = float(np.median(ms))
+    n_eval = len(test_ids if cfg.train.eval_views <= 0 else test_ids[:cfg.train.eval_views])
+    at100, end = float(losses[100:110].mean()), float(losses[-10:].mean())
+    print(f"  train_net: {KITTI_STEPS} steps in {wall:.2f} s, median {res['ms_step']:.3f} "
+          f"ms/step over {len(ms)} windows after the first (range {min(ms):.3f}-"
+          f"{max(ms):.3f}); loss_total steps 1-10 {float(losses[:10].mean()):.4f}, 101-110 "
+          f"(the semantic losses on) {at100:.4f}, last 10 {end:.4f}; in-training "
+          f"evaluations {[(e[0], round(e[1], 3)) for e in tr['evals']]}; launches {launches}; "
+          f"{card}")
+    for step, secs, ev in tr["evals"]:
+        print(f"  eval@{step}: PSNR {ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
+    check(bool(np.isfinite(losses).all()), "non-finite KITTI-360 training loss")
+    check(end < at100, f"KITTI-360 loss did not fall after step 100 ({at100} -> {end})")
+    want = {"A1": len(tr["evals"]) * n_eval, "A2": KITTI_STEPS, "B": KITTI_STEPS,
+            "B'": KITTI_STEPS, "C": 0, "C'": 0}
+    check(len(tr["evals"]) == 1 and launches == want,
+          f"KITTI-360 launches {launches}, expected {want}")
 
-        step_module.batch_intervals = observed
-        zero()
+    zero()
+    ev = cli(run.main, "--type", "evaluate", *args, "train.eval_step", str(KITTI_STEPS))
+    a1 = counts()["A1"]
+    print(f"  run --type evaluate: {len(ev['views'])} views, render s/view median "
+          f"{np.median(ev['render_seconds']):.3f}; PSNR {ev['psnr']:.4f}, mIoU "
+          f"{ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 launches {a1}")
+    check(all(np.isfinite(ev[kk]) for kk in ("psnr", "miou", "pq")), "non-finite KITTI scores")
+    check(ev["views"] == eval_views and a1 == len(eval_views),
+          f"run_evaluate rendered {ev['views']} with A1 {a1}, expected {eval_views}")
+
+    zero()
+    t0 = time.perf_counter()
+    files = cli(export_label_transfer.main, "--out", f"{tmp}/export", *args,
+                "train.eval_step", str(KITTI_STEPS))
+    secs, a1 = time.perf_counter() - t0, counts()["A1"]
+    check(len(files) == 2 * KITTI_FRAMES and a1 == KITTI_FRAMES,
+          f"the export wrote {len(files)} files with A1 {a1}")
+    shutil.rmtree(f"{tmp}/tree/data_2d_semantics")
+    shutil.copytree(f"{tmp}/export", f"{tmp}/tree/data_2d_semantics")
+    back, _, _ = make_dataset(cfg, "cpu")
+    exact = True
+    for i in range(KITTI_FRAMES):
+        sem = read_png(files[2 * i]).astype(np.int32)
+        enc = read_png(files[2 * i + 1]).astype(np.int32)
+        exact = (exact and np.array_equal(back.gt_sem[2 * i].numpy(), L.ids_to_trainids(sem))
+                 and np.array_equal(back.gt_inst[2 * i].numpy(), enc % 1000)
+                 and np.array_equal(enc // 1000, sem))
+    print(f"  export_label_transfer: {len(files)} PNGs in {secs:.2f} s (A1 {a1}); read back "
+          f"by the loader as data_2d_semantics bit for bit: {exact}")
+    check(exact, "the export's round trip through the loader is not exact")
+    del back
+
+    res["args"], res["cfg"] = args, cfg
+    return res
+
+
+def stream_phase(dev, engine, tmp):
+    """13 (a) configs/kitti360_360.yaml as shipped, streaming on; (b) the
+    panorama on its checkpoint (see the module docstring)."""
+    from panopticnerf_tpu_torch import run, train_net
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import stream as stream_mod
+    from panopticnerf_tpu_torch.data import view_primitives
+    from panopticnerf_tpu_torch.data.dataset import train_test_split
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.models import make_network
+    from panopticnerf_tpu_torch.ops import intersect_cuda
+    from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
+    from panopticnerf_tpu_torch.render import panorama_rays, render_panorama
+    from panopticnerf_tpu_torch.train import eval_state_dict
+    from panopticnerf_tpu_torch.train import step as step_module
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    seqs = list(load_config(K360_CFG, []).data.sequences)
+    t0 = time.perf_counter()
+    for i, sq in enumerate(seqs):
+        write_demo_tree(f"{tmp}/tree360", n_frames=K360_FRAMES, hw=KITTI_HW, n_boxes=8, seed=i,
+                        seq=sq, fisheye=True, n_concave=2, frame_start=3353, device=dev)
+    tree_s = time.perf_counter() - t0
+    base = ["data.root", f"{tmp}/tree360", "data.frame_num", str(K360_FRAMES),
+            "data.stream_refresh_steps", str(K360_REFRESH), "train.pretrain_steps",
+            str(K360_PRETRAIN), "record_dir", f"{tmp}/rec360", "result_dir", f"{tmp}/res360"]
+    args = lambda run_dir, *extra: ["--cfg_file", K360_CFG, "--device", str(dev), *base,
+                                    "model_dir", f"{tmp}/{run_dir}", *extra]
+    cfg = load_config(K360_CFG, base + ["model_dir", f"{tmp}/m360"])
+    w, g, n = cfg.data.stream_window, cfg.data.views_per_batch, cfg.data.n_rays
+    check(w == 64, f"configs/kitti360_360.yaml ships data.stream_window {w}")
+    n_views = 3 * K360_FRAMES * len(seqs)
+    train_ids, test_ids = train_test_split(n_views, cfg.data.test_every)
+    print(f"stream (a): {len(seqs)} fisheye trees of {K360_FRAMES} frames ({n_views} views of "
+          f"{KITTI_HW[0] // 2}x{KITTI_HW[1] // 2}, {len(train_ids)} for training) in "
+          f"{tree_s:.2f} s; "
+          f"configs/kitti360_360.yaml: window {w}, refreshed every {K360_REFRESH} steps, {n} rays "
+          f"in G = {g} groups, semantic losses from step {K360_PRETRAIN}")
+    check(len(train_ids) >= 2 * w, f"a training pool of {len(train_ids)} views for a window of {w}")
+
+    made, equal, groups = [], [], []
+
+    class Checked(stream_mod.ViewWindowStreamer):
+        """The port's streamer, remembered; with `compare`, each window it
+        swaps in is held against a synchronous upload of its host slice."""
+        compare = False
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+            self._check(self.current())
+
+        def advance(self):
+            out = super().advance()
+            self._check(out)
+            return out
+
+        def _check(self, win):
+            if Checked.compare:
+                ref = self.host.window(win[1])
+                equal.append(all((a is None and b is None) or torch.equal(a, b)
+                                 for a, b in zip(win[0], ref)))
+
+    batch_intervals_of_step = step_module.batch_intervals
+
+    def observed(ds_, batch, *a, **kw):  # each A2 group's view and camera model
+        gv = batch.view.reshape(g, -1)[:, 0]
+        groups.append((made[-1].current()[0] is ds_, ds_.images.shape[0], int(gv.max()),
+                       ds_.cam_model[gv]))
+        return batch_intervals_of_step(ds_, batch, *a, **kw)
+
+    def train(run_dir, steps, *extra, out=None, observe=True):
+        if observe:
+            step_module.batch_intervals, engine.ViewWindowStreamer = observed, Checked
         try:
-            tr = cli(train_net.main, *args360, "--max_steps", str(K360_STEPS))
+            return cli(train_net.main, *args(run_dir, *extra), "--max_steps", str(steps), out=out)
         finally:
             step_module.batch_intervals = batch_intervals_of_step
-        launches = counts()
-        models = torch.cat(groups).tolist()
-        ms360 = [1000.0 * s / kk for kk, s in tr["windows"][1:]]
-        res["ms_step360"] = float(np.median(ms360))
-        print(f"  train_net: {K360_STEPS} steps, median {res['ms_step360']:.3f} ms/step; A2 "
-              f"groups: {models.count(1)} fisheye, {models.count(0)} perspective; loss_total "
-              f"first 10 {float(tr['losses'][:10].mean()):.4f}, last 10 "
-              f"{float(tr['losses'][-10:].mean()):.4f}; launches {launches}; {card}")
-        check(bool(np.isfinite(tr["losses"]).all()), "non-finite -360 training loss")
-        check(models.count(1) > 0 and models.count(0) > 0,
-              "the -360 run did not mix fisheye and perspective groups")
-        want = {"A1": 0, "A2": K360_STEPS, "B": 2 * K360_STEPS, "B'": 2 * K360_STEPS,
-                "C": 0, "C'": 0}
-        check(launches == want, f"-360 launches {launches}, expected {want}")
-        zero()
-        ev = cli(run.main, "--type", "evaluate", *args360, "train.eval_step", str(K360_STEPS))
-        a1 = counts()["A1"]
-        fe = [v for v in ev["views"] if cams[v] == 1]
-        masked = [v for v in fe if not bool(engine._truth(ds, v)["valid"].all())]
-        print(f"  run --type evaluate: {len(ev['views'])} views ({len(fe)} fisheye, each with its valid "
-              f"mask: {len(masked)} of them mask pixels out); PSNR {ev['psnr']:.4f}, mIoU "
-              f"{ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 launches {a1}")
-        check(all(np.isfinite(ev[kk]) for kk in ("psnr", "miou", "pq")), "non-finite -360 scores")
-        check(a1 == len(ev["views"]) and fe and masked == fe,
-              f"-360 evaluation: A1 {a1}, fisheye views {fe}, masked {masked}")
-    return res
+            engine.ViewWindowStreamer = stream_mod.ViewWindowStreamer
+
+    want = {"A1": 0, "A2": K360_STEPS, "B": 2 * K360_STEPS, "B'": 2 * K360_STEPS, "C": 0, "C'": 0}
+    ms_of = lambda tr: [1000.0 * s / k for k, s in tr["windows"][1:]]  # the first warms up
+
+    # the streamed run, clean
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    logs = []
+    tr = train("m360", K360_STEPS, out=logs)
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    launches = launch_counts()
+    st = tr["stream"]
+    host = made[-1].host.ds  # the pool, on the host
+    pool_bytes = nbytes(*host)
+    view_bytes = sum(t[0].numel() * t.element_size() for name, t in host._asdict().items()
+                     if t is not None and name in stream_mod.PER_VIEW)
+    ms = ms_of(tr)
+    refresh_lines = [ln for ln in logs[0].splitlines() if ln.startswith("stream window refresh")]
+    for line in refresh_lines:
+        print(f"  {line}")
+    print(f"  windows (first step, views): {[(s_, len(ids)) for s_, ids in st['windows']]}; each "
+          f"advance() blocked {[round(1e3 * b, 3) for b in st['blocked']]} ms, its copy already "
+          f"done on the device: {st['ready']}")
+    live = [x[0] for x in groups]
+    in_window = all(live) and max(x[2] for x in groups) < w and {x[1] for x in groups} == {w}
+    models = torch.cat([x[3] for x in groups]).tolist()
+    print(f"  A2 groups: {len(groups)} steps x {g}, every group's view in the resident window "
+          f"of {w}: {in_window}; "
+          f"{models.count(1)} fisheye / {models.count(0)} perspective groups")
+    print(f"  streamed: median {np.median(ms):.3f} ms/step over {len(ms)} windows of "
+          f"{cfg.train.log_interval} after the first ({' '.join(f'{v:.3f}' for v in ms)}); "
+          f"peak device memory {peak / 2**20:.1f} MiB above the "
+          f"{before / 2**20:.1f} MiB allocated before; the host pool "
+          f"{pool_bytes / 2**20:.1f} MiB, one view {view_bytes / 2**20:.3f} MiB, one window "
+          f"{w * view_bytes / 2**20:.1f} MiB; launches {launches}; {card}")
+    check(len(refresh_lines) == 3 and [s_ for s_, _ in st["windows"]] == [0, 25, 50, 75],
+          f"refreshes {refresh_lines}, windows at {[s_ for s_, _ in st['windows']]}")
+    check(in_window, "an A2 group read a view outside the resident window")
+    check(models.count(1) > 0 and models.count(0) > 0, "the groups did not mix camera models")
+    check(launches == want, f"streamed launches {launches}, expected {want}")
+    check(bool(np.isfinite(tr["losses"]).all()), "non-finite streamed loss")
+
+    # the same seed again, stopped at 60 and resumed, each window held against its host slice
+    Checked.compare = True
+    zero_counts()
+    first = train("m360b", 60)
+    again = train("m360b", K360_STEPS)
+    Checked.compare = False
+    losses = np.concatenate([first["losses"], again["losses"]])
+    params_equal = all(torch.equal(v, again["state"].model.state_dict()[k])
+                       for k, v in tr["state"].model.state_dict().items())
+    print(f"  the same seed, stopped at 60 and resumed to {K360_STEPS}: losses equal bit for bit "
+          f"{np.array_equal(losses, tr['losses'])}, parameters {params_equal}; windows after "
+          f"the resume at {[s_ for s_, _ in again['stream']['windows']]}; {len(equal)} resident "
+          f"windows equal to their host slice bit for bit: {all(equal)}; launches "
+          f"{launch_counts()}")
+    check(np.array_equal(losses, tr["losses"]) and params_equal,
+          "two streamed runs of one seed (one resumed) differ")
+    check(len(equal) == 5 and all(equal), f"resident windows vs host slices: {equal}")
+    check(launch_counts() == want, f"launches of the resumed pair {launch_counts()}")
+    del first, again
+    made.clear()  # their resident windows, so that the next run starts from an empty card
+
+    # the same run with the pool on the device
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_flat = torch.cuda.memory_allocated(dev)
+    flat = train("m360u", K360_STEPS, "data.stream_window", "0", observe=False)
+    peak_flat = torch.cuda.max_memory_allocated(dev) - before_flat
+    ms_flat = ms_of(flat)
+    print(f"  data.stream_window 0: median {np.median(ms_flat):.3f} ms/step "
+          f"({' '.join(f'{v:.3f}' for v in ms_flat)}); peak device memory "
+          f"{peak_flat / 2**20:.1f} MiB "
+          f"above the {before_flat / 2**20:.1f} MiB allocated before, against {peak / 2**20:.1f} "
+          f"streamed; launches {launch_counts()}; {card}")
+    check(launch_counts() == want and bool(np.isfinite(flat["losses"]).all()),
+          f"unstreamed launches {launch_counts()}")
+    del flat
+
+    # run --type evaluate streamed and not: the same scores bit for bit
+    evs = {}
+    for window in ("64", "0"):
+        zero_counts()
+        evs[window] = cli(run.main, "--type", "evaluate", *args("m360"), "data.stream_window",
+                          window, "train.eval_step", str(K360_STEPS))
+        a1 = launch_counts()["A1"]
+        ev = evs[window]
+        print(f"  run --type evaluate at data.stream_window {window}: {len(ev['views'])} views, "
+              f"render s/view median {np.median(ev['render_seconds']):.3f}; PSNR "
+              f"{ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 {a1}")
+        check(a1 == len(ev["views"]) and all(np.isfinite(ev[k]) for k in ("psnr", "miou", "pq")),
+              f"evaluation at stream_window {window}: A1 {a1}")
+    cams = host.cam_model.tolist()
+    fe = [v for v in evs["64"]["views"] if cams[v] == 1]
+    masked = [v for v in fe if not bool(engine._truth(host, v)["valid"].all())]
+    print(f"  equal bit for bit: {same_scores(evs['64'], evs['0'])}; {len(fe)} fisheye views "
+          f"evaluated, each with its valid mask ({len(masked)} mask pixels out)")
+    check(same_scores(evs["64"], evs["0"]), "evaluation differs between stream_window 64 and 0")
+    check(fe and masked == fe, f"fisheye views {fe}, masked {masked}")
+
+    # (b) the panorama on (a)'s checkpoint
+    zero_counts()
+    t0 = time.perf_counter()
+    files = cli(run.main, "--type", "visualize", "--panorama", ",".join(map(str, PANO_HW)),
+                *args("m360"), "train.eval_step", str(K360_STEPS))
+    secs = time.perf_counter() - t0
+    a1 = launch_counts()["A1"]
+    view = int(test_ids[len(test_ids) // 2])
+    pano = sorted(os.path.basename(f) for f in files
+                  if os.path.basename(f).startswith(f"{1_000_000 + view}_"))
+    print(f"stream (b): run --type visualize --panorama {PANO_HW[0]},{PANO_HW[1]}: {len(files)} "
+          f"files in {secs:.2f} s, panorama of view {view}: {pano}; A1 {a1} = {len(test_ids)} "
+          f"test views + 1")
+    check(a1 == len(test_ids) + 1, f"visualize launched A1 {a1} times")
+    check(pano == [f"{1_000_000 + view}_{k}.png" for k in ("depth", "panoptic", "rgb", "semantic")],
+          f"panorama files {pano}")
+    model = make_network(cfg, dev).eval()
+    model.load_state_dict(eval_state_dict(tr["state"]))
+    pds, pv = engine._view_on(host, view, dev)
+    c2w = pds.c2w[pv]
+    o, d = panorama_rays(c2w[:, 3], c2w[:, :3], *PANO_HW)
+    prims = view_primitives(pds, pv)
+    near, far, k = cfg.render.near, cfg.render.far, cfg.data.max_intervals
+    out = intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
+    ref = intersect_rays_plain(o, d, prims, near, far, k)
+    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+    t = {"a1": time_ms(lambda: intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)),
+         "plain": time_ms(lambda: intersect_rays_plain(o, d, prims, near, far, k), reps=5)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_panorama(model, pds, pv, PANO_HW, cfg)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    f, p_all = prims.cut_planes.shape[1], prims.world_to_prim.shape[0]
+    p_val = int(prims.valid.sum())
+    a1_bound = bound(o.shape[0] * p_val * (SLAB_OPS + f * PLANE_OPS),
+                     intersect_cuda.intersect_plan_bytes(1, o.shape[0], p_all, f, k), PEAK_F32)
+    print(f"  the panorama's A1 at N = {o.shape[0]}, P = {p_all} ({p_val} valid), F = {f}, K = "
+          f"{k}: bit for bit with its plain version {same} ({int(out.mask.sum())} hit slots); "
+          f"kernel {t['a1']:.4f} ms, plain {t['plain']:.4f} ms (events around the call); bound "
+          f"{a1_bound[0]:.5f} ms ({a1_bound[1]}); render_panorama {render_s:.3f} s; {card}")
+    check(same, "A1 differs from its plain version on the panorama's rays")
+    small = (32, 64)
+    gpu = render_panorama(model, pds, pv, small, cfg)
+    cpu_model = make_network(cfg, "cpu").eval()
+    cpu_model.load_state_dict({kk: v.cpu() for kk, v in model.state_dict().items()})
+    cpu = render_panorama(cpu_model, stream_mod.views_to(host, [view], "cpu"), 0, small, cfg)
+    gap = render_gap(gpu, cpu)
+    print(f"  a {small[0]}x{small[1]} panorama, card against the CPU (plain versions): rgb max |d| "
+          f"{gap[0]:.3e}, mean |d| {gap[1]:.3e}; depth max |d| / max depth {gap[2]:.3e}; learned "
+          f"semantic argmax agrees on {100 * gap[3]:.2f} % of rays (tolerance {RENDER_GAP})")
+    check(gap[0] <= RENDER_GAP["rgb max"] and gap[1] <= RENDER_GAP["rgb mean"]
+          and gap[2] <= RENDER_GAP["depth"] and gap[3] >= RENDER_GAP["agree"],
+          f"the card's panorama is off the CPU's: {gap}")
+    return {"ms": float(np.median(ms)), "ms_flat": float(np.median(ms_flat))}
+
+
+def mixed_phase(dev, kitti):
+    """13 (c) fully mixed batches on phase 12's tree (see the module docstring)."""
+    from panopticnerf_tpu_torch import train_net
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset
+    from panopticnerf_tpu_torch.data.dataset import batch_intervals, sample_ray_batch
+    from panopticnerf_tpu_torch.ops.intersect import Primitives, intersect_rays_per_ray
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    args = [*kitti["args"], "data.views_per_batch", "0"]
+    args[args.index("model_dir") + 1] += "_mixed"
+    zero_counts()
+    tr = cli(train_net.main, *args, "--max_steps", str(MIXED_STEPS))
+    launches = launch_counts()
+    ms = [1000.0 * s / k for k, s in tr["windows"][1:]]
+    losses = tr["losses"]
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"mixed (c): configs/kitti360_panoptic.yaml with data.views_per_batch 0, {MIXED_STEPS} "
+          f"steps: median {np.median(ms):.3f} ms/step (range {min(ms):.3f}-{max(ms):.3f}) against "
+          f"{kitti['ms_step']:.3f} grouped (phase 12 (b)); loss_total first 10 {first:.4f}, last "
+          f"10 {last:.4f}; launches {launches}; {card}")
+    want = {"A1": 0, "A2": 0, "B": MIXED_STEPS, "B'": MIXED_STEPS, "C": 0, "C'": 0}
+    check(launches == want, f"mixed launches {launches}, expected {want}")
+    check(bool(np.isfinite(losses).all()) and last < first,
+          f"mixed loss not finite and falling ({first} -> {last})")
+    # the whole-field kernels on mixed batches (the 4x64 coarse stays plain)
+    zero_counts()
+    args[args.index("model_dir") + 1] += "_field"
+    fr = cli(train_net.main, *args, "model.pallas_mode", "field", "--max_steps",
+             str(MIXED_FIELD_STEPS))
+    launches = launch_counts()
+    print(f"  model.pallas_mode field, {MIXED_FIELD_STEPS} steps: loss_total first 5 "
+          f"{float(fr['losses'][:5].mean()):.4f}, last 5 {float(fr['losses'][-5:].mean()):.4f}; "
+          f"launches {launches}")
+    want = {"A1": 0, "A2": 0, "B": 0, "B'": 0, "C": MIXED_FIELD_STEPS, "C'": MIXED_FIELD_STEPS}
+    check(launches == want and bool(np.isfinite(fr["losses"]).all()),
+          f"mixed field-mode launches {launches}, expected {want}")
+
+    cfg = load_config(KITTI_CFG, args[args.index("--device") + 2:])
+    near, far, k, n = cfg.render.near, cfg.render.far, cfg.data.max_intervals, cfg.data.n_rays
+    ds, train_ids, _ = make_dataset(cfg, dev)
+    gen = torch.Generator(dev).manual_seed(99)
+    batch = sample_ray_batch(ds, torch.as_tensor(train_ids, device=dev), n, 0, gen)
+    out = batch_intervals(ds, batch, near, far, k, 0)
+    vi = batch.view.cpu()
+    cpu = intersect_rays_per_ray(
+        batch.rays_o.cpu(), batch.rays_d.cpu(),
+        Primitives(ds.prim_w2p.cpu()[vi], ds.prim_sem.cpu()[vi], ds.prim_inst.cpu()[vi],
+                   ds.prim_valid.cpu()[vi], ds.prim_planes.cpu()[vi]), near, far, k)
+    labels = all(torch.equal(a.cpu(), b) for a, b in
+                 ((out.mask, cpu.mask), (out.semantic, cpu.semantic), (out.instance, cpu.instance)))
+    hit = cpu.mask
+    dt = max(float((out.t_in.cpu() - cpu.t_in)[hit].abs().max()),
+             float((out.t_out.cpu() - cpu.t_out)[hit].abs().max())) if bool(hit.any()) else 0.0
+    per_ray_ms = time_ms(lambda: batch_intervals(ds, batch, near, far, k, 0))
+    print(f"  intersect_rays_per_ray on one batch of {n} rays (P = {ds.prim_w2p.shape[1]}, F = "
+          f"{ds.prim_planes.shape[2]}, K = {k}), card against the CPU: masks and ids equal "
+          f"{labels} ({int(hit.sum())} hit slots), max |dt| {dt:.3e} (tolerance {PER_RAY_DT}); "
+          f"{per_ray_ms:.4f} ms on the card (batch_intervals, the per-ray gathers included); "
+          f"{card}")
+    check(labels and dt <= PER_RAY_DT, "the per-ray intersection differs between card and CPU")
+
+
+def keep_phase(cfg, dev, engine, ds, model, full):
+    """13 (d) keep-M evaluation of the flagship checkpoint (see the module
+    docstring); `full` is phase 5's untruncated run_evaluate."""
+    import dataclasses
+
+    from panopticnerf_tpu_torch.data import view_primitives, view_rays
+    from panopticnerf_tpu_torch.models import make_network
+    from panopticnerf_tpu_torch.ops.intersect import intersect_rays
+    from panopticnerf_tpu_torch.render import SceneBounds, eval_render_cfg, render_image_rays
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    keep = lambda m: dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, eval_keep_samples=m))
+    zero_counts()
+    res = engine.run_evaluate(keep(KEEP_M), dev, log=lambda *a: None)
+    a1 = launch_counts()["A1"]
+    sv, sv_full = np.median(res["render_seconds"][1:]), np.median(full["render_seconds"][1:])
+    print(f"keep (d): run_evaluate of the flagship checkpoint with render.eval_keep_samples "
+          f"{KEEP_M}: PSNR {res['psnr']:.4f} / mIoU {res['miou']:.4f} / PQ {res['pq']:.4f} against "
+          f"{full['psnr']:.4f} / {full['miou']:.4f} / {full['pq']:.4f} untruncated; {sv:.4f} "
+          f"s/view "
+          f"against {sv_full:.4f} (medians after the first view); A1 {a1}; {card}")
+    check(a1 == len(res["views"]) and all(np.isfinite(res[k]) for k in ("psnr", "miou", "pq")),
+          f"keep-M evaluation: A1 {a1} for {len(res['views'])} views")
+    rc = eval_render_cfg(cfg).render
+    s_all = rc.n_samples + rc.n_importance
+    v = int(res["views"][0])
+    untruncated = engine._render_view(cfg, model, ds, v)
+    at_s = engine._render_view(keep(s_all), model, ds, v)
+    same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(untruncated, at_s))
+    print(f"  render.eval_keep_samples {s_all} (= S) on view {v} equals the untruncated render "
+          f"bit for bit: {same}")
+    check(same, "keep-M at m = S changed the render")
+    o, d = view_rays(ds, v)
+    o, d = o[:4096], d[:4096]
+    prims = view_primitives(ds, v)
+    kc = keep(KEEP_M)
+    near, far, k = cfg.render.near, cfg.render.far, cfg.data.max_intervals
+    gpu = render_image_rays(model, o, d, SceneBounds(ds.bounds_center, ds.bounds_scale), kc,
+                            iv=intersect_rays(o, d, prims, near, far, k))
+    cpu_model = make_network(cfg, "cpu").eval()
+    cpu_model.load_state_dict({kk: t.cpu() for kk, t in model.state_dict().items()})
+    cprims = type(prims)(*[None if t is None else t.cpu() for t in prims])
+    oc, dc = o.cpu(), d.cpu()
+    cpu = render_image_rays(cpu_model, oc, dc,
+                            SceneBounds(ds.bounds_center.cpu(), ds.bounds_scale.cpu()), kc,
+                            iv=intersect_rays(oc, dc, cprims, near, far, k))
+    gap = render_gap(gpu, cpu)
+    print(f"  the first 4096 rays of view {v} at keep {KEEP_M}, card against the CPU: rgb max |d| "
+          f"{gap[0]:.3e}, mean |d| {gap[1]:.3e}; depth max |d| / max depth {gap[2]:.3e}; "
+          f"learned semantic argmax agrees on {100 * gap[3]:.2f} % (tolerance {RENDER_GAP})")
+    check(gap[0] <= RENDER_GAP["rgb max"] and gap[1] <= RENDER_GAP["rgb mean"]
+          and gap[2] <= RENDER_GAP["depth"] and gap[3] >= RENDER_GAP["agree"],
+          f"the card's keep-M render is off the CPU's: {gap}")
 
 
 def main():
@@ -1282,8 +1645,13 @@ def main():
 
     engine_phase(dev, engine, run)
 
-    # 12. KITTI-360 on demo trees
-    kitti_phase(dev, engine)
+    # 12. KITTI-360 on a demo tree; 13 (a)-(c) streaming, the panorama, mixed batches
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = kitti_phase(dev, engine, tmp)
+        stream_phase(dev, engine, tmp)
+        mixed_phase(dev, kitti)
+    # 13 (d) keep-M on the flagship checkpoint, beside phase 5's full render
+    keep_phase(cfg, dev, engine, ds, model, res)
 
     # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
     # (C' on C's saved activations, as mode field runs it). No single PyTorch

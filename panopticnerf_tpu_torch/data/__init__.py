@@ -13,16 +13,14 @@ from panopticnerf_tpu_torch.data.dataset import (
 
 
 def make_dataset(cfg, device: torch.device | str):
-    """-> (DeviceDataset on `device`, train_ids, test_ids): the synthetic
-    scene, or KITTI-360 with every sequence of `data.sequences` (else
-    `data.sequence`) in one view pool, built on the host and moved to the
-    device once. Streaming (`data.stream_window` > 0) is not ported yet and
-    raises, so that no run trains a different schedule of views silently."""
+    """-> (DeviceDataset, train_ids, test_ids): the synthetic scene, or
+    KITTI-360 with every sequence of `data.sequences` (else `data.sequence`)
+    in one view pool, built on the host and moved to `device` once. With
+    streaming (`data.stream_window` > 0) the pool stays on the host: only a
+    rotating window of it (`data/stream.py`) and the views an evaluation
+    touches go to the device, while the steps and renders still run there."""
     if cfg.data.stream_window > 0:
-        raise NotImplementedError(
-            f"data.stream_window {cfg.data.stream_window}: streaming a rotating window of "
-            f"views is not ported yet (ROADMAP 1.6); set data.stream_window 0 to keep the "
-            f"whole pool on the device")
+        device = "cpu"
     if cfg.data.dataset == "synthetic":
         from panopticnerf_tpu_torch.data.synthetic import build_synthetic_dataset
 

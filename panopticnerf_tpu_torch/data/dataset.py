@@ -3,12 +3,13 @@
 All views — images, poses, pseudo-labels, depth, padded per-view primitive
 tables and evaluation ground truth — live as tensors on one device. The
 evaluation path reads whole views from it (`view_rays`, `view_primitives`);
-the training step draws grouped ray batches from it (`sample_ray_batch`)
-and intersects them group by group (`batch_intervals`, kernel A2 on the
-card). Only grouped batches (`data.views_per_batch` G > 0) are ported: the
-fully mixed batch needs the per-ray intersection, not ported yet. Views of
-one pool may mix perspective and MEI fisheye cameras (`cam_model`), and
-`concat_datasets` joins the pools of several sequences.
+the training step draws ray batches from it (`sample_ray_batch`) and
+intersects them (`batch_intervals`): grouped batches (`data.views_per_batch`
+G > 0) group by group (kernel A2 on the card), fully mixed batches (G = 0)
+ray by ray against each ray's own view table. Views of one pool may mix
+perspective and MEI fisheye cameras (`cam_model`), and `concat_datasets`
+joins the pools of several sequences. A streamed run keeps the pool on the
+host and only a window of it here (`data/stream.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from panopticnerf_tpu_torch.ops.intersect import (
     RayIntervals,
     intersect_groups,
     intersect_groups_plain,
+    intersect_rays_per_ray,
 )
 from panopticnerf_tpu_torch.ops.rays import (
     FisheyeParams,
@@ -65,8 +67,8 @@ class RayBatch(NamedTuple):
 
 class BatchDraws(NamedTuple):
     """The random indices of one ray batch (for replaying a reference's
-    draws): `group` (G,) positions in `view_ids`, `u` / `v` (N,) pixel
-    column / row."""
+    draws): `group` positions in `view_ids`, (G,) one per group or (N,) one
+    per ray in a fully mixed batch; `u` / `v` (N,) pixel column / row."""
 
     group: torch.Tensor
     u: torch.Tensor
@@ -77,30 +79,30 @@ def sample_ray_batch(ds: DeviceDataset, view_ids: torch.Tensor, n_rays: int,
                      views_per_batch: int,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[BatchDraws] = None) -> RayBatch:
-    """Draw a grouped ray batch on the dataset's device.
+    """Draw a ray batch on the dataset's device.
 
-    G = `views_per_batch` views are drawn from the pool `view_ids` (T,)
-    (with replacement), and each contributes a contiguous group of N / G
-    rays through uniformly drawn pixels. The indices come from `generator`
+    With G = `views_per_batch` > 0, G views are drawn from the pool
+    `view_ids` (T,) (with replacement), and each contributes a contiguous
+    group of N / G rays; with G = 0 (fully mixed) every ray draws its own
+    view. The pixels are drawn uniformly. The indices come from `generator`
     (a generator on the dataset's device), or from `draws`.
     """
-    if views_per_batch <= 0:
-        raise NotImplementedError(
-            "data.views_per_batch 0 (fully mixed batches) needs the per-ray "
-            "intersection, which is not ported yet")
-    if n_rays % views_per_batch:
+    if views_per_batch > 0 and n_rays % views_per_batch:
         raise ValueError(f"data.n_rays={n_rays} must be divisible by "
                          f"data.views_per_batch={views_per_batch}")
     h, w = ds.images.shape[1:3]
     dev = ds.images.device
     g = views_per_batch
     if draws is None:
-        group = torch.randint(0, view_ids.shape[0], (g,), generator=generator, device=dev)
+        group = torch.randint(0, view_ids.shape[0], (g if g > 0 else n_rays,),
+                              generator=generator, device=dev)
         u = torch.randint(0, w, (n_rays,), generator=generator, device=dev)
         v = torch.randint(0, h, (n_rays,), generator=generator, device=dev)
     else:
         group, u, v = (x.to(dev, torch.long) for x in draws)
-    vi = torch.repeat_interleave(view_ids.to(dev, torch.long)[group], n_rays // g)
+    vi = view_ids.to(dev, torch.long)[group]
+    if g > 0:
+        vi = torch.repeat_interleave(vi, n_rays // g)
 
     rgb = ds.images[vi, v, u].to(torch.float32) / 255.0
     pseudo = ds.pseudo[vi, v, u]
@@ -134,14 +136,23 @@ def _pixel_dirs(ds: DeviceDataset, vi: torch.Tensor, uv: torch.Tensor) -> torch.
 
 def batch_intervals(ds: DeviceDataset, batch: RayBatch, near: float, far: float,
                     k: int, views_per_batch: int, use_kernel: bool = True) -> RayIntervals:
-    """Intersect a grouped batch against each group's view table: G tables
-    gathered once, then `intersect_groups` (kernel A2 on CUDA tensors) — or,
-    with `use_kernel` False (`render.use_pallas_intersect false`), its plain
-    version on any device. -> RayIntervals (N, K)."""
+    """Intersect a batch against each ray's view table -> RayIntervals (N, K).
+
+    Grouped (`views_per_batch` G > 0): G tables gathered once, then
+    `intersect_groups` (kernel A2 on CUDA tensors), or with `use_kernel`
+    False (`render.use_pallas_intersect false`) its plain version on any
+    device. Fully mixed (G = 0): a table gathered per ray, then
+    `intersect_rays_per_ray` (plain PyTorch on every device, as in the
+    reference; `use_kernel` does not apply).
+    """
     if views_per_batch <= 0:
-        raise NotImplementedError(
-            "batch_intervals with data.views_per_batch 0 needs "
-            "intersect_rays_per_ray, which is not ported yet")
+        vi = batch.view
+        prims = Primitives(
+            world_to_prim=ds.prim_w2p[vi], semantic=ds.prim_sem[vi],
+            instance=ds.prim_inst[vi], valid=ds.prim_valid[vi],
+            cut_planes=ds.prim_planes[vi] if ds.prim_planes is not None else None,
+        )
+        return intersect_rays_per_ray(batch.rays_o, batch.rays_d, prims, near, far, k)
     g = views_per_batch
     n = batch.rays_o.shape[0]
     gv = batch.view.reshape(g, n // g)[:, 0]                   # (G,) group views

@@ -2,20 +2,23 @@
 `panopticnerf_tpu/engine.py`).
 
 `run_train` trains from `init_params` on a device: warm start
-(`train.init_from`), resume (`train.resume`), the step loop with one
-stacked readback of the step's stats every `train.log_interval` steps,
+(`train.init_from`), resume (`train.resume`), a rotating window of views
+streamed from a host-resident pool (`data.stream_window`), the step loop
+with one stacked readback of the step's stats every `train.log_interval` steps,
 recorder lines, saves every `train.save_ep` epochs and at the end, an
 evaluation of the EMA weights every `train.eval_ep` epochs with the
 metric-selected checkpoint (`train.save_best`), and a checkpoint at the
 next step boundary after SIGTERM. `run_evaluate` restores a checkpoint,
 renders every evaluated view (intersection kernel, then the tiled render)
-and scores PSNR / mIoU / PQ; `run_visualize` writes images, label maps and
-a novel-pose trajectory; `run_network` times the training step.
+and scores PSNR / mIoU / PQ; `run_visualize` writes images, label maps, a
+novel-pose trajectory and a 360-degree panorama; `run_network` times the
+training step. Under streaming every render moves the views it touches to
+the device.
 
 The port's checkpoints live under `<model_dir>/torch/` (`port_roots`).
 
-Not ported yet (ROADMAP Queue 1): streaming (1.6), the panorama (1.7) and
-data parallelism (1.8).
+Not ported yet (ROADMAP Queue 1): data parallelism over GPUs (1.8), and
+LPIPS, the sweep, the staged runner and the profiling helpers (1.9).
 """
 
 from __future__ import annotations
@@ -33,11 +36,16 @@ import torch
 
 from panopticnerf_tpu_torch.config import Config
 from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+from panopticnerf_tpu_torch.data.stream import (
+    HostViews,
+    ViewWindowStreamer,
+    draw_window,
+    views_to,
+)
 from panopticnerf_tpu_torch.eval import make_evaluator
 from panopticnerf_tpu_torch.models import init_params, make_network
-from panopticnerf_tpu_torch.ops.intersect import intersect_rays
 from panopticnerf_tpu_torch.ops.rays import full_image_uv, gen_rays_perspective
-from panopticnerf_tpu_torch.render import SceneBounds, render_image_rays
+from panopticnerf_tpu_torch.render import SceneBounds, intersect_and_render, render_panorama
 from panopticnerf_tpu_torch.train import (
     eval_state_dict,
     lr_at,
@@ -113,22 +121,25 @@ def _restore_for_eval(cfg: Config, device: torch.device | str):
     return ds, test_ids, model, step
 
 
-def _intersect_and_render(cfg: Config, model, o, d, prims, bounds):
-    """Interval intersection (the CUDA kernel on a CUDA device), then the
-    tiled full-image render. Every full-image render goes through here:
-    evaluated views and trajectory frames."""
-    iv = None
-    if cfg.render.use_primitives:
-        iv = intersect_rays(o, d, prims, cfg.render.near, cfg.render.far,
-                            cfg.data.max_intervals)
-    return render_image_rays(model, o, d, bounds, cfg, iv=iv)
+def _device_of(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _view_on(ds, view: int, dev: torch.device):
+    """(dataset, view id) to render `view` on `dev`: `ds` itself where it
+    lives on `dev`, else (a streamed pool on the host) that view alone,
+    moved to `dev`."""
+    if ds.images.device.type == dev.type:
+        return ds, view
+    return views_to(ds, [view], dev), 0
 
 
 def _render_view(cfg: Config, model, ds, view: int):
+    ds, view = _view_on(ds, view, _device_of(model))
     o, d = view_rays(ds, view)
     prims = view_primitives(ds, view) if cfg.render.use_primitives else None
     bounds = SceneBounds(ds.bounds_center, ds.bounds_scale)
-    return _intersect_and_render(cfg, model, o, d, prims, bounds)
+    return intersect_and_render(cfg, model, o, d, prims, bounds)
 
 
 def _sync(device) -> None:
@@ -213,11 +224,30 @@ def _selection_metric(res: dict):
     return res.get("psnr"), "psnr"
 
 
+def _stream_windows(cfg: Config, ds, train_ids, test_ids, dev: torch.device, start: int):
+    """Streaming's set-up (data.stream_window W > 0, `ds` the host pool):
+    -> (streamer, its first window, the window's view ids arange(W), the
+    test views on `dev`, their ids renumbered). A run resumed at `start`
+    skips the windows an uninterrupted run swapped in before step `start`
+    (at steps R, 2R, ... < start, R = data.stream_refresh_steps), so that
+    it trains on the same windows; the reference restarts the sequence."""
+    host = HostViews(ds, dev)
+    skip = (start - 1) // cfg.data.stream_refresh_steps if start > 0 else 0
+    streamer = ViewWindowStreamer(host, cfg.data.stream_window, seed=cfg.train.seed,
+                                  include=train_ids, skip=skip)
+    window, _ = streamer.current()
+    return (streamer, window, np.arange(streamer.window_size), host.window(test_ids),
+            np.arange(len(test_ids)))
+
+
 def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = None,
               log=print) -> dict:
     """Train for `max_steps` steps (default train.epochs * train.ep_iter),
     from `init_params` (seed train.seed), a warm start or a resumed
-    checkpoint; the reference's train_net.py.
+    checkpoint; the reference's train_net.py. With data.stream_window > 0
+    the steps read a window of the training views resident on the device,
+    redrawn every data.stream_refresh_steps, and the in-training
+    evaluation reads the test views moved to the device once.
 
     Returns `state`, `losses` (loss_total of every step this call ran,
     read back once at the end), `windows` ((steps, seconds) between log
@@ -225,12 +255,14 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     and evaluations fall into the window after them), `metrics` (the last
     log line's stats), `evals` ((step, seconds, summary) of each in-training
     evaluation), `checkpoint` (the last step save), `steps` (the step
-    reached) and `preempted`.
+    reached), `preempted` and `stream` (None, or when streaming `windows`:
+    (first step, pool view ids) of every window this call trained on,
+    `blocked` / `ready`: the streamer's seconds waited and copies already
+    done at each swap).
     """
     dev = torch.device(device)
     ds, train_ids, test_ids, model, state = _build(cfg, dev)
     step_fn = make_train_step(cfg, model)
-    view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
     generator = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
     tc = cfg.train
     total = max_steps if max_steps is not None else tc.epochs * tc.ep_iter
@@ -238,11 +270,15 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     losses, windows, metrics, evals = [], [], {}, []
     saved, saved_step = None, None
 
+    streamer, stream_log = None, []
+
     def result(step: int, was_preempted: bool) -> dict:
+        stream = None if streamer is None else {
+            "windows": stream_log, "blocked": streamer.blocked, "ready": streamer.ready}
         return {"state": state,
                 "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
                 "windows": windows, "metrics": metrics, "evals": evals, "checkpoint": saved,
-                "steps": step, "preempted": was_preempted}
+                "steps": step, "preempted": was_preempted, "stream": stream}
 
     start = 0
     if tc.init_from:
@@ -260,6 +296,12 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
             log(f"resumed from step {start}")
             if start >= total:  # nothing to train, and no <total>.pt holding a later step
                 return result(start, False)
+
+    eval_ds = ds
+    if cfg.data.stream_window > 0:
+        streamer, ds, train_ids, eval_ds, test_ids = _stream_windows(
+            cfg, ds, train_ids, test_ids, dev, start)
+    view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
 
     # The best value survives preemption through the sidecar: otherwise the
     # first evaluation after a resume (> -inf) would replace the true best.
@@ -290,6 +332,13 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
                     log(f"SIGTERM received: checkpointing at step {step} and exiting")
                     saved = save_model(state, ckpt_dir, step, generator)
                     return result(step, True)
+                if streamer is not None:
+                    if step > 0 and step % cfg.data.stream_refresh_steps == 0:
+                        ds, win = streamer.advance()
+                        log(f"stream window refresh #{streamer.refreshes} @step {step}: "
+                            f"{len(win)} views [{win.min()}..{win.max()}]")
+                    if not stream_log or stream_log[-1][1] is not streamer.current()[1]:
+                        stream_log.append((step, streamer.current()[1]))
                 stats = step_fn(state, ds, view_ids, generator)
                 losses.append(stats["loss_total"])
                 if (step + 1) % tc.log_interval == 0 or step + 1 == total:
@@ -318,7 +367,7 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
                     eval_model.load_state_dict(eval_state_dict(state))
                     _sync(dev)
                     te = time.perf_counter()
-                    res = evaluate_views(cfg, eval_model, ds, eval_view_ids)
+                    res = evaluate_views(cfg, eval_model, eval_ds, eval_view_ids)
                     evals.append((step + 1, time.perf_counter() - te, res))
                     log(f"eval@{step + 1}: " + ", ".join(
                         f"{k}={v:.3f}" for k, v in res.items() if np.isscalar(v)))
@@ -344,6 +393,8 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     finally:
         # restore the caller's handler: a stale one would swallow a later SIGTERM
         signal.signal(signal.SIGTERM, prev_handler)
+        if streamer is not None:
+            streamer.close()
     return result(total, False)
 
 
@@ -380,24 +431,23 @@ def render_trajectory(cfg: Config, model, ds, n_frames: int):
     table of the nearest training view. Yields (frame, nearest view,
     RenderOut)."""
     h, w = ds.images.shape[1:3]
-    dev = ds.images.device
+    dev = _device_of(model)
     uv = full_image_uv(h, w, dev) + 0.5
-    bounds = SceneBounds(ds.bounds_center, ds.bounds_scale)
     for i, (pose, near_view) in enumerate(_trajectory_poses(ds, n_frames)):
-        o, d = gen_rays_perspective(uv, ds.K[near_view], torch.from_numpy(pose).to(dev))
-        prims = view_primitives(ds, near_view) if cfg.render.use_primitives else None
-        yield i, near_view, _intersect_and_render(cfg, model, o, d, prims, bounds)
+        vds, v = _view_on(ds, near_view, dev)
+        o, d = gen_rays_perspective(uv, vds.K[v], torch.from_numpy(pose).to(dev))
+        prims = view_primitives(vds, v) if cfg.render.use_primitives else None
+        bounds = SceneBounds(vds.bounds_center, vds.bounds_scale)
+        yield i, near_view, intersect_and_render(cfg, model, o, d, prims, bounds)
 
 
 def run_visualize(cfg: Config, device: torch.device | str, log=print,
                   panorama_hw: tuple | None = None, trajectory: int = 0) -> list:
     """Images (rgb, depth, semantic, panoptic) and label maps of every test
     view, then `trajectory` novel-pose frames (ids from 2,000,000), then
-    videos where imageio is present. Returns the files written."""
-    if panorama_hw is not None:
-        raise NotImplementedError(
-            "--panorama (render_panorama, 360-degree label transfer) is not ported yet: "
-            "ROADMAP 1.7")
+    with `panorama_hw` (H, W) one equirect panorama from the middle test
+    view (the 360-degree label transfer, id 1,000,000 + view), then videos
+    where imageio is present. Returns the files written."""
     from panopticnerf_tpu_torch.viz import Visualizer
 
     ds, test_ids, model, _ = _restore_for_eval(cfg, device)
@@ -416,6 +466,13 @@ def run_visualize(cfg: Config, device: torch.device | str, log=print,
             sem_t, inst_t = ev.evaluate(out)
             written += viz.write_view(2_000_000 + i, out, hw, sem=sem_t, inst=inst_t)
         log(f"trajectory: rendered {trajectory} interpolated poses")
+    if panorama_hw is not None:
+        view = int(test_ids[len(test_ids) // 2])
+        pds, pview = _view_on(ds, view, _device_of(model))
+        pano = render_panorama(model, pds, pview, panorama_hw, cfg)
+        sem_p, inst_p = ev.evaluate(pano)
+        written += viz.write_view(1_000_000 + view, pano, tuple(panorama_hw), sem=sem_p,
+                                  inst=inst_p)
     for suffix, name in (("_rgb.png", "rgb.mp4"), ("_semantic.png", "semantic.mp4"),
                          ("_panoptic.png", "panoptic.mp4")):
         video = viz.write_video(suffix, name)
@@ -433,9 +490,14 @@ def run_network(cfg: Config, device: torch.device | str, log=print) -> dict:
     network): `train.log_interval` warm-up steps, as many as the median of
     `run_train`'s log windows leaves out (the reference takes one, but a
     step soon after a state is built can stall for 0.1-0.2 s on the card),
-    then NETWORK_ITERS steps and one synchronisation."""
+    then NETWORK_ITERS steps and one synchronisation. Under streaming the
+    steps read the window `run_train` starts with."""
     dev = torch.device(device)
     ds, train_ids, _, model, state = _build(cfg, dev)
+    if cfg.data.stream_window > 0:
+        ids = draw_window(np.random.default_rng(cfg.train.seed), train_ids,
+                          cfg.data.stream_window)
+        ds, train_ids = HostViews(ds, dev).window(ids), np.arange(len(ids))
     step_fn = make_train_step(cfg, model)
     view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
     generator = torch.Generator(dev).manual_seed(0)

@@ -8,6 +8,7 @@ from panopticnerf_tpu_torch.ops.intersect import (
     intersect_groups,
     intersect_groups_plain,
     intersect_rays,
+    intersect_rays_per_ray,
     intersect_rays_plain,
     labeled_containment,
     ray_box_intervals,
@@ -32,6 +33,7 @@ from panopticnerf_tpu_torch.ops.sampling import (
     merge_z,
     sample_pdf,
     stratified_z,
+    topm_eval_select,
 )
 
 __all__ = [
@@ -40,8 +42,9 @@ __all__ = [
     "fixed_map_from_weights", "full_image_uv", "fused_trunk_train", "gen_rays_fisheye",
     "gen_rays_perspective", "guided_split", "guided_z",
     "intersect_groups", "intersect_groups_plain", "intersect_rays",
-    "intersect_rays_plain", "labeled_containment", "merge_sorted", "merge_z",
+    "intersect_rays_per_ray", "intersect_rays_plain", "labeled_containment", "merge_sorted",
+    "merge_z",
     "pixel_dirs_fisheye", "pixel_dirs_perspective", "posenc_dim", "positional_encoding",
     "ray_box_intervals", "rays_from_dirs", "sample_pdf",
-    "samples_in_intervals", "stratified_z", "top_k_intervals",
+    "samples_in_intervals", "stratified_z", "top_k_intervals", "topm_eval_select",
 ]

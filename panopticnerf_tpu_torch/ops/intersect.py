@@ -13,7 +13,9 @@ entry points. On a CUDA tensor they launch the hand-written kernel
 (`ops/intersect_cuda.py`, `csrc/intersect.cu`); on a CPU tensor they run
 the plain PyTorch versions, written in the kernel's arithmetic order (the
 kernel is built without FMA contraction), so that on the card the two agree
-bit for bit. Any other device raises.
+bit for bit. Any other device raises. `intersect_rays_per_ray` (a table per
+ray, the fully mixed training batch) is plain PyTorch on every device, as
+the reference computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ class RayIntervals(NamedTuple):
 
 
 def ray_box_intervals(rays_o, rays_d, prims: Primitives, near: float, far: float):
-    """Dense slab test of N rays against P unit-cube primitives.
+    """Dense slab test of N rays against P unit-cube primitives: one table
+    (fields with a leading P) or a table per ray (a leading N, then P).
 
     Returns (t_in, t_out, hit), each (N, P); t clipped to [near, far];
     misses get t_in = t_out = BIG. The per-axis arithmetic follows the
@@ -58,14 +61,14 @@ def ray_box_intervals(rays_o, rays_d, prims: Primitives, near: float, far: float
     inv = 1 / d_l, t1 = (-1 - o_l) * inv, t2 = (1 - o_l) * inv.
     """
     n = rays_o.shape[0]
-    p = prims.world_to_prim.shape[0]
+    p = prims.world_to_prim.shape[-3]
     A = prims.world_to_prim
     o, d = rays_o, rays_d
     t_lo = torch.full((n, p), -BIG, dtype=torch.float32, device=o.device)
     t_hi = torch.full((n, p), BIG, dtype=torch.float32, device=o.device)
     o_ls, d_ls = [], []
     for i in range(3):
-        r0, r1, r2, tr = A[:, i, 0], A[:, i, 1], A[:, i, 2], A[:, i, 3]
+        r0, r1, r2, tr = A[..., i, 0], A[..., i, 1], A[..., i, 2], A[..., i, 3]
         o_l = o[:, 0:1] * r0 + o[:, 1:2] * r1 + o[:, 2:3] * r2 + tr      # (N, P)
         d_l = d[:, 0:1] * r0 + d[:, 1:2] * r1 + d[:, 2:3] * r2
         o_ls.append(o_l)
@@ -86,7 +89,7 @@ def ray_box_intervals(rays_o, rays_d, prims: Primitives, near: float, far: float
         # a*s <= c with a = n.d_l, c = b - n.o_l. a > 0 caps t_hi, a < 0
         # raises t_lo, a ~ 0 with c < 0 is a hard miss.
         eps = 1e-9
-        cp = prims.cut_planes                                    # (P, F, 4)
+        cp = prims.cut_planes                                    # ([N,] P, F, 4)
         n0, n1, n2, b = cp[..., 0], cp[..., 1], cp[..., 2], cp[..., 3]
         dl = [x[..., None] for x in d_ls]                        # (N, P, 1)
         ol = [x[..., None] for x in o_ls]
@@ -101,7 +104,7 @@ def ray_box_intervals(rays_o, rays_d, prims: Primitives, near: float, far: float
 
     t_in = torch.clamp(t_lo, min=near)
     t_out = torch.clamp(t_hi, max=far)
-    hit = (t_out > t_in) & prims.valid[None, :]
+    hit = (t_out > t_in) & prims.valid
     t_in = torch.where(hit, t_in, BIG)
     t_out = torch.where(hit, t_out, BIG)
     return t_in, t_out, hit
@@ -112,7 +115,8 @@ def top_k_intervals(t_in, t_out, hit, prims: Primitives, k: int) -> RayIntervals
 
     A stable sort on t_in keeps the kernel's tie rule: equal entry depths
     keep the lowest primitive index first. With fewer primitives than K
-    the tail slots are invalid.
+    the tail slots are invalid. The labels come from one table (P,) or a
+    table per ray (N, P).
     """
     p = t_in.shape[-1]
     k_eff = min(k, p)
@@ -120,8 +124,10 @@ def top_k_intervals(t_in, t_out, hit, prims: Primitives, k: int) -> RayIntervals
     sel_in = torch.gather(t_in, 1, idx)
     sel_out = torch.gather(t_out, 1, idx)
     sel_hit = torch.gather(hit, 1, idx)
-    sem = prims.semantic[idx]
-    inst = prims.instance[idx]
+    take = ((lambda a: a[idx]) if prims.semantic.dim() == 1
+            else (lambda a: torch.gather(a, 1, idx)))
+    sem = take(prims.semantic)
+    inst = take(prims.instance)
     if k_eff < k:
         n = t_in.shape[0]
         pad = k - k_eff
@@ -161,6 +167,20 @@ def intersect_rays(rays_o, rays_d, prims: Primitives, near: float, far: float,
     if rays_o.device.type == "cpu":
         return intersect_rays_plain(rays_o, rays_d, prims, near, far, k)
     raise ValueError(f"intersect_rays: no implementation for device {rays_o.device}")
+
+
+def intersect_rays_per_ray(rays_o, rays_d, prims: Primitives, near: float,
+                           far: float, k: int) -> RayIntervals:
+    """(N, 3) rays, each against its own primitive table -> RayIntervals
+    (N, K): `prims` fields carry a leading N (world_to_prim (N, P, 3, 4),
+    semantic / instance / valid (N, P), cut_planes (N, P, F, 4)). The fully
+    mixed batch's intersection, where each ray's table is its source view's.
+    The reference's rules hold: equal entry depths keep the lower primitive
+    index (its `top_k`), and with P < K the tail slots are invalid. Plain
+    PyTorch on every device: the reference computes it outside any kernel
+    as well."""
+    t_in, t_out, hit = ray_box_intervals(rays_o, rays_d, prims, near, far)
+    return top_k_intervals(t_in, t_out, hit, prims, k)
 
 
 def intersect_groups_plain(rays_o, rays_d, prims: Primitives, near: float,

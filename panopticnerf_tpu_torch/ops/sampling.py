@@ -162,3 +162,38 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_importance: int,
 def merge_z(z_coarse: torch.Tensor, z_fine: torch.Tensor) -> torch.Tensor:
     """Sorted union of coarse + fine depths: (N, Sc+Sf)."""
     return merge_sorted(z_coarse, z_fine)
+
+
+def _stable_sort_by(key: torch.Tensor, *values: torch.Tensor):
+    """`values` (N, S) reordered along the rows by a stable ascending sort of
+    `key`: `jax.lax.sort(..., num_keys=1)`'s order, which also treats -0.0
+    and +0.0 as equal and puts every NaN last."""
+    order = torch.sort(key, dim=-1, stable=True).indices
+    return [torch.gather(v, 1, order) for v in values]
+
+
+def topm_eval_select(z_all: torch.Tensor, z_mid: torch.Tensor, w_interior: torch.Tensor,
+                     m: int, last_delta: float = 1e10):
+    """Keep the m depths of the merged evaluation set whose coarse bin weighs
+    most (forward only; render.eval_keep_samples).
+
+    z_all (N, S) sorted merged depths; z_mid (N, Sc-1) coarse bin edges;
+    w_interior (N, Sc-2) interior coarse bin weights (the `sample_pdf`
+    inputs). Each depth takes its bin's weight, the two boundary bins their
+    neighbour's; a stable descending sort by weight keeps ties nearest
+    first, the first m are kept and sorted back by depth. Returns (z_sel
+    (N, m), delta_sel (N, m)), the deltas taken from the full set so that a
+    dropped gap adds nothing instead of stretching its neighbour; or
+    (z_all, None) when m >= S.
+    """
+    n, s = z_all.shape
+    if m >= s:
+        return z_all, None
+    delta_full = torch.cat([torch.diff(z_all, dim=-1),
+                            torch.full_like(z_all[:, :1], last_delta)], dim=-1)
+    w_bins = torch.cat([w_interior[:, :1], w_interior, w_interior[:, -1:]], dim=-1)
+    bin_idx = torch.searchsorted(z_mid.contiguous(), z_all.contiguous(), right=True)
+    prio = torch.gather(w_bins, 1, bin_idx)                        # (N, S)
+    z_top, d_top = _stable_sort_by(-prio, z_all, delta_full)
+    z_sel, delta_sel = _stable_sort_by(z_top[:, :m], z_top[:, :m], d_top[:, :m])
+    return z_sel, delta_sel

@@ -8,8 +8,11 @@ and the density noise (`render.raw_noise_std`), keeps the coarse RenderOut
 and the per-sample extras for the losses, and stops the gradient through
 the coarse weights that place the fine samples. Its random numbers come
 from a `torch.Generator` or, for replaying a reference's draws, from a
-`RenderDraws`. `render_image_rays` renders a whole view as a loop over
-tiles of `render.ray_tile` rays.
+`RenderDraws`. The evaluation branch keeps the render.eval_keep_samples
+best-weighted fine depths when that is set (`ops.sampling.topm_eval_select`).
+`render_image_rays` renders a whole view as a loop over tiles of
+`render.ray_tile` rays; `intersect_and_render` intersects first, and every
+full-image render of the port goes through it.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from panopticnerf_tpu_torch.config import Config
 from panopticnerf_tpu_torch.ops import sampling
 from panopticnerf_tpu_torch.ops.composite import composite
 from panopticnerf_tpu_torch.ops.intersect import (
+    Primitives,
     RayIntervals,
     fixed_map_from_weights,
+    intersect_rays,
     labeled_containment,
     samples_in_intervals,
 )
@@ -79,7 +84,8 @@ class RenderOut(NamedTuple):
 def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
                      iv: Optional[RayIntervals], num_classes: int, white_bkgd: bool,
                      noise_std: float = 0.0, noise: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     delta: Optional[torch.Tensor] = None):
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]     # (N, S, 3)
     pts = (pts - bounds.center) * bounds.scale
     sigma, rgb, sem = model(pts, rays_d[:, None, :], level=level)
@@ -94,7 +100,7 @@ def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
         inside_iv = samples_in_intervals(z, iv)
         inside_lab, cnt = labeled_containment(z, iv)
     out = composite(sigma, rgb, z, sem_logits=sem, inside_intervals=inside_iv,
-                    white_bkgd=white_bkgd)
+                    white_bkgd=white_bkgd, delta=delta)
     if iv is not None:
         out = out._replace(sem_fixed=fixed_map_from_weights(
             out.weights, inside_lab, cnt, iv, num_classes))
@@ -150,11 +156,15 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, perturb,
                                  generator=generator, u_fine=dr.fine)
     z_all = sampling.merge_z(z, z_fine)
+    delta_f = None
     if not train and 0 < rc.eval_keep_samples < z_all.shape[1]:
-        raise NotImplementedError("render.eval_keep_samples is not ported yet")
+        # forward-only keep-M: the fine field queries only the samples with
+        # coarse-weight support, composited with the full set's deltas
+        z_all, delta_f = sampling.topm_eval_select(z_all, z_mid, w_interior,
+                                                   rc.eval_keep_samples)
     out_f, sem_f, lab_f, cnt_f = _composite_level(
         model, rays_o, rays_d, z_all, bounds, 1, iv, num_classes, rc.white_bkgd,
-        noise_std, dr.noise_fine, generator)
+        noise_std, dr.noise_fine, generator, delta=delta_f)
     coarse = pack(out_c, sem_c, lab_c, cnt_c, z)
     return pack(out_f, sem_f, lab_f, cnt_f, z_all, coarse=coarse)
 
@@ -201,3 +211,16 @@ def render_image_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     fields = [None if tiles[0][i] is None else torch.cat([t[i] for t in tiles])[:n]
               for i in range(N_RAY_FIELDS)]
     return RenderOut(*fields)
+
+
+def intersect_and_render(cfg: Config, model, rays_o, rays_d, prims: Optional[Primitives],
+                         bounds: SceneBounds) -> RenderOut:
+    """Interval intersection of the rays against one table (kernel A1 on a
+    CUDA device: a failure raises, nothing falls back), then the tiled
+    full-image render. Evaluated views, trajectory frames and panoramas all
+    render through here."""
+    iv = None
+    if cfg.render.use_primitives:
+        iv = intersect_rays(rays_o, rays_d, prims, cfg.render.near, cfg.render.far,
+                            cfg.data.max_intervals)
+    return render_image_rays(model, rays_o, rays_d, bounds, cfg, iv=iv)

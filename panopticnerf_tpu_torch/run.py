@@ -4,6 +4,7 @@ same CLI as the repo's run.py).
     python -m panopticnerf_tpu_torch.run --type evaluate \\
         --cfg_file configs/synthetic_flagship.yaml model_dir artifacts [KEY VALUE ...]
     python -m panopticnerf_tpu_torch.run --type visualize --trajectory 30 --cfg_file ...
+    python -m panopticnerf_tpu_torch.run --type visualize --panorama 512,1024 --cfg_file ...
     python -m panopticnerf_tpu_torch.run --type network --cfg_file ...   # throughput probe
 
 evaluate and visualize read a checkpoint under `<model_dir>/torch/`
@@ -22,7 +23,8 @@ def parse_args(argv=None):
                    choices=["evaluate", "visualize", "network"])
     p.add_argument("--cfg_file", type=str, default=None)
     p.add_argument("--panorama", type=str, default=None,
-                   help="H,W: also render an equirect panorama (visualize only; not ported yet)")
+                   help="H,W: also render an equirect panorama from the middle test view "
+                        "(visualize only)")
     p.add_argument("--trajectory", type=int, default=0,
                    help="N: also render N smoothly interpolated novel poses "
                         "through the training trajectory (visualize only)")

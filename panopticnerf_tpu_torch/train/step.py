@@ -1,9 +1,10 @@
 """Training step, optimizer and schedules (port of `panopticnerf_tpu/train/step.py`).
 
 `make_train_step(cfg, model)` returns `step(state, ds, view_ids, generator,
-draws=None) -> stats`: grouped ray batch -> intervals (kernel A2 on the
-card) -> training render (with `model.use_pallas`, both 8x256 fields
-through the kernels of `model.pallas_mode`: B / B' for the trunk in
+draws=None) -> stats`: ray batch -> intervals (grouped batches through
+kernel A2 on the card, fully mixed batches, data.views_per_batch 0, ray by
+ray in plain PyTorch) -> training render (with `model.use_pallas`, both
+8x256 fields through the kernels of `model.pallas_mode`: B / B' for the trunk in
 "trunk", C / C' for the whole field in "field", C' as the backward of a
 plain forward in "hybrid") -> losses -> backward -> Adam, in place on
 `state`.
@@ -159,10 +160,7 @@ def make_train_step(cfg: Config, model: PanopticNeRF):
     """
     field = resolve_train_model(cfg, model)
     g = cfg.data.views_per_batch
-    if g <= 0:
-        raise NotImplementedError(
-            "data.views_per_batch 0 needs the per-ray intersection, not ported yet")
-    if cfg.data.n_rays % g:
+    if g > 0 and cfg.data.n_rays % g:
         raise ValueError(f"data.n_rays={cfg.data.n_rays} must be divisible by "
                          f"data.views_per_batch={g}")
     sem_gate = cfg.train.pretrain == "nerf"

@@ -554,3 +554,75 @@ def test_demo_tree_written_on_the_card_equals_the_cpu_one(cuda_device, tmp_path)
             assert np.array_equal(np.load(a), np.load(b)), rel
         else:
             assert filecmp.cmp(a, b, shallow=False), rel
+
+
+def _pool(n_views=12, h=20, w=24, p=6, f=3, seed=0):
+    """A seeded host pool of `n_views` views with every optional field."""
+    from panopticnerf_tpu_torch.data.dataset import DeviceDataset
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return DeviceDataset(
+        images=t(rng.integers(0, 256, (n_views, h, w, 3), dtype=np.uint8)),
+        K=t(rng.normal(size=(n_views, 3, 3)).astype(np.float32)),
+        c2w=t(rng.normal(size=(n_views, 3, 4)).astype(np.float32)),
+        pseudo=t(rng.integers(0, 20, (n_views, h, w)).astype(np.int32)),
+        depth=t(rng.uniform(-1, 30, (n_views, h, w)).astype(np.float32)),
+        prim_w2p=t(rng.normal(size=(n_views, p, 3, 4)).astype(np.float32)),
+        prim_sem=t(rng.integers(0, 19, (n_views, p)).astype(np.int32)),
+        prim_inst=t(rng.integers(0, 900, (n_views, p)).astype(np.int32)),
+        prim_valid=t(rng.uniform(size=(n_views, p)) > 0.3),
+        bounds_center=t(rng.normal(size=3).astype(np.float32)),
+        bounds_scale=torch.tensor(0.05),
+        gt_sem=t(rng.integers(0, 256, (n_views, h, w)).astype(np.int32)),
+        gt_inst=t(rng.integers(0, 50, (n_views, h, w)).astype(np.int32)),
+        prim_planes=t(rng.normal(size=(n_views, p, f, 4)).astype(np.float32)),
+        cam_model=t(rng.integers(0, 2, n_views).astype(np.int32)),
+        fisheye=t(rng.normal(size=(n_views, 7)).astype(np.float32)),
+        valid_mask=t(rng.uniform(size=(n_views, h, w)) > 0.2))
+
+
+def test_streamer_async_window_equals_a_synchronous_upload(cuda_device):
+    """Each window the streamer copies on its side stream (pinned staging,
+    non-blocking) equals a synchronous upload of the same views bit for
+    bit, also while the consuming stream is busy and the previous window is
+    released as the next one is swapped in."""
+    from panopticnerf_tpu_torch.data.stream import HostViews, ViewWindowStreamer, views_to
+
+    pool = _pool()
+    host = HostViews(pool, cuda_device)
+    st = ViewWindowStreamer(host, 5, seed=4)
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    seen = []
+    for _ in range(6):
+        for _ in range(4):  # keep the consuming stream busy across the swap
+            busy = busy @ busy / busy.norm()
+        ds, ids = st.advance()
+        seen.append(ids)
+        ref = views_to(pool, ids, cuda_device)
+        for name, a, b in zip(ds._fields, ds, ref):
+            assert a.device.type == "cuda" and torch.equal(a, b), name
+    st.close()
+    assert len(st.blocked) == len(st.ready) == 6
+    assert all(len(set(ids.tolist())) == 5 for ids in seen)
+
+
+def test_intersect_kernel_on_panorama_rays(cuda_device):
+    """A1 on an equirect panorama's world rays from one centre (every
+    direction, up and down included) against cut-plane boxes around it:
+    bit for bit with its plain version."""
+    from panopticnerf_tpu_torch.render import panorama_rays
+
+    rng = np.random.default_rng(7)
+    scene, _ = random_boxes(rng, 64, 8, 4)
+    prims = _to(cuda_device, *scene)
+    rot = torch.from_numpy(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    for hw in ((64, 128), (97, 211)):
+        o, d = panorama_rays(torch.tensor([0.5, -1.0, 9.0], device=cuda_device),
+                             rot.to(cuda_device), *hw)
+        out = intersect_rays(o, d, prims, 0.5, 120.0, 16)
+        ref = intersect_rays_plain(o, d, prims, 0.5, 120.0, 16)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        assert 0 < int(out.mask.sum()) < out.mask.numel()

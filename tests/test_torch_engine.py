@@ -3,7 +3,7 @@
 save_best and `train.eval_step -1`, the best metric across a resume (and
 a legacy sidecar's reset), EMA evaluation, warm starts (EMA re-seeded,
 across a coarse topology change), exact in-process resume, the recorder's
-lines, and `run --type network / visualize`."""
+lines, and `run --type network / visualize` (with a panorama)."""
 
 import json
 import os
@@ -16,6 +16,7 @@ import torch
 from panopticnerf_tpu_torch import engine, run
 from panopticnerf_tpu_torch.config import load_config
 from panopticnerf_tpu_torch.train.checkpoint import all_steps
+from panopticnerf_tpu_torch.viz.png import read_png
 from torch_scenes import engine_opts
 
 
@@ -174,8 +175,11 @@ def test_run_cli_network_and_visualize(tmp_path):
                      for k in ("depth", "panoptic", "rgb", "semantic")])
     assert [n for n in names if n.endswith(".png")] == want
 
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
-        run.main(["--type", "visualize", "--panorama", "8,16", "--device", "cpu", *opts])
+    # the 360-degree panorama from the middle test view (4), as view 1,000,004
+    files = run.main(["--type", "visualize", "--panorama", "8,16", "--device", "cpu", *opts])
+    pano = sorted(os.path.basename(f) for f in files if "1000004_" in os.path.basename(f))
+    assert pano == [f"1000004_{k}.png" for k in ("depth", "panoptic", "rgb", "semantic")]
+    assert read_png([f for f in files if f.endswith("1000004_rgb.png")][0]).shape == (8, 16, 3)
     with pytest.raises(SystemExit):
         run.parse_args(["--type", "visualize", "--trajectoy", "3"])
     with pytest.raises(SystemExit):

@@ -2,9 +2,9 @@
 tests/test_kitti360.py's handcrafted tree: fisheye unprojection, the
 loader (every field), multi-sequence pools, the reference behaviours that
 test_kitti360.py pins, pseudo-label cleaning, the demo-tree writer, one
-training step with fisheye groups and cut planes, the label-transfer export
-and the two repairs (evaluation without semantic ground truth; streaming
-refused until it is ported). Integer arrays must be equal, float arrays
+training step with fisheye groups and cut planes, the label-transfer export,
+the repair of the evaluation without semantic ground truth, and the
+streamed pool on the tree. Integer arrays must be equal, float arrays
 within 1e-6; the step is held at tests/test_torch_train_step.py's
 tolerances."""
 
@@ -556,13 +556,37 @@ def test_evaluate_without_semantic_ground_truth(trained, tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["make_dataset", "run_train"])
-def test_stream_window_is_refused_until_ported(tree, entry):
-    cfg = load_config(None, KITTI + ["data.root", tree, "data.stream_window", "8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.6"):
-        if entry == "make_dataset":
-            make_dataset(cfg, "cpu")
-        else:
-            engine.run_train(cfg, "cpu", max_steps=1, log=lambda *a: None)
+def test_stream_window_is_refused_until_ported(tree, entry, tmp_path):
+    """Streaming (ROADMAP 1.6), refused before it was ported, now runs on the
+    tree (12 views: 8 for training, 4 held out). `make_dataset` keeps the
+    pool on the host whatever the device (asked for CUDA here, where there
+    is none), equal to the unstreamed pool; `run_train` trains on windows of
+    4 training views redrawn every 2 steps with the reference's draws,
+    logging each refresh."""
+    opts = KITTI + ["data.root", tree, "data.stream_window", "4",
+                    "data.stream_refresh_steps", "2", "model_dir", str(tmp_path / "m"),
+                    "record_dir", str(tmp_path / "rec")]
+    cfg = load_config(None, opts)
+    if entry == "make_dataset":
+        ds, train_ids, test_ids = make_dataset(cfg, "cuda")
+        ref, ref_train, ref_test = make_dataset(load_config(None, KITTI + ["data.root", tree]),
+                                                "cpu")
+        np.testing.assert_array_equal(train_ids, ref_train)
+        np.testing.assert_array_equal(test_ids, ref_test)
+        for name, a, b in zip(ds._fields, ref, ds):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert b.device.type == "cpu" and torch.equal(a, b), name
+    else:
+        logs = []
+        res = engine.run_train(cfg, "cpu", max_steps=5, log=logs.append)
+        _, train_ids, _ = make_dataset(cfg, "cpu")
+        rng = np.random.default_rng(cfg.train.seed)
+        assert [s for s, _ in res["stream"]["windows"]] == [0, 2, 4]
+        for _, ids in res["stream"]["windows"]:
+            np.testing.assert_array_equal(ids, np.sort(rng.choice(train_ids, 4, replace=False)))
+        assert sum(line.startswith("stream window refresh") for line in logs) == 2
+        assert np.isfinite(res["losses"]).all() and len(res["losses"]) == 5
 
 
 def test_kitti360_modules_import_no_jax_and_no_pil():

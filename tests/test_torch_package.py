@@ -25,6 +25,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import panopticnerf_tpu_torch.models.fused_apply\n"
         "import panopticnerf_tpu_torch.train.checkpoint, panopticnerf_tpu_torch.train.recorder\n"
         "import panopticnerf_tpu_torch.viz, panopticnerf_tpu_torch.viz.png\n"
+        "import panopticnerf_tpu_torch.data.stream, panopticnerf_tpu_torch.render.panorama\n"
         "import chip_smoke\n"
         # chip_smoke imports the port inside main(); load what it loads
         "from panopticnerf_tpu_torch import engine, convert\n"

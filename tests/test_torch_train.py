@@ -155,11 +155,20 @@ def test_ray_batch_and_grouped_intervals_match_jax(small):
     g = torch.Generator().manual_seed(0)
     again = [tds_mod.sample_ray_batch(ds, T(view_ids), 64, 4, g) for _ in range(2)]
     assert not torch.equal(again[0].rays_d, again[1].rays_d)
-    for bad in (0, 5):
-        with pytest.raises((NotImplementedError, ValueError)):
-            tds_mod.sample_ray_batch(ds, T(view_ids), 64, bad, g)
-    with pytest.raises(NotImplementedError):
-        tds_mod.batch_intervals(ds, tb, 0.5, 40.0, 3, 0)
+    with pytest.raises(ValueError):  # 64 rays in 5 groups
+        tds_mod.sample_ray_batch(ds, T(view_ids), 64, 5, g)
+    # views_per_batch 0 (fully mixed): every ray draws its own view and is
+    # intersected against that view's table alone (tests/test_torch_mixed.py
+    # holds both against JAX)
+    mixed = tds_mod.sample_ray_batch(ds, T(view_ids), 64, 0, g)
+    assert set(mixed.view.tolist()) <= set(view_ids.tolist())
+    miv = tds_mod.batch_intervals(ds, mixed, 0.5, 40.0, 3, 0)
+    for i in (0, 17, 63):
+        one = tint.intersect_rays_plain(mixed.rays_o[i:i + 1], mixed.rays_d[i:i + 1],
+                                        tds_mod.view_primitives(ds, int(mixed.view[i])),
+                                        0.5, 40.0, 3)
+        for a, b in zip(one, miv):
+            assert torch.equal(a[0], b[i])
 
 
 def test_render_rays_train_branch_matches_jax(small):

@@ -28,7 +28,7 @@ from panopticnerf_tpu_torch.config import load_config
 from panopticnerf_tpu_torch.convert import flatten, params_from_flax, params_to_flax
 from panopticnerf_tpu_torch.data.dataset import BatchDraws
 from panopticnerf_tpu_torch.data.synthetic import build_synthetic_dataset
-from panopticnerf_tpu_torch.models import make_network
+from panopticnerf_tpu_torch.models import init_params, make_network
 from panopticnerf_tpu_torch.render import RenderDraws
 from panopticnerf_tpu_torch.train import StepDraws, make_train_state, make_train_step
 
@@ -107,6 +107,21 @@ def test_run_train_cli_then_evaluate(tmp_path):
 
 
 def test_step_rejects_mixed_batches():
-    cfg = load_config(None, STEP + ["data.views_per_batch", "0"])
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, make_network(cfg, "cpu"))
+    """Fully mixed batches (data.views_per_batch 0), once refused, now
+    train: finite stats, the same seed gives the same steps, and the batch
+    is intersected ray by ray (tests/test_torch_mixed.py holds one step
+    against JAX). A grouped batch that does not divide is still refused."""
+    cfg = load_config(None, STEP + ["data.views_per_batch", "0", "model.use_pallas", "true"])
+    ds = build_synthetic_dataset(cfg, "cpu", seed=0)
+    runs = []
+    for _ in range(2):
+        model = make_network(cfg, "cpu")
+        init_params(model, torch.Generator().manual_seed(0))
+        state, step = make_train_state(cfg, model), make_train_step(cfg, model)
+        gen = torch.Generator().manual_seed(1)
+        runs.append([float(step(state, ds, torch.arange(4), gen)["loss_total"])
+                     for _ in range(3)])
+    assert runs[0] == runs[1] and np.isfinite(runs[0]).all()
+    bad = load_config(None, STEP + ["data.views_per_batch", "5"])
+    with pytest.raises(ValueError):
+        make_train_step(bad, make_network(bad, "cpu"))
