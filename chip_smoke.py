@@ -4,7 +4,8 @@ against its plain PyTorch version, runs the port's evaluation of the
 committed flagship checkpoint against the JAX package's recorded scores,
 replays one recorded JAX training step in each field mode, trains the
 flagship through the kernels in each mode, and drives the engine, KITTI-360
-demo trees, streaming, the panorama, mixed batches and keep-M.
+demo trees, streaming, the panorama, mixed batches, keep-M and data
+parallelism over torchrun ranks.
 
     python3 chip_smoke.py          # from the repo root, on a machine with one NVIDIA GPU
 
@@ -123,7 +124,22 @@ line is printed):
      flagship checkpoint with render.eval_keep_samples 96 (PSNR / mIoU /
      PQ and s/view beside phase 5's, A1 = views), 128 (= S) equal to the
      untruncated render bit for bit, and the first 4096 rays of a view on
-     the card against the CPU within RENDER_GAP.
+     the card against the CPU within RENDER_GAP;
+ 14. data parallelism, each rank a child of this script under `torchrun
+     --standalone` (its process group killed after DP_TIMEOUT s): (a)
+     `train_net` on one rank over NCCL, 100 trunk steps: every loss and the final
+     parameters equal phase 10's bit for bit, ms/step beside phase 10's,
+     launches A2 = 100, B = B' = 200; that world's collectives timed and
+     `run_evaluate` over it (tiles gathered by NCCL) equal to phase 5 bit
+     for bit, A1 = views; (b) two gloo ranks sharing the card, 20 steps in
+     mode trunk and 10 in field: the ranks' parameters bit-equal after
+     every step, step 1's loss terms within DP_STEP_REL of one process on
+     the same batch and each leaf's gradient cosine >= DP_MIN_COSINE,
+     launches per rank A2 = steps, B = B' (or C = C') = 2 x steps, ms/step
+     and the host-staged gloo collectives timed; (c) a `train_net` rank
+     stopped by SIGTERM after its first log line, resumed under torchrun,
+     equal to (a) bit for bit; (d) `run_evaluate` on the two gloo ranks
+     equal to phase 5 bit for bit, A1 = views on each rank.
 The last two lines are the kernels' JSON (with each kernel's bound on the
 card, computed from this run's shapes and the work of the function the TPU
 kernel computes) and `{"ok": true, "device": ...}`.
@@ -138,6 +154,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -213,6 +230,14 @@ PER_RAY_DT = 1e-4
 # the crossing depth (a subtraction and a division) and the clip (~2); an
 # estimate, like SLAB_OPS
 PLANE_OPS = 13
+# phase 14: two gloo ranks sharing the card, steps per field mode; step 1 of
+# the two ranks against one process on the same batch: the loss terms are
+# sums of the same per-ray values in two halves (float32 rounding), the
+# gradients sums of bf16-rounded partial products in another split
+DP_GLOO_STEPS = {"trunk": 20, "field": 10}
+DP_STEP_REL = 1e-6
+DP_MIN_COSINE = 0.9999
+DP_TIMEOUT = 300          # seconds for each torchrun child (killed after)
 
 
 def check(cond, msg):
@@ -798,7 +823,8 @@ def train_phase(cfg, dev, engine, mode):
         print(f"  run_evaluate of the {steps}-step checkpoint: PSNR {ev['psnr']:.4f}, "
               f"mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}")
         check(all(np.isfinite(ev[k]) for k in ("psnr", "miou", "pq")), "non-finite scores")
-    return launches, ms_step
+    final = {k: v.detach().cpu().clone() for k, v in res["state"].model.state_dict().items()}
+    return launches, ms_step, {"losses": losses, "params": final}
 
 
 def engine_phase(dev, engine, run):
@@ -1513,6 +1539,300 @@ def keep_phase(cfg, dev, engine, ds, model, full):
           f"the card's keep-M render is off the CPU's: {gap}")
 
 
+def torchrun(nproc, kind, out, *args, on_line=None):
+    """This script's child `kind` under `torchrun --standalone` on `nproc`
+    ranks of this machine -> (exit code, console). `on_line(line)` sees each
+    console line as it comes. The whole process group is killed after
+    DP_TIMEOUT seconds and whenever the call ends, so no rank outlives it."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), os.path.abspath(__file__), "--child", kind, out, *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=REPO, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                            start_new_session=True)
+
+    def kill():
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+
+    timer = threading.Timer(DP_TIMEOUT, kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if on_line is not None:
+                on_line(line)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        kill()
+        proc.wait()
+    return rc, "".join(lines)
+
+
+def child_result(out, rank=0):
+    return torch.load(os.path.join(out, f"rank{rank}.pt"), weights_only=False)
+
+
+def time_collectives(world, n_params, reps=30):
+    """Median ms (synchronised, host clock) of the step's collectives on
+    `world`: the loss denominators' and the stats' stacks (16 floats stand
+    for their 8-10), the flat gradient buffer, and the host group's SIGTERM
+    flag."""
+    out = {}
+    for name, n in (("small", 16), ("gradients", n_params)):
+        buf = torch.zeros(n, device=world.device)
+        ts = []
+        for i in range(reps + 3):
+            torch.cuda.synchronize(world.device)
+            t0 = time.perf_counter()
+            world.all_reduce_(buf)
+            torch.cuda.synchronize(world.device)
+            ts.append(1000.0 * (time.perf_counter() - t0))
+        out[name] = float(np.median(ts[3:]))
+    ts = []
+    for i in range(reps + 3):
+        t0 = time.perf_counter()
+        world.agree(False)
+        ts.append(1000.0 * (time.perf_counter() - t0))
+    out["flag"] = float(np.median(ts[3:]))
+    out["per_step"] = 2 * out["small"] + out["gradients"] + out["flag"]
+    return out
+
+
+def child(kind, out, args):
+    """A rank of phase 14 under torchrun: `train` runs `train_net.main(args)`
+    (a `train_timed` run then times the collectives of a world of one over
+    NCCL); `gloo2` joins two ranks sharing cuda:0 over gloo and runs (b) and
+    (d) of phase 14. Each writes what the parent compares to <out>/rank<r>.pt."""
+    rank = int(os.environ["RANK"])
+    print(f"child pid {os.getpid()} rank {rank}", flush=True)
+    if kind in ("train", "train_timed"):
+        from panopticnerf_tpu_torch import train_net
+        from panopticnerf_tpu_torch.parallel import maybe_init_distributed
+
+        zero_counts()
+        res = train_net.main(args)
+        result = {"losses": res["losses"], "launches": launch_counts(), "steps": res["steps"],
+                  "preempted": res["preempted"], "windows": res["windows"],
+                  "checkpoint": res["checkpoint"]}
+        if kind == "train_timed":
+            from panopticnerf_tpu_torch import engine
+            from panopticnerf_tpu_torch.config import load_config
+
+            world = maybe_init_distributed("cuda", backend="nccl", rank=0, world_size=1,
+                                           init_method=f"file://{out}/nccl_rendezvous")
+            try:
+                n = sum(p.numel() for p in res["state"].model.parameters())
+                result["collectives"] = time_collectives(world, n)
+                zero_counts()  # the tile-sharded render's NCCL gather, at one rank
+                cfg = load_config(CFG_FILE, ["model_dir", os.path.join(REPO, "artifacts")])
+                result["evaluate"] = engine.run_evaluate(cfg, world.device, log=lambda *a: None,
+                                                         world=world)
+                result["evaluate_launches"] = launch_counts()
+            finally:
+                world.close()
+    elif kind == "gloo2":
+        result = gloo2_child()
+    else:
+        raise SystemExit(f"chip_smoke: unknown child {kind!r}")
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+
+
+def gloo2_child():
+    """14 (b) and (d) on one rank of two sharing cuda:0 over gloo."""
+    import hashlib
+
+    from panopticnerf_tpu_torch import engine
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset
+    from panopticnerf_tpu_torch.models import init_params, make_network
+    from panopticnerf_tpu_torch.parallel import (
+        broadcast_state,
+        make_parallel_train_step,
+        maybe_init_distributed,
+    )
+    from panopticnerf_tpu_torch.train import make_train_state, make_train_step
+
+    world = maybe_init_distributed("cuda:0", backend="gloo")
+    dev = world.device
+    try:
+        cfg = load_config(CFG_FILE, ["model_dir", os.path.join(REPO, "artifacts")])
+        ds, train_ids, _ = make_dataset(cfg, dev)
+        view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
+        result = {"modes": {}}
+
+        def fresh(mcfg):
+            model = make_network(mcfg, dev)
+            init_params(model, torch.Generator(dev).manual_seed(0))
+            return model, make_train_state(mcfg, model), torch.Generator(dev).manual_seed(1)
+
+        for mode, n_steps in DP_GLOO_STEPS.items():
+            mcfg = with_mode(cfg, mode)
+            model, state, gen = fresh(mcfg)   # one process, on this rank alone
+            single = {k: float(v) for k, v in
+                      make_train_step(mcfg, model)(state, ds, view_ids, gen).items()}
+            single_grads = {n: p.grad.detach().double() for n, p in model.named_parameters()
+                            if p.grad is not None}
+            del model, state
+            model, state, gen = fresh(mcfg)
+            broadcast_state(state, gen, world)
+            step = make_parallel_train_step(mcfg, model, world)
+            zero_counts()
+            digests, ms = [], []
+            for i in range(n_steps):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                stats = step(state, ds, view_ids, gen)
+                torch.cuda.synchronize(dev)
+                ms.append(1000.0 * (time.perf_counter() - t0))
+                if i == 0:
+                    first = {k: float(v) for k, v in stats.items()}
+                    cos = {}
+                    for n, p in model.named_parameters():
+                        if p.grad is not None:
+                            a, b = p.grad.detach().double().ravel(), single_grads[n].ravel()
+                            na, nb = float(a.norm()), float(b.norm())  # a leaf no loss reaches: 0
+                            cos[n] = 1.0 if na == nb == 0 else float(a @ b) / max(na * nb, 1e-30)
+                digests.append(hashlib.sha256(b"".join(
+                    v.detach().cpu().numpy().tobytes() for v in model.state_dict().values()
+                )).hexdigest())
+            result["modes"][mode] = {
+                "launches": launch_counts(), "first": first, "single": single, "cos": cos,
+                "digests": digests, "ms": ms,
+                "n_params": sum(p.numel() for p in model.parameters())}
+        result["collectives"] = time_collectives(world, result["modes"]["trunk"]["n_params"])
+
+        zero_counts()
+        result["evaluate"] = engine.run_evaluate(cfg, dev, log=lambda *a: None, world=world)
+        result["evaluate_launches"] = launch_counts()
+        return result
+    finally:
+        world.close()
+
+
+def parallel_phase(phase10, phase5):
+    """14. Data parallelism through torchrun (see the module docstring):
+    (a) one NCCL rank against phase 10's trunk run, (b) two gloo ranks on
+    the card against one process, (c) SIGTERM and resume against (a), (d)
+    the two-rank evaluation against phase 5."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.engine import port_roots
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    steps = TRAIN_STEPS["trunk"]
+    with tempfile.TemporaryDirectory() as tmp:
+        def train_args(name):
+            return ["--cfg_file", CFG_FILE, "--max_steps", str(steps), "model_dir",
+                    f"{tmp}/{name}", "record_dir", f"{tmp}/{name}_rec",
+                    "model.pallas_mode", "trunk"]
+
+        def final_params(name):
+            cfg = load_config(CFG_FILE, train_args(name)[4:])
+            ck = torch.load(os.path.join(port_roots(cfg).steps, f"{steps}.pt"),
+                            map_location="cpu", weights_only=True)
+            return ck["params"]
+
+        # (a) torchrun, one rank over NCCL, against phase 10's non-distributed run
+        os.makedirs(f"{tmp}/a_out")
+        t0 = time.perf_counter()
+        rc, log = torchrun(1, "train_timed", f"{tmp}/a_out", *train_args("a"))
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"torchrun train_net (one NCCL rank): rc {rc}\n{log[-4000:]}")
+        a = child_result(f"{tmp}/a_out")
+        pa = final_params("a")
+        same_losses = np.array_equal(a["losses"], phase10["losses"])
+        same_params = all(torch.equal(pa[k], v) for k, v in phase10["params"].items())
+        ms = [1000.0 * s / k for k, s in a["windows"][1:]]
+        want = {"A1": 0, "A2": steps, "B": 2 * steps, "B'": 2 * steps, "C": 0, "C'": 0}
+        col = a["collectives"]
+        print(f"parallel (a): torchrun --nproc_per_node 1 train_net, NCCL, {steps} steps of "
+              f"mode trunk in {wall:.2f} s of child wall time: median {np.median(ms):.3f} "
+              f"ms/step (phase 10, not distributed: {phase10['ms_step']:.3f}); losses equal to "
+              f"phase 10 bit for bit: {same_losses}, final parameters: {same_params}; launches "
+              f"{a['launches']}; NCCL world-of-one collectives, median ms: 16 floats "
+              f"{col['small']:.4f}, the {phase10['n_params']} gradients {col['gradients']:.4f}, "
+              f"the gloo SIGTERM flag {col['flag']:.4f}, {col['per_step']:.4f} per step; {card}")
+        check(same_losses and same_params, "one NCCL rank differs from the non-distributed run")
+        check(a["launches"] == want, f"(a) launch counts {a['launches']}, expected {want}")
+        ev = a["evaluate"]
+        same = all(np.array_equal(ev[k], phase5[k]) for k in ("psnr", "miou", "pq"))
+        print(f"  run_evaluate over the same NCCL world of one (tiles gathered by NCCL): PSNR "
+              f"{ev['psnr']:.6f}, mIoU {ev['miou']:.6f}, PQ {ev['pq']:.6f}; equal to phase 5 "
+              f"bit for bit: {same}; A1 launches {a['evaluate_launches']['A1']}")
+        check(same, "(a) the NCCL world-of-one evaluation differs from phase 5")
+        check(a["evaluate_launches"]["A1"] == len(phase5["views"]), "(a) evaluation A1 launches")
+
+        # (c) SIGTERM to the rank, then a resume to the end, against (a)
+        os.makedirs(f"{tmp}/c_out")
+        pid, sent = [], []
+
+        def on_line(line):
+            if line.startswith("child pid "):
+                pid.append(int(line.split()[2]))
+            elif line.startswith("step ") and pid and not sent:
+                os.kill(pid[0], signal.SIGTERM)
+                sent.append(line.strip())
+
+        rc, log = torchrun(1, "train", f"{tmp}/c_out", *train_args("c"), on_line=on_line)
+        m = re.search(r"SIGTERM received: checkpointing at step (\d+) and exiting", log)
+        check(rc == 0 and sent and m is not None, f"(c) SIGTERM run: rc {rc}\n{log[-4000:]}")
+        k = int(m.group(1))
+        stopped = child_result(f"{tmp}/c_out")
+        rc, log = torchrun(1, "train", f"{tmp}/c_out", *train_args("c"), "train.resume", "true")
+        check(rc == 0, f"(c) resumed run: rc {rc}\n{log[-4000:]}")
+        resumed = child_result(f"{tmp}/c_out")
+        pc = final_params("c")
+        same = (stopped["preempted"] and np.array_equal(resumed["losses"], a["losses"][k:])
+                and all(torch.equal(pc[n], v) for n, v in pa.items()))
+        print(f"parallel (c): SIGTERM after '{sent[0][:40]}...': checkpointed at step {k}; "
+              f"resumed to {steps} under torchrun: losses from {k} and final parameters equal "
+              f"to (a) bit for bit: {same}")
+        check(same, "(c) SIGTERM + resume under torchrun differs from (a)")
+
+        # (b) and (d): two gloo ranks sharing the card
+        os.makedirs(f"{tmp}/b_out")
+        t0 = time.perf_counter()
+        rc, log = torchrun(2, "gloo2", f"{tmp}/b_out")
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"torchrun gloo2: rc {rc}\n{log[-4000:]}")
+        r0, r1 = child_result(f"{tmp}/b_out", 0), child_result(f"{tmp}/b_out", 1)
+        for mode, n_steps in DP_GLOO_STEPS.items():
+            m0, m1 = r0["modes"][mode], r1["modes"][mode]
+            rel = {k: abs(m0["first"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in m0["single"].items() if k.startswith("loss_")}
+            cos = min(min(m0["cos"].values()), min(m1["cos"].values()))
+            per = {"trunk": {"B": 2, "B'": 2}, "field": {"C": 2, "C'": 2}}[mode]
+            want = {k: n_steps if k == "A2" else per.get(k, 0) * n_steps
+                    for k in kernel_counters()}
+            print(f"parallel (b) {mode}: 2 gloo ranks on one card, {n_steps} steps: median "
+                  f"{np.median(m0['ms'][1:]):.3f} ms/step (rank 0; synchronised each step); "
+                  f"ranks bit-equal after every step: {m0['digests'] == m1['digests']}; step 1 "
+                  f"against one process: loss terms rel <= {max(rel.values()):.2e}, min "
+                  f"per-leaf gradient cosine {cos:.6f}; launches per rank {m0['launches']} / "
+                  f"{m1['launches']}; {card}")
+            check(m0["digests"] == m1["digests"], f"(b) {mode}: the ranks' parameters differ")
+            check(max(rel.values()) <= DP_STEP_REL, f"(b) {mode}: loss terms off one process {rel}")
+            check(cos >= DP_MIN_COSINE, f"(b) {mode}: gradient cosine {cos} < {DP_MIN_COSINE}")
+            check(m0["launches"] == want and m1["launches"] == want,
+                  f"(b) {mode}: launches {m0['launches']} / {m1['launches']}, expected {want}")
+        col = r0["collectives"]
+        print(f"  gloo collectives on CUDA tensors (host-staged), median ms: 16 floats "
+              f"{col['small']:.4f}, the gradients {col['gradients']:.4f}, the SIGTERM flag "
+              f"{col['flag']:.4f}, {col['per_step']:.4f} per step; child wall {wall:.2f} s")
+        ev, n_views = r0["evaluate"], len(phase5["views"])
+        same = all(np.array_equal(ev[k], phase5[k]) for k in ("psnr", "miou", "pq"))
+        print(f"parallel (d): run_evaluate on 2 gloo ranks: PSNR {ev['psnr']:.6f}, mIoU "
+              f"{ev['miou']:.6f}, PQ {ev['pq']:.6f}; equal to phase 5 bit for bit: {same}; "
+              f"A1 launches per rank {r0['evaluate_launches']['A1']} / "
+              f"{r1['evaluate_launches']['A1']} for {n_views} views; rank 1 returned "
+              f"{r1['evaluate']!r}")
+        check(same, "(d) the two-rank evaluation differs from phase 5")
+        check(r1["evaluate"] is None, "(d) rank 1 scored")
+        check(r0["evaluate_launches"]["A1"] == r1["evaluate_launches"]["A1"] == n_views,
+              "(d) A1 launches per rank differ from the views rendered")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1638,7 +1958,8 @@ def main():
         step_phase(cfg, ds_t, dev, mode)
     del ds_t
     torch.cuda.empty_cache()
-    train = {mode: train_phase(cfg, dev, engine, mode)[0] for mode in MODES}
+    runs = {mode: train_phase(cfg, dev, engine, mode) for mode in MODES}
+    train = {mode: run[0] for mode, run in runs.items()}
 
     # 11. the engine around the step
     from panopticnerf_tpu_torch import run
@@ -1652,6 +1973,11 @@ def main():
         mixed_phase(dev, kitti)
     # 13 (d) keep-M on the flagship checkpoint, beside phase 5's full render
     keep_phase(cfg, dev, engine, ds, model, res)
+
+    # 14. data parallelism: torchrun children against phases 10 and 5
+    _, trunk_ms, trunk_run = runs["trunk"]
+    parallel_phase({**trunk_run, "ms_step": trunk_ms,
+                    "n_params": sum(v.numel() for v in trunk_run["params"].values())}, res)
 
     # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
     # (C' on C's saved activations, as mode field runs it). No single PyTorch
@@ -1684,4 +2010,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--child"]:  # a rank of phase 14, started by torchrun
+        child(sys.argv[2], sys.argv[3], sys.argv[4:])
+    else:
+        main()

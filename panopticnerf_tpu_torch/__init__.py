@@ -5,7 +5,8 @@ layout mirrors it module for module. Ported so far, on the synthetic
 scene: evaluation, visualisation and the throughput probe (`run.py
 --type evaluate / visualize / network`), and training (`train_net.py`:
 resume, warm start, save cadence, in-training evaluation, save_best, the
-SIGTERM checkpoint) in the three field modes of `model.pallas_mode`,
+SIGTERM checkpoint; data parallel over GPUs under torchrun) in the
+three field modes of `model.pallas_mode`,
 with hand-written CUDA kernels for the ray x primitive intersection
 (`csrc/intersect.cu`), the fused trunk's forward and backward
 (`csrc/mlp_train.cu`) and the whole field's forward and backward
@@ -21,6 +22,7 @@ Layout:
              sampling, composite
   render/    volume renderer (training and tiled full-image paths)
   train/     losses, train step, optimizer, checkpoints, recorder
+  parallel/  data parallelism: torch.distributed world, ray-sharded step, tile-sharded render
   eval/      PSNR / mIoU / PQ evaluator and panoptic fusion
   viz/       images and label maps (PNG without PIL)
   csrc/      CUDA C++ kernel sources

@@ -15,10 +15,19 @@ novel-pose trajectory and a 360-degree panorama; `run_network` times the
 training step. Under streaming every render moves the views it touches to
 the device.
 
+Each entry point takes a `world` (parallel.maybe_init_distributed: one
+process per GPU under torchrun). In a distributed world every rank runs
+the steps (`make_parallel_train_step`: the rays split over the ranks) and
+every full-image render (its tiles split over the ranks, the maps
+gathered on every rank); rank 0 alone logs and writes the recorder, the
+checkpoints, the best sidecar, the images and the scores, and the others
+wait at a barrier after each save. A SIGTERM to any rank stops every rank
+at the same step boundary.
+
 The port's checkpoints live under `<model_dir>/torch/` (`port_roots`).
 
-Not ported yet (ROADMAP Queue 1): data parallelism over GPUs (1.8), and
-LPIPS, the sweep, the staged runner and the profiling helpers (1.9).
+Not ported yet (ROADMAP Queue 1): LPIPS, the sweep, the staged runner and
+the profiling helpers (1.9).
 """
 
 from __future__ import annotations
@@ -45,6 +54,12 @@ from panopticnerf_tpu_torch.data.stream import (
 from panopticnerf_tpu_torch.eval import make_evaluator
 from panopticnerf_tpu_torch.models import init_params, make_network
 from panopticnerf_tpu_torch.ops.rays import full_image_uv, gen_rays_perspective
+from panopticnerf_tpu_torch.parallel import (
+    World,
+    broadcast_state,
+    make_parallel_train_step,
+    resolve_world,
+)
 from panopticnerf_tpu_torch.render import SceneBounds, intersect_and_render, render_panorama
 from panopticnerf_tpu_torch.train import (
     eval_state_dict,
@@ -58,6 +73,7 @@ from panopticnerf_tpu_torch.train.checkpoint import (
     load_model,
     load_network,
     save_model,
+    step_path,
 )
 from panopticnerf_tpu_torch.train.recorder import Recorder
 
@@ -134,12 +150,32 @@ def _view_on(ds, view: int, dev: torch.device):
     return views_to(ds, [view], dev), 0
 
 
-def _render_view(cfg: Config, model, ds, view: int):
+def _render_view(cfg: Config, model, ds, view: int, world: World | None = None):
     ds, view = _view_on(ds, view, _device_of(model))
     o, d = view_rays(ds, view)
     prims = view_primitives(ds, view) if cfg.render.use_primitives else None
     bounds = SceneBounds(ds.bounds_center, ds.bounds_scale)
-    return intersect_and_render(cfg, model, o, d, prims, bounds)
+    return intersect_and_render(cfg, model, o, d, prims, bounds, world)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The console of a rank other than 0."""
+
+
+def _lead_log(world: World, log):
+    """Rank 0 owns the console (the JAX engine's `_lead_log`)."""
+    return log if world.lead else _quiet
+
+
+def _make_step(cfg: Config, model, world: World, log):
+    """The training step of `world`: the data-parallel step over its ranks
+    when distributed (at any size, 1 included), else the single-process one."""
+    if not world.distributed:
+        return make_train_step(cfg, model)
+    step = make_parallel_train_step(cfg, model, world)
+    log(f"data-parallel over {world.size} processes ({world.backend}): "
+        f"{cfg.data.n_rays // world.size} of {cfg.data.n_rays} rays per rank")
+    return step
 
 
 def _sync(device) -> None:
@@ -159,25 +195,33 @@ def _truth(ds, view: int, photo: bool = True) -> dict:
 
 
 @torch.no_grad()
-def evaluate_views(cfg: Config, model, ds, view_ids) -> dict:
+def evaluate_views(cfg: Config, model, ds, view_ids, world: World | None = None) -> dict:
     """Render `view_ids` with `model` and score them (every metric on every
-    view): the in-training evaluation."""
+    view): the in-training evaluation. Every rank of a distributed `world`
+    renders its tiles and scores the gathered maps, so every rank reads
+    the same metrics."""
     ev = make_evaluator(cfg)
     hw = tuple(ds.images.shape[1:3])
     for view in view_ids:
-        out = _render_view(cfg, model, ds, int(view))
+        out = _render_view(cfg, model, ds, int(view), world)
         ev.evaluate(out, image_hw=hw, **_truth(ds, int(view)))
     return ev.summarize()
 
 
-def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
+def run_evaluate(cfg: Config, device: torch.device | str, log=print,
+                 world: World | None = None) -> dict | None:
     """Label-transfer mIoU / PQ on every view with semantic ground truth
     (none when the dataset has no ground truth), PSNR (and SSIM, depth
     errors) on the held-out test views.
 
     Returns the evaluator summary plus `step` (checkpoint), `views` and
-    `render_seconds` (host time per view, render through synchronise).
+    `render_seconds` (host time per view, render through synchronise). In
+    a distributed `world` every rank renders its tiles of every view and
+    rank 0 scores: the other ranks return None.
     """
+    world = resolve_world(cfg, device, world)
+    log = _lead_log(world, log)
+    device = world.device
     ds, test_ids, model, step = _restore_for_eval(cfg, device)
     ev = make_evaluator(cfg)
     sem_views = []
@@ -190,11 +234,14 @@ def run_evaluate(cfg: Config, device: torch.device | str, log=print) -> dict:
     seconds = []
     for view in views:
         t0 = time.perf_counter()
-        out = _render_view(cfg, model, ds, view)
+        out = _render_view(cfg, model, ds, view, world)
         _sync(device)
         seconds.append(time.perf_counter() - t0)
-        ev.evaluate(out, image_hw=hw, **_truth(ds, view, photo=view in psnr_views))
+        if world.lead:
+            ev.evaluate(out, image_hw=hw, **_truth(ds, view, photo=view in psnr_views))
         log(f"view {view}: rendered in {seconds[-1]:.3f} s")
+    if not world.lead:
+        return None
     res = ev.summarize()
     names = None
     if cfg.model.num_classes == 19:
@@ -241,7 +288,7 @@ def _stream_windows(cfg: Config, ds, train_ids, test_ids, dev: torch.device, sta
 
 
 def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = None,
-              log=print) -> dict:
+              log=print, world: World | None = None) -> dict:
     """Train for `max_steps` steps (default train.epochs * train.ep_iter),
     from `init_params` (seed train.seed), a warm start or a resumed
     checkpoint; the reference's train_net.py. With data.stream_window > 0
@@ -259,16 +306,30 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     (first step, pool view ids) of every window this call trained on,
     `blocked` / `ready`: the streamer's seconds waited and copies already
     done at each swap).
+
+    In a distributed `world` every rank trains on its share of each batch
+    and returns the same (global) losses and stats; rank 0 writes every
+    file (`checkpoint` on the others names the file rank 0 wrote).
     """
-    dev = torch.device(device)
+    world = resolve_world(cfg, device, world)
+    log = _lead_log(world, log)
+    dev = world.device
     ds, train_ids, test_ids, model, state = _build(cfg, dev)
-    step_fn = make_train_step(cfg, model)
+    step_fn = _make_step(cfg, model, world, log)
     generator = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
     tc = cfg.train
     total = max_steps if max_steps is not None else tc.epochs * tc.ep_iter
     ckpt_dir, best_dir, best_meta_path, _ = port_roots(cfg)
     losses, windows, metrics, evals = [], [], {}, []
     saved, saved_step = None, None
+
+    def save(step: int) -> str:
+        """A step checkpoint: rank 0 writes (and prunes), the others wait for it."""
+        path = save_model(state, ckpt_dir, step, generator) if world.lead else \
+            step_path(ckpt_dir, step)
+        if world.distributed:
+            world.barrier()
+        return path
 
     streamer, stream_log = None, []
 
@@ -289,13 +350,16 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
         if state.ema is not None:  # an average anchored at the fresh init would drag evals
             state.ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
         log(f"warm-started params from {tc.init_from} (step {init_step})")
-    if tc.resume:
+    restored = None
+    if tc.resume:  # every rank reads the same file
         _, restored = load_model(state, ckpt_dir, generator=generator)
         if restored is not None:
             start = restored
             log(f"resumed from step {start}")
-            if start >= total:  # nothing to train, and no <total>.pt holding a later step
-                return result(start, False)
+    if world.distributed:
+        broadcast_state(state, generator, world)
+    if restored is not None and start >= total:  # nothing to train, and no <total>.pt
+        return result(start, False)
 
     eval_ds = ds
     if cfg.data.stream_window > 0:
@@ -323,14 +387,17 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
         preempted[0] = True
 
     prev_handler = signal.signal(signal.SIGTERM, _on_term)
+    recorder = Recorder(cfg.record_path) if world.lead else None
     try:
-        with contextlib.closing(Recorder(cfg.record_path)) as recorder:
+        with contextlib.closing(recorder) if recorder is not None else contextlib.nullcontext():
             _sync(dev)
             t0, s0 = time.perf_counter(), start
             for step in range(start, total):
-                if preempted[0]:
+                # a SIGTERM to any rank stops every rank here: one that stopped
+                # alone would leave the others blocked in the next collective
+                if world.agree(preempted[0]) if world.distributed else preempted[0]:
                     log(f"SIGTERM received: checkpointing at step {step} and exiting")
-                    saved = save_model(state, ckpt_dir, step, generator)
+                    saved = save(step)
                     return result(step, True)
                 if streamer is not None:
                     if step > 0 and step % cfg.data.stream_refresh_steps == 0:
@@ -348,17 +415,18 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
                     windows.append((step + 1 - s0, dt))
                     metrics = dict(zip(names, vals.tolist()))
                     metrics["rays_per_sec"] = (step + 1 - s0) * cfg.data.n_rays / dt
-                    recorder.update(metrics, step=step + 1)
+                    if recorder is not None:
+                        recorder.update(metrics, step=step + 1)
                     log(f"step {step + 1}/{total}: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                                                 zip(names, vals.tolist()))
                         + f", lr {lr_at(cfg, step):.3e}, {metrics['rays_per_sec']:.0f} rays/s, "
                         f"{1000.0 * dt / (step + 1 - s0):.2f} ms/step")
                     t0, s0 = time.perf_counter(), step + 1
-                if (step + 1) % tc.record_interval == 0:
+                if (step + 1) % tc.record_interval == 0 and recorder is not None:
                     recorder.record("train")
                     log(recorder.log_line((step + 1) // tc.ep_iter, tc.epochs, lr_at(cfg, step)))
                 if (step + 1) % (tc.save_ep * tc.ep_iter) == 0 or step + 1 == total:
-                    saved, saved_step = save_model(state, ckpt_dir, step + 1, generator), step + 1
+                    saved, saved_step = save(step + 1), step + 1
                 if (step + 1) % (tc.eval_ep * tc.ep_iter) == 0:
                     # one evaluation copy of the network, loaded with the EMA
                     # weights when tracked; the training module is left alone
@@ -367,7 +435,7 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
                     eval_model.load_state_dict(eval_state_dict(state))
                     _sync(dev)
                     te = time.perf_counter()
-                    res = evaluate_views(cfg, eval_model, eval_ds, eval_view_ids)
+                    res = evaluate_views(cfg, eval_model, eval_ds, eval_view_ids, world)
                     evals.append((step + 1, time.perf_counter() - te, res))
                     log(f"eval@{step + 1}: " + ", ".join(
                         f"{k}={v:.3f}" for k, v in res.items() if np.isscalar(v)))
@@ -384,12 +452,16 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
                     best_kind = kind
                     if tc.save_best and val is not None and float(val) > best_val:
                         best_val = float(val)
-                        save_model(state, best_dir, step + 1, generator, max_to_keep=1)
-                        with open(best_meta_path, "w") as f:
-                            json.dump({"value": best_val, "step": step + 1, "metric": kind}, f)
+                        if world.lead:
+                            save_model(state, best_dir, step + 1, generator, max_to_keep=1)
+                            with open(best_meta_path, "w") as f:
+                                json.dump({"value": best_val, "step": step + 1, "metric": kind},
+                                          f)
+                        if world.distributed:
+                            world.barrier()
                         log(f"new best eval metric {best_val:.4f} -> saved best@{step + 1}")
             if saved_step != total:
-                saved = save_model(state, ckpt_dir, total, generator)
+                saved = save(total)
     finally:
         # restore the caller's handler: a stale one would swallow a later SIGTERM
         signal.signal(signal.SIGTERM, prev_handler)
@@ -425,11 +497,11 @@ def _trajectory_poses(ds, n_frames: int):
     return out
 
 
-def render_trajectory(cfg: Config, model, ds, n_frames: int):
+def render_trajectory(cfg: Config, model, ds, n_frames: int, world: World | None = None):
     """Render novel interpolated poses (the reference's demo-video path):
     rays regenerated for each pose, with the intrinsics and the primitive
-    table of the nearest training view. Yields (frame, nearest view,
-    RenderOut)."""
+    table of the nearest training view (the tiles over the ranks of a
+    distributed `world`). Yields (frame, nearest view, RenderOut)."""
     h, w = ds.images.shape[1:3]
     dev = _device_of(model)
     uv = full_image_uv(h, w, dev) + 0.5
@@ -438,46 +510,54 @@ def render_trajectory(cfg: Config, model, ds, n_frames: int):
         o, d = gen_rays_perspective(uv, vds.K[v], torch.from_numpy(pose).to(dev))
         prims = view_primitives(vds, v) if cfg.render.use_primitives else None
         bounds = SceneBounds(vds.bounds_center, vds.bounds_scale)
-        yield i, near_view, intersect_and_render(cfg, model, o, d, prims, bounds)
+        yield i, near_view, intersect_and_render(cfg, model, o, d, prims, bounds, world)
 
 
 def run_visualize(cfg: Config, device: torch.device | str, log=print,
-                  panorama_hw: tuple | None = None, trajectory: int = 0) -> list:
+                  panorama_hw: tuple | None = None, trajectory: int = 0,
+                  world: World | None = None) -> list:
     """Images (rgb, depth, semantic, panoptic) and label maps of every test
     view, then `trajectory` novel-pose frames (ids from 2,000,000), then
     with `panorama_hw` (H, W) one equirect panorama from the middle test
     view (the 360-degree label transfer, id 1,000,000 + view), then videos
-    where imageio is present. Returns the files written."""
+    where imageio is present. Returns the files written. In a distributed
+    `world` every rank renders its tiles and rank 0 writes: the other ranks
+    return an empty list."""
     from panopticnerf_tpu_torch.viz import Visualizer
 
-    ds, test_ids, model, _ = _restore_for_eval(cfg, device)
-    viz = Visualizer(cfg)
+    world = resolve_world(cfg, device, world)
+    log = _lead_log(world, log)
+    ds, test_ids, model, _ = _restore_for_eval(cfg, world.device)
+    viz = Visualizer(cfg) if world.lead else None
     ev = make_evaluator(cfg)
     hw = tuple(ds.images.shape[1:3])
     written = []
-    for view in test_ids:
-        out = _render_view(cfg, model, ds, int(view))
+
+    def write(view_id: int, out, out_hw, label_maps: bool = False) -> None:
+        if not world.lead:  # the render is the collective part; the files are rank 0's
+            return
         sem, inst = ev.evaluate(out)
-        written += viz.write_view(int(view), out, hw, sem=sem, inst=inst)
-        if sem is not None and inst is not None:
-            written += viz.write_label_transfer(int(view), sem, inst, hw)
+        written.extend(viz.write_view(view_id, out, out_hw, sem=sem, inst=inst))
+        if label_maps and sem is not None and inst is not None:
+            written.extend(viz.write_label_transfer(view_id, sem, inst, out_hw))
+
+    for view in test_ids:
+        write(int(view), _render_view(cfg, model, ds, int(view), world), hw, label_maps=True)
     if trajectory > 0:
-        for i, _, out in render_trajectory(cfg, model, ds, trajectory):
-            sem_t, inst_t = ev.evaluate(out)
-            written += viz.write_view(2_000_000 + i, out, hw, sem=sem_t, inst=inst_t)
+        for i, _, out in render_trajectory(cfg, model, ds, trajectory, world):
+            write(2_000_000 + i, out, hw)
         log(f"trajectory: rendered {trajectory} interpolated poses")
     if panorama_hw is not None:
         view = int(test_ids[len(test_ids) // 2])
         pds, pview = _view_on(ds, view, _device_of(model))
-        pano = render_panorama(model, pds, pview, panorama_hw, cfg)
-        sem_p, inst_p = ev.evaluate(pano)
-        written += viz.write_view(1_000_000 + view, pano, tuple(panorama_hw), sem=sem_p,
-                                  inst=inst_p)
-    for suffix, name in (("_rgb.png", "rgb.mp4"), ("_semantic.png", "semantic.mp4"),
-                         ("_panoptic.png", "panoptic.mp4")):
-        video = viz.write_video(suffix, name)
-        if video:
-            written.append(video)
+        write(1_000_000 + view, render_panorama(model, pds, pview, panorama_hw, cfg, world),
+              tuple(panorama_hw))
+    if world.lead:
+        for suffix, name in (("_rgb.png", "rgb.mp4"), ("_semantic.png", "semantic.mp4"),
+                             ("_panoptic.png", "panoptic.mp4")):
+            video = viz.write_video(suffix, name)
+            if video:
+                written.append(video)
     log(f"wrote {len(written)} files under {cfg.result_path}")
     return written
 
@@ -485,22 +565,29 @@ def run_visualize(cfg: Config, device: torch.device | str, log=print,
 NETWORK_ITERS = 50  # timed steps of run_network, as the reference's probe
 
 
-def run_network(cfg: Config, device: torch.device | str, log=print) -> dict:
+def run_network(cfg: Config, device: torch.device | str, log=print,
+                world: World | None = None) -> dict:
     """Throughput probe of the training step (the reference's run.py --type
     network): `train.log_interval` warm-up steps, as many as the median of
     `run_train`'s log windows leaves out (the reference takes one, but a
     step soon after a state is built can stall for 0.1-0.2 s on the card),
     then NETWORK_ITERS steps and one synchronisation. Under streaming the
-    steps read the window `run_train` starts with."""
-    dev = torch.device(device)
+    steps read the window `run_train` starts with. In a distributed
+    `world` the step is the data-parallel one and the rate is the global
+    batch's."""
+    world = resolve_world(cfg, device, world)
+    log = _lead_log(world, log)
+    dev = world.device
     ds, train_ids, _, model, state = _build(cfg, dev)
     if cfg.data.stream_window > 0:
         ids = draw_window(np.random.default_rng(cfg.train.seed), train_ids,
                           cfg.data.stream_window)
         ds, train_ids = HostViews(ds, dev).window(ids), np.arange(len(ids))
-    step_fn = make_train_step(cfg, model)
+    step_fn = _make_step(cfg, model, world, log)
     view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
     generator = torch.Generator(dev).manual_seed(0)
+    if world.distributed:
+        broadcast_state(state, generator, world)
     for _ in range(max(cfg.train.log_interval, 1)):
         stats = step_fn(state, ds, view_ids, generator)
     float(stats["loss_total"])  # the warm-up's end

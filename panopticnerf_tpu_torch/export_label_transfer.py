@@ -13,6 +13,9 @@ back exactly. PNGs are written without PIL. Usage:
 
     python -m panopticnerf_tpu_torch.export_label_transfer --cfg_file configs/<x>.yaml \\
         --out DIR [--zip] [--device cpu] [KEY VALUE ...]
+
+Under `torchrun --nproc_per_node N` every rank renders its tiles of each
+frame and rank 0 writes the maps.
 """
 
 from __future__ import annotations
@@ -26,28 +29,38 @@ import torch
 from panopticnerf_tpu_torch.config import Config
 
 
-def export(cfg: Config, out_dir: str, device: torch.device | str, log=print) -> list[str]:
+def export(cfg: Config, out_dir: str, device: torch.device | str, log=print,
+           world=None) -> list[str]:
     """Write the maps of every frame of the window -> the files written
-    (semantic, instance per frame)."""
-    from panopticnerf_tpu_torch.engine import _render_view, _restore_for_eval
+    (semantic, instance per frame). In a distributed `world` (a
+    parallel.World) every rank renders its tiles of each frame and rank 0
+    writes: the other ranks return an empty list."""
+    from panopticnerf_tpu_torch.engine import _lead_log, _render_view, _restore_for_eval
     from panopticnerf_tpu_torch.eval import make_evaluator
+    from panopticnerf_tpu_torch.parallel import resolve_world
     from panopticnerf_tpu_torch.viz import label_transfer_maps
     from panopticnerf_tpu_torch.viz.png import write_png
 
-    ds, _, model, step = _restore_for_eval(cfg, device)
+    world = resolve_world(cfg, device, world)
+    log = _lead_log(world, log)
+    ds, _, model, step = _restore_for_eval(cfg, world.device)
     ev = make_evaluator(cfg)
     hw = tuple(ds.images.shape[1:3])
     n_frames = cfg.data.frame_num
     cams_per_frame = ds.images.shape[0] // n_frames
     dirs = [os.path.join(out_dir, "train", cfg.data.sequence, "image_00", kind)
             for kind in ("semantic", "instance")]
-    for d in dirs:
-        os.makedirs(d, exist_ok=True)
+    if world.lead:
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
     written = []
     for i in range(n_frames):
         view = i * cams_per_frame                       # image_00 leads each frame
         frame = cfg.data.frame_start + i * cfg.data.frame_step
-        sem, inst = ev.evaluate(_render_view(cfg, model, ds, view))
+        out = _render_view(cfg, model, ds, view, world)
+        if not world.lead:
+            continue
+        sem, inst = ev.evaluate(out)
         for d, arr in zip(dirs, label_transfer_maps(sem, inst, hw, cfg.model.num_classes)):
             written.append(os.path.join(d, f"{frame:010d}.png"))
             write_png(written[-1], arr)
@@ -68,10 +81,15 @@ def main(argv=None) -> list[str]:
     args.opts = opts
 
     from panopticnerf_tpu_torch.config import make_cfg
+    from panopticnerf_tpu_torch.parallel import maybe_init_distributed
 
-    written = export(make_cfg(args), args.out, args.device)
-    if args.zip:
-        print(f"wrote {shutil.make_archive(args.out.rstrip('/'), 'zip', root_dir=args.out)}")
+    world = maybe_init_distributed(args.device)  # before anything touches a card
+    try:
+        written = export(make_cfg(args), args.out, world.device, world=world)
+        if args.zip and world.lead:
+            print(f"wrote {shutil.make_archive(args.out.rstrip('/'), 'zip', root_dir=args.out)}")
+    finally:
+        world.close()
     return written
 
 

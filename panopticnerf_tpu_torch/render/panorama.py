@@ -40,12 +40,13 @@ def panorama_rays(position: torch.Tensor, rotation: torch.Tensor, h: int, w: int
 
 
 def render_panorama(model, ds: DeviceDataset, view: int, hw: tuple[int, int],
-                    cfg: Config) -> RenderOut:
+                    cfg: Config, world=None) -> RenderOut:
     """An equirect panorama of size `hw` from `view`'s camera centre and
-    orientation, against `view`'s primitive table."""
+    orientation, against `view`'s primitive table (its tiles over the
+    ranks of a distributed `world`)."""
     h, w = hw
     c2w = ds.c2w[view]
     o, d = panorama_rays(c2w[:, 3], c2w[:, :3], h, w)
     prims = view_primitives(ds, view) if cfg.render.use_primitives else None
     return intersect_and_render(cfg, model, o, d, prims,
-                                SceneBounds(ds.bounds_center, ds.bounds_scale))
+                                SceneBounds(ds.bounds_center, ds.bounds_scale), world)

@@ -12,7 +12,8 @@ from a `torch.Generator` or, for replaying a reference's draws, from a
 best-weighted fine depths when that is set (`ops.sampling.topm_eval_select`).
 `render_image_rays` renders a whole view as a loop over tiles of
 `render.ray_tile` rays; `intersect_and_render` intersects first, and every
-full-image render of the port goes through it.
+full-image render of the port goes through it (over the ranks of a
+distributed world, `parallel/render.py`).
 """
 
 from __future__ import annotations
@@ -214,11 +215,17 @@ def render_image_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
 
 
 def intersect_and_render(cfg: Config, model, rays_o, rays_d, prims: Optional[Primitives],
-                         bounds: SceneBounds) -> RenderOut:
+                         bounds: SceneBounds, world=None) -> RenderOut:
     """Interval intersection of the rays against one table (kernel A1 on a
     CUDA device: a failure raises, nothing falls back), then the tiled
-    full-image render. Evaluated views, trajectory frames and panoramas all
-    render through here."""
+    full-image render; with a distributed `world` (parallel.World), the
+    tiles spread over its ranks (`render_image_rays_sharded`) and every
+    rank returns the whole view. Evaluated views, trajectory frames and
+    panoramas all render through here."""
+    if world is not None and world.distributed:
+        from panopticnerf_tpu_torch.parallel.render import render_image_rays_sharded
+
+        return render_image_rays_sharded(model, rays_o, rays_d, bounds, cfg, world, prims)
     iv = None
     if cfg.render.use_primitives:
         iv = intersect_rays(rays_o, rays_d, prims, cfg.render.near, cfg.render.far,

@@ -11,7 +11,9 @@ evaluate and visualize read a checkpoint under `<model_dir>/torch/`
 (engine.checkpoint_path: a trained step, the best with `train.eval_step
 -1`, or a converted `<exp_name>_<step>.npz`). Runs on the first CUDA
 device by default; `--device cpu` runs the plain versions of the kernels
-instead.
+instead. Under `torchrun --nproc_per_node N` every rank renders its tiles
+of each view and rank 0 scores and writes; `network` times the
+data-parallel step.
 """
 
 import argparse
@@ -43,13 +45,18 @@ def main(argv=None):
     args = parse_args(argv)
     from panopticnerf_tpu_torch import engine
     from panopticnerf_tpu_torch.config import make_cfg
+    from panopticnerf_tpu_torch.parallel import maybe_init_distributed
 
-    cfg = make_cfg(args)
-    if args.type == "visualize":
-        pano = tuple(int(x) for x in args.panorama.split(",")) if args.panorama else None
-        return engine.run_visualize(cfg, args.device, panorama_hw=pano,
-                                    trajectory=args.trajectory)
-    return getattr(engine, f"run_{args.type}")(cfg, args.device)
+    world = maybe_init_distributed(args.device)  # before anything touches a card
+    try:
+        cfg = make_cfg(args)
+        if args.type == "visualize":
+            pano = tuple(int(x) for x in args.panorama.split(",")) if args.panorama else None
+            return engine.run_visualize(cfg, world.device, panorama_hw=pano,
+                                        trajectory=args.trajectory, world=world)
+        return getattr(engine, f"run_{args.type}")(cfg, world.device, world=world)
+    finally:
+        world.close()
 
 
 if __name__ == "__main__":

@@ -31,7 +31,7 @@ _STEP_FILE = re.compile(r"(\d+)\.pt$")
 _NPZ_STEP = re.compile(r"_(\d+)\.npz$")
 
 
-def _step_path(directory: str, step: int) -> str:
+def step_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"{step}.pt")
 
 
@@ -53,7 +53,7 @@ def save_model(state, directory: str, step: int, generator: Optional[torch.Gener
     """Write the whole TrainState (and `generator`'s state) as step `step`,
     keeping the newest `max_to_keep` steps. Returns the file's path."""
     os.makedirs(directory, exist_ok=True)
-    path = _step_path(directory, step)
+    path = step_path(directory, step)
     payload = {
         "params": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
@@ -65,12 +65,12 @@ def save_model(state, directory: str, step: int, generator: Optional[torch.Gener
     torch.save(payload, tmp)
     os.replace(tmp, path)
     for old in all_steps(directory)[:-max_to_keep]:
-        os.remove(_step_path(directory, old))
+        os.remove(step_path(directory, old))
     return path
 
 
 def _read(directory: str, step: int) -> dict:
-    return torch.load(_step_path(directory, step), map_location="cpu", weights_only=True)
+    return torch.load(step_path(directory, step), map_location="cpu", weights_only=True)
 
 
 @torch.no_grad()
@@ -80,12 +80,12 @@ def load_model(state, directory: str, step: Optional[int] = None,
     Returns (state, step), or (state, None) untouched when `directory`
     holds no checkpoint (the reference's `resume` semantics)."""
     target = step if step is not None else latest_step(directory)
-    if target is None or not os.path.isfile(_step_path(directory, target)):
+    if target is None or not os.path.isfile(step_path(directory, target)):
         return state, None
     ck = _read(directory, target)
     if (state.ema is None) != (ck["ema"] is None):
         raise ValueError(
-            f"checkpoint {_step_path(directory, target)} "
+            f"checkpoint {step_path(directory, target)} "
             f"{'has' if ck['ema'] is not None else 'has no'} EMA weights, the run "
             f"{'tracks' if state.ema is not None else 'does not track'} one (train.ema_decay)")
     state.model.load_state_dict(ck["params"])
@@ -107,7 +107,7 @@ def _read_weights(path: str, step: Optional[int], prefer_ema: bool):
         m = _NPZ_STEP.search(os.path.basename(path))
         return load_npz(path), int(m.group(1)) if m else None
     target = step if step is not None else latest_step(path)
-    if target is None or not os.path.isfile(_step_path(path, target)):
+    if target is None or not os.path.isfile(step_path(path, target)):
         raise FileNotFoundError(f"no checkpoint found under {path}"
                                 + (f" at step {step}" if step is not None else ""))
     ck = _read(path, target)

@@ -1,13 +1,17 @@
 """Training step, optimizer and schedules (port of `panopticnerf_tpu/train/step.py`).
 
 `make_train_step(cfg, model)` returns `step(state, ds, view_ids, generator,
-draws=None) -> stats`: ray batch -> intervals (grouped batches through
+draws=None) -> stats`: the step's random numbers (`draw_step`, all drawn up
+front) -> ray batch -> intervals (grouped batches through
 kernel A2 on the card, fully mixed batches, data.views_per_batch 0, ray by
 ray in plain PyTorch) -> training render (with `model.use_pallas`, both
 8x256 fields through the kernels of `model.pallas_mode`: B / B' for the trunk in
 "trunk", C / C' for the whole field in "field", C' as the backward of a
 plain forward in "hybrid") -> losses -> backward -> Adam, in place on
-`state`.
+`state`. A data-parallel rank (`parallel/step.py`) passes a `RankShare`:
+it renders its rows of the whole batch, its losses divide by the global
+denominators, and its gradients are summed over the ranks before the
+update.
 The optimizer follows optax's definitions, which the reference uses:
 - `exponential_decay`, not staircased: the update at count t uses
   lr * rate ** (t / max_steps);
@@ -21,7 +25,7 @@ Stats are 0-dim device tensors; the step never reads them back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from panopticnerf_tpu_torch.data.dataset import (
     sample_ray_batch,
 )
 from panopticnerf_tpu_torch.models.nerf import PanopticNeRF
+from panopticnerf_tpu_torch.ops.sampling import guided_split
 from panopticnerf_tpu_torch.render.renderer import RenderDraws, SceneBounds, render_rays
 from panopticnerf_tpu_torch.train.loss import compute_losses
 
@@ -151,12 +156,65 @@ def resolve_train_model(cfg: Config, model: PanopticNeRF):
     return model
 
 
-def make_train_step(cfg: Config, model: PanopticNeRF):
+def draw_step(cfg: Config, n_views: int, hw, generator: Optional[torch.Generator],
+              device) -> StepDraws:
+    """Every random number of one training step of the whole batch, drawn
+    from `generator` with the calls, shapes and order in which
+    `sample_ray_batch` and `render_rays` draw them: the batch's group (or
+    per-ray view) positions and pixel columns / rows, then the coarse
+    uniforms (the guided in-interval ones, then the background ones; the
+    stratified ones without primitives), the coarse density noise, the
+    inverse-CDF uniforms and the fine density noise, each only where
+    the config draws it (render.perturb, render.raw_noise_std,
+    render.n_importance)."""
+    n, g, rc = cfg.data.n_rays, cfg.data.views_per_batch, cfg.render
+    h, w = hw
+    randint = lambda high, size: torch.randint(0, high, (size,), generator=generator,
+                                               device=device)
+    rand = lambda *shape: torch.rand(shape, generator=generator, device=device)
+    randn = lambda *shape: torch.randn(shape, generator=generator, device=device)
+    batch = BatchDraws(randint(n_views, g if g > 0 else n), randint(w, n), randint(h, n))
+    coarse = bg = fine = noise_coarse = noise_fine = None
+    if rc.perturb:
+        if rc.use_primitives:
+            s_in, s_bg = guided_split(rc.n_samples, rc.bg_sample_frac)
+            coarse = rand(n, s_in)
+            bg = rand(n, s_bg) if s_bg > 0 else None
+        else:
+            coarse = rand(n, rc.n_samples)
+    if rc.raw_noise_std > 0:
+        noise_coarse = randn(n, rc.n_samples)
+    if rc.n_importance > 0:
+        fine = rand(n, rc.n_importance) if rc.perturb else None
+        if rc.raw_noise_std > 0:
+            noise_fine = randn(n, rc.n_samples + rc.n_importance)
+    return StepDraws(batch, RenderDraws(coarse, bg, fine, noise_coarse, noise_fine))
+
+
+class RankShare(NamedTuple):
+    """One rank's part of a data-parallel step (parallel/step.py): its rows
+    [start, stop) of the global batch, the SUM over ranks that makes the
+    loss means global, and the in-place SUM of the gradients."""
+
+    start: int
+    stop: int
+    reducer: Callable[[torch.Tensor], torch.Tensor]
+    reduce_grads: Callable[[list], None]
+
+
+def _rows(t, start: int, stop: int):
+    """A NamedTuple of (N, ...) tensors (None fields kept) cut to rows [start, stop)."""
+    return type(t)(*[None if x is None else x[start:stop] for x in t])
+
+
+def make_train_step(cfg: Config, model: PanopticNeRF, share: Optional[RankShare] = None):
     """-> step(state, ds, view_ids, generator, draws=None) -> stats dict.
 
     `view_ids` (T,) is the pool of training views; `generator` (on the
-    dataset's device) draws the batch and the render's jitter unless
-    `draws` (a StepDraws) supplies them.
+    dataset's device) draws the step's random numbers (`draw_step`) unless
+    `draws` (a StepDraws) supplies them. With `share` (a data-parallel
+    rank), the batch, its intervals and its draws are the whole batch's,
+    and the rank renders its rows of them.
     """
     field = resolve_train_model(cfg, model)
     g = cfg.data.views_per_batch
@@ -170,23 +228,32 @@ def make_train_step(cfg: Config, model: PanopticNeRF):
              generator: Optional[torch.Generator] = None,
              draws: Optional[StepDraws] = None) -> dict:
         t = state.step
-        batch = sample_ray_batch(ds, view_ids, cfg.data.n_rays, g, generator,
-                                 draws.batch if draws is not None else None)
+        if draws is None:
+            draws = draw_step(cfg, view_ids.shape[0], ds.images.shape[1:3], generator,
+                              ds.images.device)
+        batch = sample_ray_batch(ds, view_ids, cfg.data.n_rays, g, draws=draws.batch)
         iv = None
         if cfg.render.use_primitives:
             iv = batch_intervals(ds, batch, cfg.render.near, cfg.render.far,
                                  cfg.data.max_intervals, g,
                                  use_kernel=cfg.render.use_pallas_intersect)
+        render_draws = draws.render
+        if share is not None:
+            cut = lambda x: None if x is None else _rows(x, share.start, share.stop)
+            batch, iv, render_draws = cut(batch), cut(iv), cut(render_draws)
         sem_scale = 0.0 if sem_gate and t < cfg.train.pretrain_steps else 1.0
         agree_on = 1.0 if cfg.loss.agree_filter and t >= agree_start_step else 0.0
         out = render_rays(field, batch.rays_o, batch.rays_d,
                           SceneBounds(ds.bounds_center, ds.bounds_scale), cfg, iv=iv,
-                          train=True, generator=generator,
-                          draws=draws.render if draws is not None else None)
+                          train=True, draws=render_draws)
         loss, stats = compute_losses(out, batch, cfg, sem_scale=sem_scale,
-                                     agree_on=agree_on, weight_th=weight_th_schedule(cfg, t))
+                                     agree_on=agree_on, weight_th=weight_th_schedule(cfg, t),
+                                     reducer=share.reducer if share is not None else None)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if share is not None:
+            share.reduce_grads([p for group in state.optimizer.param_groups
+                                for p in group["params"]])
         g_norm = apply_gradients(state, cfg)
         stats = {k: v.detach() for k, v in stats.items()}
         stats["grad_norm"] = g_norm.detach()

@@ -10,6 +10,12 @@ panopticnerf_tpu_torch.run --type evaluate` reads. SIGTERM checkpoints at
 the next step boundary and exits with code 0. Runs on the first CUDA device
 by default; `--device cpu` runs the plain versions of the kernels instead.
 `--max_steps` overrides train.epochs * train.ep_iter.
+
+Data-parallel on N GPUs of one machine, one process per GPU (rank r on
+cuda:r; the rays of each step split over the ranks):
+
+    torchrun --standalone --nproc_per_node N -m panopticnerf_tpu_torch.train_net \\
+        --cfg_file configs/synthetic_flagship.yaml [KEY VALUE ...]
 """
 
 import argparse
@@ -32,9 +38,14 @@ def main(argv=None):
     args = parse_args(argv)
     from panopticnerf_tpu_torch import engine
     from panopticnerf_tpu_torch.config import make_cfg
+    from panopticnerf_tpu_torch.parallel import maybe_init_distributed
 
-    cfg = make_cfg(args)
-    return engine.run_train(cfg, args.device, max_steps=args.max_steps)
+    world = maybe_init_distributed(args.device)  # before anything touches a card
+    try:
+        return engine.run_train(make_cfg(args), world.device, max_steps=args.max_steps,
+                                world=world)
+    finally:
+        world.close()
 
 
 if __name__ == "__main__":
