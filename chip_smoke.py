@@ -4,8 +4,9 @@ against its plain PyTorch version, runs the port's evaluation of the
 committed flagship checkpoint against the JAX package's recorded scores,
 replays one recorded JAX training step in each field mode, trains the
 flagship through the kernels in each mode, and drives the engine, KITTI-360
-demo trees, streaming, the panorama, mixed batches, keep-M and data
-parallelism over torchrun ranks.
+demo trees, streaming, the panorama, mixed batches, keep-M, data
+parallelism over torchrun ranks, the staged chain, LPIPS, the fusion sweep,
+the host tools and the profiling helpers.
 
     python3 chip_smoke.py          # from the repo root, on a machine with one NVIDIA GPU
 
@@ -139,7 +140,31 @@ line is printed):
      and the host-staged gloo collectives timed; (c) a `train_net` rank
      stopped by SIGTERM after its first log line, resumed under torchrun,
      equal to (a) bit for bit; (d) `run_evaluate` on the two gloo ranks
-     equal to phase 5 bit for bit, A1 = views on each rank.
+     equal to phase 5 bit for bit, A1 = views on each rank;
+ 15. the rest of the JAX package: (a) `run_staged --synthesize-tree` (the
+     48x64 8-frame demo tree) with model.use_pallas and
+     render.use_pallas_intersect on, STAGED_STEPS steps per stage: each
+     stage's train and evaluation seconds, ms/step, metrics (finite), the
+     warm start logged by stages 2-4, the pretrain gate dropped by the
+     gated stages, the semantic stage's 8x256 coarse warned about against
+     the panoptic 4x64 one, launches per stage (A2 = steps and A1 =
+     evaluated views where render.use_primitives, else 0; B = B' =
+     STAGED_B x steps; C = C' = 0), the last stage above STAGED_FLOORS;
+     (b) `run_evaluate` of the 10k flagship checkpoint with a seeded
+     random-weight LPIPS file: every other score equal to phase 5 bit for
+     bit, a finite `lpips`, one view's LPIPS on the card within LPIPS_RTOL
+     of the CPU, its ms per view; a truncated file prints "LPIPS disabled"
+     and scores as phase 5; (c) `tools.landing_sweep` on (a)'s last
+     checkpoint over blends 0-1 x rules match, raw (A1 = GT views: one
+     render for ten variants; cache and grid seconds), its row at the
+     config's own fusion equal to (a)'s `run_evaluate` to 4 decimals, and
+     `tools.pq_analysis` (report.json, one error map per GT view); (d)
+     `tools.compute_visible_ids` on a copy of (a)'s tree, read back by the
+     loader (the fields that differ from the tree's own files printed),
+     and `tools.xview_diag` on (a)'s tree against a tools/corrupt_pseudo.py
+     clone, one grid row; (e) `utils.trace()` around three flagship steps
+     (a Chrome trace naming A2, B and B''s kernels) and `utils.timed()` on
+     one step beside phase 10's ms/step.
 The last two lines are the kernels' JSON (with each kernel's bound on the
 card, computed from this run's shapes and the work of the function the TPU
 kernel computes) and `{"ok": true, "device": ...}`.
@@ -238,6 +263,19 @@ DP_GLOO_STEPS = {"trunk": 20, "field": 10}
 DP_STEP_REL = 1e-6
 DP_MIN_COSINE = 0.9999
 DP_TIMEOUT = 300          # seconds for each torchrun child (killed after)
+
+STAGED_STEPS = 300        # phase 15 (a): steps per stage (the 2000-step chain runs apart)
+# tests/test_staged_quality.py's floors for the last stage
+STAGED_FLOORS = {"psnr": 14.0, "miou": 0.80, "pq": 0.55}
+# the stages whose config has an in-run pretrain gate, which the chain drops
+STAGED_GATED = {"kitti360_semantic", "kitti360_panoptic"}
+# kernel B / B' calls per step of each stage (model.use_pallas): one per
+# field of 8x256; kitti360_panoptic's 4x64 coarse runs plain
+STAGED_B = {"kitti360_rgb_coarse": 1, "kitti360_hierarchical_depth": 2, "kitti360_semantic": 1,
+            "kitti360_panoptic": 1}
+# one view's LPIPS on the card against the CPU, relative: float32
+# convolutions (cuDNN with TF32 off against oneDNN) that sum in other orders
+LPIPS_RTOL = 1e-4
 
 
 def check(cond, msg):
@@ -1833,6 +1871,239 @@ def parallel_phase(phase10, phase5):
               "(d) A1 launches per rank differ from the views rendered")
 
 
+def lpips_weights(path, seed=0):
+    """A seeded random-weight .npz in tools/convert_lpips_weights.py's layout."""
+    from panopticnerf_tpu_torch.eval.lpips import _ALEX_LAYERS
+
+    rng = np.random.default_rng(seed)
+    arrays, in_ch = {}, 3
+    for i, (out_ch, k, _, _, _) in enumerate(_ALEX_LAYERS):
+        arrays[f"conv{i}_w"] = rng.normal(0, 0.1, (out_ch, in_ch, k, k)).astype(np.float32)
+        arrays[f"conv{i}_b"] = rng.normal(0, 0.01, (out_ch,)).astype(np.float32)
+        arrays[f"lin{i}"] = np.abs(rng.normal(0, 1, (out_ch,))).astype(np.float32)
+        in_ch = out_ch
+    np.savez(path, **arrays)
+    return path
+
+
+def staged_phase(dev, tmp):
+    """15 (a) the staged chain through run_staged (see the module docstring);
+    returns the stages' records and the options the chain ran with."""
+    import warnings
+
+    from panopticnerf_tpu_torch import run_staged
+
+    argv = ["--synthesize-tree", f"{tmp}/tree", "--steps", str(STAGED_STEPS), "--device",
+            str(dev), "model.use_pallas", "True", "render.use_pallas_intersect", "True",
+            "model_dir", f"{tmp}/m", "record_dir", f"{tmp}/rec", "result_dir", f"{tmp}/res"]
+    args = run_staged.parse_args(argv)
+    logs, recs = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        chain = run_staged.run_chain(args, log=logs.append)
+        while True:
+            zero_counts()
+            n_logs, n_warn = len(logs), len(caught)
+            rec = next(chain, None)
+            if rec is None:
+                break
+            rec.update(launches=launch_counts(), logs=logs[n_logs:],
+                       warnings=[str(w.message) for w in caught[n_warn:]])
+            recs.append(rec)
+    check([r["name"] for r in recs] == run_staged.STAGES, "the chain ran other stages")
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    for i, rec in enumerate(recs):
+        name, ev, text = rec["name"], rec["eval"], "\n".join(rec["logs"])
+        ms = [1000.0 * s / k for k, s in rec["train"]["windows"][1:]]
+        metrics = {k: v for k, v in ev.items() if isinstance(v, float)}
+        cfg = rec["cfg"]
+        want = {"A1": len(ev["views"]) if cfg.render.use_primitives else 0,
+                "A2": STAGED_STEPS if cfg.render.use_primitives else 0,
+                "B": STAGED_B[name] * STAGED_STEPS, "B'": STAGED_B[name] * STAGED_STEPS,
+                "C": 0, "C'": 0}
+        warm = "warm-started params from" in text
+        gate = "warm-chained: in-run pretrain gate dropped" in text
+        mismatch = [w for w in rec["warnings"] if "shape mismatch" in w]
+        print(f"staged (a) {name}: train {rec['train_seconds']:.2f} s ({STAGED_STEPS} steps, "
+              f"median {np.median(ms):.3f} ms/step over {len(ms)} windows after the first), "
+              f"evaluate {rec['eval_seconds']:.2f} s ({len(ev['views'])} views); warm start "
+              f"{warm}, pretrain gate dropped {gate}, shape mismatches warned "
+              f"{len(mismatch)}; launches {rec['launches']}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+        check(warm == (i > 0), f"{name}: warm start logged {warm}")
+        check(gate == (name in STAGED_GATED),
+              f"{name}: pretrain gate dropped {gate}")
+        check(rec["launches"] == want, f"{name}: launches {rec['launches']}, expected {want}")
+        check(all(np.isfinite(v) for v in metrics.values()) and bool(metrics),
+              f"{name}: non-finite metrics {metrics}")
+        check(bool(np.isfinite(rec["train"]["losses"]).all()), f"{name}: non-finite loss")
+    check(any("coarse." in w for w in recs[3]["warnings"] if "shape mismatch" in w),
+          "kitti360_semantic's 8x256 coarse into the panoptic 4x64 coarse was not warned about")
+    final = recs[3]["eval"]
+    for key, floor in STAGED_FLOORS.items():
+        check(final[key] > floor, f"kitti360_panoptic {key} {final[key]:.4f} <= {floor}")
+    print(f"  {card}")
+    return recs, args
+
+
+def lpips_phase(cfg, dev, engine, ds, model, full, tmp):
+    """15 (b) LPIPS on the flagship checkpoint (see the module docstring);
+    `full` is phase 5's run_evaluate."""
+    import dataclasses
+
+    from panopticnerf_tpu_torch.eval.lpips import LPIPS
+
+    path = lpips_weights(f"{tmp}/lpips.npz")
+    with_w = lambda p: dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval,
+                                                                         lpips_weights=p))
+    scored = lambda a: {k: v for k, v in a.items() if k not in ("render_seconds", "lpips")}
+    res = engine.run_evaluate(with_w(path), dev, log=lambda *a: None)
+    same = same_scores(scored(res), scored(full))
+    with open(REF_JSON) as fh:
+        view = int(json.load(fh)["psnr_views"][0])
+    h, w = ds.images.shape[1:3]
+    pred = engine._render_view(cfg, model, ds, view).rgb.reshape(h, w, 3)
+    gt = ds.images[view].float() / 255.0
+    fn = LPIPS(path).to(dev)
+    d_gpu, d_cpu = float(fn(pred, gt)), float(LPIPS(path)(pred.cpu(), gt.cpu()))
+    gap = abs(d_gpu - d_cpu) / abs(d_cpu)
+    ms = time_ms(lambda: fn(pred, gt))
+    print(f"lpips (b): run_evaluate with eval.lpips_weights (random weights): LPIPS "
+          f"{res.get('lpips', float('nan')):.6f} (the mean over the PSNR views); PSNR / mIoU / "
+          f"PQ and every other score equal to phase 5 bit for bit: {same}; "
+          f"render s/view {np.median(res['render_seconds']):.3f} (phase 5: "
+          f"{np.median(full['render_seconds']):.3f}); one view ({h}x{w}) on the card "
+          f"{d_gpu:.7f}, on the CPU {d_cpu:.7f}, relative gap {gap:.2e} (tol {LPIPS_RTOL}); "
+          f"LPIPS {ms:.3f} ms per view on the card (events, median of 20)")
+    check(same, "the evaluation with LPIPS moved the other scores")
+    check("lpips" in res and np.isfinite(res["lpips"]), "no finite lpips score")
+    check(gap <= LPIPS_RTOL, f"LPIPS on the card is {gap:.2e} off the CPU")
+    cut = f"{tmp}/cut.npz"
+    with open(path, "rb") as src, open(cut, "wb") as dst:
+        dst.write(src.read()[:4096])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bad = engine.run_evaluate(with_w(cut), dev, log=lambda *a: None)
+    disabled = "LPIPS disabled" in buf.getvalue()
+    same = same_scores(scored(bad), scored(full)) and "lpips" not in bad
+    print(f"  a truncated weights file: 'LPIPS disabled' printed: {disabled}; the scores equal "
+          f"phase 5 bit for bit, no lpips: {same}")
+    check(disabled and same, "a truncated weights file did not disable LPIPS cleanly")
+
+
+def sweep_phase(dev, recs, args, tmp):
+    """15 (c) landing_sweep and pq_analysis on (a)'s final checkpoint."""
+    from panopticnerf_tpu_torch import engine, run_staged
+    from panopticnerf_tpu_torch.tools import landing_sweep, pq_analysis
+
+    final = recs[3]
+    cfg = final["cfg"]
+    common = ["--cfg_file", KITTI_CFG, "--device", str(dev),
+              *run_staged.common_options(args)]
+    logs = []
+    zero_counts()
+    out = landing_sweep.main([*common, "--ckpts", f"final={engine.port_roots(cfg).steps}",
+                              "--blends", "0,0.25,0.5,0.75,1", "--sky_rules", "off",
+                              "--out", f"{tmp}/ls.json"], log=logs.append)
+    a1 = launch_counts()["A1"]
+    n_views = int(re.search(r"rendered (\d+) GT views", logs[0]).group(1))
+    secs = [float(re.search(r"in ([\d.]+) s", logs[i]).group(1)) for i in (0, 1)]
+    row = [r for r in out["rows"] if r["rule"] == cfg.eval.fusion_rule
+           and r["blend"] == cfg.loss.eval_fixed_blend and r["sky_rule"] == cfg.eval.sky_rule]
+    ev = final["eval"]
+    print(f"sweep (c): landing_sweep on the final checkpoint: {len(out['rows'])} variants "
+          f"(blends 0-1 x rules match, raw), {n_views} GT views rendered once, A1 launches "
+          f"{a1}; cache {secs[0]:.3f} s, grid {secs[1]:.3f} s; pick {out['pick']['rule']} "
+          f"blend {out['pick']['blend']}; the shipped row {row} against run_evaluate mIoU "
+          f"{ev['miou']:.6f}, PQ {ev['pq']:.6f}")
+    check(len(out["rows"]) == 10 and a1 == n_views, f"the sweep rendered {a1} times")
+    check(len(row) == 1 and row[0]["miou"] == round(ev["miou"], 4)
+          and row[0]["pq"] == round(ev["pq"], 4), "the shipped row differs from run_evaluate")
+    rep = pq_analysis.main([*common, "--out", f"{tmp}/pq"], log=logs.append)
+    pngs = [f for f in os.listdir(f"{tmp}/pq") if f.startswith("errmap_view")]
+    print(f"  pq_analysis: report.json with {len(rep['sweep'])} sweep rows and "
+          f"{len(rep['misses'])} unmatched thing segments, {len(pngs)} error maps")
+    check(os.path.exists(f"{tmp}/pq/report.json") and len(pngs) == n_views,
+          f"pq_analysis wrote {len(pngs)} error maps for {n_views} views")
+
+
+def host_tools_phase(dev, recs, args, tmp):
+    """15 (d) compute_visible_ids and xview_diag on (a)'s tree."""
+    import dataclasses
+    import shutil
+
+    from panopticnerf_tpu_torch.data import make_dataset
+    from panopticnerf_tpu_torch.data.demo_tree import SEQ
+    from panopticnerf_tpu_torch.tools import compute_visible_ids, xview_diag
+
+    tree, copy = args.synthesize_tree, f"{tmp}/vtree"
+    shutil.copytree(tree, copy)
+    shutil.rmtree(f"{copy}/visible_id")
+    t0 = time.perf_counter()
+    out = compute_visible_ids.main(["--root", copy, "--sequence", SEQ], log=lambda *a: None)
+    secs = time.perf_counter() - t0
+    cfg = recs[3]["cfg"]
+    ds, train_ids, _ = make_dataset(cfg, dev)
+    ds2, train_ids2, _ = make_dataset(
+        dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, root=copy)), dev)
+    diff = [k for k in ds._fields if getattr(ds, k) is not None
+            and not torch.equal(getattr(ds, k), getattr(ds2, k))]
+    valid, valid2 = int(ds.prim_valid.sum()), int(ds2.prim_valid.sum())
+    print(f"host (d): compute_visible_ids wrote {len(os.listdir(out))} frames in {secs:.3f} s; "
+          f"the training set from its files against the tree's own: fields that differ {diff}, "
+          f"valid (view, primitive) pairs {valid2} against {valid} (the tree lists every "
+          f"annotation in every frame, the tool those in the frustum within 120 m or around "
+          f"the camera), the same training views: {np.array_equal(train_ids, train_ids2)}")
+    check(set(diff) <= {"prim_w2p", "prim_sem", "prim_inst", "prim_valid", "prim_planes"}
+          and 0 < valid2 <= valid, f"the loader read the tool's files into another set: {diff}")
+    noisy = f"{tmp}/noisy"
+    subprocess.run([sys.executable, os.path.join(REPO, "tools", "corrupt_pseudo.py"), "--src",
+                    tree, "--dst", noisy, "--frac", "0.15", "--seed", "0"], check=True,
+                   capture_output=True)
+    t0 = time.perf_counter()
+    rep = xview_diag.main(["--clean", tree, "--noisy", noisy, "--grid", "splat:2:0.1:2:0",
+                           "--cfg_file", KITTI_CFG, "--out", f"{tmp}/xv.json", "--device",
+                           str(dev)], log=lambda *a: None)
+    row = rep["grid"][0]
+    print(f"  xview_diag (clean tree against its tools/corrupt_pseudo.py clone, one row) in "
+          f"{time.perf_counter() - t0:.2f} s: pre-clean noise {rep['pre_clean_noise']}, {row}")
+    check(rep["pre_clean_noise"] > 0 and all(np.isfinite(row[k]) for k in
+                                              ("caught", "erosion", "residual")),
+          f"xview_diag: {rep}")
+
+
+def profiling_phase(cfg, dev, engine, trunk_ms, tmp):
+    """15 (e) trace() around three flagship steps, timed() on one step."""
+    from panopticnerf_tpu_torch.train import make_train_step
+    from panopticnerf_tpu_torch.utils import timed, trace
+
+    tcfg = with_mode(cfg, "trunk")
+    ds, train_ids, _, model, state = engine._build(tcfg, dev)
+    step = make_train_step(tcfg, model)
+    view_ids = torch.as_tensor(np.asarray(train_ids), device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(3):
+        step(state, ds, view_ids, gen)
+    t0 = time.perf_counter()
+    with trace(f"{tmp}/trace"):
+        for _ in range(3):
+            step(state, ds, view_ids, gen)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path = f"{tmp}/trace/trace.json"
+    with open(path) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    found = {k: any(pat in n for n in names) for k, pat in (
+        ("A2", "intersect_kernel"), ("B", "trunk_fwd_kernel"),
+        ("B'", "trunk_bwd_data_kernel"), ("B' weights", "wgrad_kernel"))}
+    # as phase 10's windows: the first 20 steps warm up, 20 are timed
+    ms = 1000.0 * timed(step, state, ds, view_ids, gen, iters=20, warmup=20)
+    print(f"profiling (e): trace() around 3 flagship steps: {os.path.getsize(path) / 2**20:.1f} "
+          f"MiB Chrome trace in {secs:.2f} s, kernels named: {found}; timed(): {ms:.3f} ms/step "
+          f"(20 steps after 20) beside phase 10's {trunk_ms:.3f} ms/step (mode trunk)")
+    check(all(found.values()), f"the trace does not name every kernel: {found}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1978,6 +2249,15 @@ def main():
     _, trunk_ms, trunk_run = runs["trunk"]
     parallel_phase({**trunk_run, "ms_step": trunk_ms,
                     "n_params": sum(v.numel() for v in trunk_run["params"].values())}, res)
+
+    # 15. the rest of the JAX package: the staged chain, LPIPS, the fusion sweep,
+    # the host tools, the profiling helpers
+    with tempfile.TemporaryDirectory() as tmp:
+        recs, staged_args = staged_phase(dev, tmp)
+        lpips_phase(cfg, dev, engine, ds, model, res, tmp)
+        sweep_phase(dev, recs, staged_args, tmp)
+        host_tools_phase(dev, recs, staged_args, tmp)
+        profiling_phase(cfg, dev, engine, trunk_ms, tmp)
 
     # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
     # (C' on C's saved activations, as mode field runs it). No single PyTorch

@@ -149,7 +149,7 @@ class ParallelConfig:
 
 @dataclass
 class EvalConfig:
-    lpips_weights: str = ""          # LPIPS is not ported yet: must stay empty
+    lpips_weights: str = ""          # LPIPS weights .npz (eval/lpips.py); "" = no LPIPS
     fusion_rule: str = "match"       # "match" | "raw"
     sky_rule: str = "off"            # "off" | "empty" | "support" | "soft[:w]"
     sky_class: int = -1

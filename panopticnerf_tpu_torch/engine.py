@@ -25,9 +25,6 @@ wait at a barrier after each save. A SIGTERM to any rank stops every rank
 at the same step boundary.
 
 The port's checkpoints live under `<model_dir>/torch/` (`port_roots`).
-
-Not ported yet (ROADMAP Queue 1): LPIPS, the sweep, the staged runner and
-the profiling helpers (1.9).
 """
 
 from __future__ import annotations

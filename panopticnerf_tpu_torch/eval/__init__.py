@@ -2,6 +2,7 @@ import numpy as np
 
 from panopticnerf_tpu_torch.data import labels as L
 from panopticnerf_tpu_torch.eval.evaluator import Evaluator
+from panopticnerf_tpu_torch.eval.lpips import LPIPS, make_lpips
 from panopticnerf_tpu_torch.eval.metrics import (
     confusion_matrix,
     iou_from_confusion,
@@ -14,9 +15,8 @@ from panopticnerf_tpu_torch.eval.panoptic import fuse_panoptic
 
 def make_evaluator(cfg, things=None) -> Evaluator:
     """Evaluator for `cfg`: KITTI-360 thing classes at 19 classes, else every
-    class but 0 (the synthetic scene's sky/stuff) is a thing."""
-    if cfg.eval.lpips_weights:
-        raise NotImplementedError("LPIPS (eval.lpips_weights) is not ported yet")
+    class but 0 (the synthetic scene's sky/stuff) is a thing; LPIPS when
+    eval.lpips_weights names a usable weights file."""
     if things is None:
         if cfg.model.num_classes == L.NUM_TRAIN_IDS:
             things = L.TRAINID_HAS_INSTANCES
@@ -25,6 +25,7 @@ def make_evaluator(cfg, things=None) -> Evaluator:
             things[0] = False
     return Evaluator(cfg.model.num_classes, things,
                      fixed_blend=cfg.loss.eval_fixed_blend,
+                     lpips_fn=make_lpips(cfg.eval.lpips_weights),
                      fusion_rule=cfg.eval.fusion_rule,
                      sky_rule=cfg.eval.sky_rule,
                      sky_class=resolve_sky_class(cfg),
@@ -41,10 +42,12 @@ def resolve_sky_class(cfg) -> int:
 
 __all__ = [
     "Evaluator",
+    "LPIPS",
     "confusion_matrix",
     "fuse_panoptic",
     "iou_from_confusion",
     "make_evaluator",
+    "make_lpips",
     "panoptic_quality",
     "pq_from_stats",
     "psnr",

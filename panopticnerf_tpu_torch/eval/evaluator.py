@@ -2,7 +2,8 @@
 
 `evaluate(out, ...)` fuses one rendered view into panoptic labels on the
 render's device, moves the per-ray maps to host numpy once and accumulates
-PSNR / SSIM / depth errors / the confusion matrix / PQ statistics;
+PSNR / SSIM / LPIPS (when given `lpips_fn`, eval/lpips.py, computed on the
+render's device) / depth errors / the confusion matrix / PQ statistics;
 `summarize()` returns PSNR, per-class IoU, mIoU and PQ (+ SQ, RQ, PQ^Th,
 PQ^St).
 """
@@ -23,7 +24,7 @@ def _np(t):
 
 class Evaluator:
     def __init__(self, num_classes: int, things: np.ndarray, ignore: int = 255,
-                 fixed_blend: float = 0.5, fusion_rule: str = "match",
+                 fixed_blend: float = 0.5, lpips_fn=None, fusion_rule: str = "match",
                  sky_rule: str = "off", sky_class: int = 0, sky_eps: float = 1e-4):
         if fusion_rule not in ("match", "raw"):
             raise ValueError(f"unknown eval.fusion_rule {fusion_rule!r}")
@@ -36,11 +37,13 @@ class Evaluator:
         self.sky_rule = sky_rule
         self.sky_class = sky_class
         self.sky_eps = sky_eps
+        self.lpips_fn = lpips_fn  # eval/lpips.py's module, or None: no LPIPS
         self.reset()
 
     def reset(self):
         self.psnrs = []
         self.ssims = []
+        self.lpips = []
         self.depth_sums = {"n": 0, "se_sum": 0.0, "absrel_sum": 0.0, "delta125": 0}
         self.cm = np.zeros((self.num_classes, self.num_classes), np.int64)
         self.pq_stats = {
@@ -72,6 +75,10 @@ class Evaluator:
                 m2d = None if valid is None else np.asarray(valid, bool).reshape(h, w)
                 self.ssims.append(metrics.ssim(
                     rgb.reshape(h, w, -1), np.asarray(gt_rgb).reshape(h, w, -1), m2d))
+                if self.lpips_fn is not None:
+                    fn = self.lpips_fn.to(out.rgb.device)
+                    self.lpips.append(float(fn(out.rgb.reshape(h, w, -1),
+                                               np.asarray(gt_rgb).reshape(h, w, -1))))
         if gt_depth is not None and out.depth is not None:
             s = metrics.depth_error_sums(_np(out.depth), gt_depth, valid)
             for k in self.depth_sums:
@@ -104,6 +111,9 @@ class Evaluator:
         ssims = [s for s in self.ssims if np.isfinite(s)]
         if ssims:
             result["ssim"] = float(np.mean(ssims))
+        lpips = [v for v in self.lpips if np.isfinite(v)]
+        if lpips:
+            result["lpips"] = float(np.mean(lpips))
         if self.depth_sums["n"] > 0:
             result.update(metrics.depth_from_sums(self.depth_sums))
         if self.cm.sum() > 0:
@@ -147,6 +157,8 @@ class Evaluator:
             line = f"PSNR: {res['psnr']:.2f} dB"
             if "ssim" in res:
                 line += f"  SSIM: {res['ssim']:.4f}"
+            if "lpips" in res:
+                line += f"  LPIPS: {res['lpips']:.4f}"
             lines.append(line)
         if "depth_rmse" in res:
             lines.append(f"depth: rmse {res['depth_rmse']:.3f} m  "

@@ -51,6 +51,21 @@ class RayIntervals(NamedTuple):
     mask: torch.Tensor      # (N, K) bool
 
 
+def make_box_primitives(centers, sizes, rotations, semantics, instances,
+                        valid: Optional[torch.Tensor] = None) -> Primitives:
+    """World -> unit-cube affines of oriented boxes: centers (P, 3), sizes
+    (P, 3) full extents, rotations (P, 3, 3) local -> world;
+    x_local = diag(2 / size) @ R^T @ (x - center)."""
+    inv_half = 2.0 / torch.clamp(sizes, min=1e-9)                     # (P, 3)
+    lin = inv_half[:, :, None] * rotations.transpose(-1, -2)          # (P, 3, 3)
+    trans = -torch.einsum("pij,pj->pi", lin, centers)                 # (P, 3)
+    if valid is None:
+        valid = torch.ones(centers.shape[0], dtype=torch.bool, device=centers.device)
+    return Primitives(world_to_prim=torch.cat([lin, trans[:, :, None]], dim=-1),
+                      semantic=semantics.to(torch.int32), instance=instances.to(torch.int32),
+                      valid=valid)
+
+
 def ray_box_intervals(rays_o, rays_d, prims: Primitives, near: float, far: float):
     """Dense slab test of N rays against P unit-cube primitives: one table
     (fields with a leading P) or a table per ray (a leading N, then P).
@@ -242,3 +257,16 @@ def fixed_map_from_weights(weights, inside_lab, cnt, iv: RayIntervals,
     labeled = (iv.mask & (iv.semantic >= 0))[..., None]
     onehot = torch.nn.functional.one_hot(sem, num_classes).to(weights.dtype) * labeled
     return torch.sum(m[..., None] * onehot, dim=1)
+
+
+def fixed_semantic_distribution(z: torch.Tensor, iv: RayIntervals, num_classes: int):
+    """The dense per-sample fixed field: (dist (N, S, C), any_label (N, S)),
+    each sample's uniform mixture over the labels of the intervals holding
+    it. For tests and callers outside the render, which uses the K-factored
+    `fixed_map_from_weights` and never builds (N, S, C)."""
+    inside_lab, cnt = labeled_containment(z, iv)
+    sem = torch.clamp(iv.semantic, 0, num_classes - 1).long()
+    labeled = (iv.mask & (iv.semantic >= 0))[..., None]
+    onehot = torch.nn.functional.one_hot(sem, num_classes).to(torch.float32) * labeled  # (N, K, C)
+    counts = torch.sum(inside_lab[..., None].to(torch.float32) * onehot[:, None], dim=2)
+    return counts / torch.clamp(cnt[..., None], min=1.0), cnt > 0

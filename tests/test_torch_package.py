@@ -27,6 +27,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "import panopticnerf_tpu_torch.viz, panopticnerf_tpu_torch.viz.png\n"
         "import panopticnerf_tpu_torch.data.stream, panopticnerf_tpu_torch.render.panorama\n"
         "import panopticnerf_tpu_torch.parallel, panopticnerf_tpu_torch.export_label_transfer\n"
+        "import panopticnerf_tpu_torch.run_staged, panopticnerf_tpu_torch.eval.lpips\n"
+        "import panopticnerf_tpu_torch.eval.sweep, panopticnerf_tpu_torch.utils.profiling\n"
+        "import panopticnerf_tpu_torch.tools.landing_sweep, panopticnerf_tpu_torch.tools.pq_analysis\n"
+        "import panopticnerf_tpu_torch.tools.compute_visible_ids\n"
+        "import panopticnerf_tpu_torch.tools.xview_diag\n"
         "import chip_smoke\n"
         # chip_smoke imports the port inside main(); load what it loads
         "from panopticnerf_tpu_torch import engine, convert\n"
