@@ -294,7 +294,8 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     evaluation reads the test views moved to the device once.
 
     Returns `state`, `losses` (loss_total of every step this call ran,
-    read back once at the end), `windows` ((steps, seconds) between log
+    read back once at the end), `stats` (every stat of every step, by name,
+    read back with it), `windows` ((steps, seconds) between log
     readbacks, host clock through the readback's synchronisation; saves
     and evaluations fall into the window after them), `metrics` (the last
     log line's stats), `evals` ((step, seconds, summary) of each in-training
@@ -317,7 +318,7 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     tc = cfg.train
     total = max_steps if max_steps is not None else tc.epochs * tc.ep_iter
     ckpt_dir, best_dir, best_meta_path, _ = port_roots(cfg)
-    losses, windows, metrics, evals = [], [], {}, []
+    step_stats, windows, metrics, evals = [], [], {}, []
     saved, saved_step = None, None
 
     def save(step: int) -> str:
@@ -333,8 +334,11 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
     def result(step: int, was_preempted: bool) -> dict:
         stream = None if streamer is None else {
             "windows": stream_log, "blocked": streamer.blocked, "ready": streamer.ready}
-        return {"state": state,
-                "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
+        names = sorted(step_stats[0]) if step_stats else []
+        per_step = dict(zip(names, torch.stack([torch.stack([s[k].float() for s in step_stats])
+                                                for k in names]).cpu().numpy())) if names else {}
+        return {"state": state, "losses": per_step.get("loss_total", np.zeros(0)),
+                "stats": per_step,
                 "windows": windows, "metrics": metrics, "evals": evals, "checkpoint": saved,
                 "steps": step, "preempted": was_preempted, "stream": stream}
 
@@ -404,7 +408,7 @@ def run_train(cfg: Config, device: torch.device | str, max_steps: int | None = N
                     if not stream_log or stream_log[-1][1] is not streamer.current()[1]:
                         stream_log.append((step, streamer.current()[1]))
                 stats = step_fn(state, ds, view_ids, generator)
-                losses.append(stats["loss_total"])
+                step_stats.append(stats)
                 if (step + 1) % tc.log_interval == 0 or step + 1 == total:
                     names = sorted(stats)  # one readback of every stat
                     vals = torch.stack([stats[k].float() for k in names]).cpu().numpy()

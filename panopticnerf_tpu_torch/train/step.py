@@ -133,7 +133,12 @@ def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
     """The update of the step from the params' .grad: global norm, clip,
     lr(t), Adam / AdamW, step count, EMA. Returns the unclipped global norm."""
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
-    grads = [p.grad for p in params if p.grad is not None]
+    # optax updates every leaf at every step: a leaf no loss reaches (the
+    # coarse semantic head) has a zero gradient, which AdamW still decays
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
     g_norm = global_norm(grads)
     if cfg.train.grad_clip > 0:
         clip_by_global_norm(grads, cfg.train.grad_clip, g_norm)
