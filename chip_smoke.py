@@ -6,8 +6,10 @@ replays one recorded JAX training step in each field mode, trains the
 flagship through the kernels in each mode, and drives the engine, KITTI-360
 demo trees, streaming, the panorama, mixed batches, keep-M, data
 parallelism over torchrun ranks, the staged chain, LPIPS, the fusion sweep,
-the host tools and the profiling helpers, and holds each training mode to the
-plain path over many steps.
+the host tools and the profiling helpers, holds each training mode to the
+plain path over many steps, and runs the full-resolution protocol's tree
+(376x1408) through the layout checker, a short run, its evaluation and the
+export.
 
     python3 chip_smoke.py          # from the repo root, on a machine with one NVIDIA GPU
 
@@ -176,7 +178,22 @@ line is printed):
      last 20 steps, and the parameter drift ||θ_mode - θ_plain|| /
      ||θ_plain - θ0|| (every parameter, the largest and the median leaf),
      each held to a multiple of the same reading between the JAX
-     package's plain and Pallas steps (TRAJ_FLOOR_JSON).
+     package's plain and Pallas steps (TRAJ_FLOOR_JSON);
+ 17. the full-resolution protocol (tools/fullres_protocol_torch.py) in
+     short: (a) its demo tree at KITTI-360's 376x1408 (8 stereo frames, 16
+     boxes and 4 concave buildings: P = 32, F = 8) with the fisheye streams,
+     written on the card (write time); (b) `tools.check_data` on it with
+     configs/kitti360_panoptic.yaml, the tree's presets and the fisheye
+     streams required: exit code 0, every required stream ok, the printed
+     report equal to `check_tree`'s; (c) `train_net` on that config with the
+     presets (ratio 1.0: 16 views of 529,408 rays) for FULL_STEPS steps
+     (the semantic losses on from the half): ms/step, peak device memory,
+     launches A2 = steps, B = B' = steps (the 4x64 coarse runs plain), A1 =
+     C = C' = 0; `run --type evaluate` at 376x1408 (s/view, peak memory, A1
+     = views evaluated); (d) A1 on one full test view (N = 529,408) against
+     its plain version bit for bit, their times as in phase 12, beside its
+     bound; (e) the label-transfer export (8 + 8 PNGs, A1 = 8), one frame
+     read back by the loader bit for bit.
 The last two lines are the kernels' JSON (with each kernel's bound on the
 card, computed from this run's shapes and the work of the function the TPU
 kernel computes) and `{"ok": true, "device": ...}`.
@@ -315,6 +332,11 @@ TRAJ_LATE_MULTIPLE = 6.0
 # profiler sessions that device_ms and phase 15 (e) make before they give up
 # on a kernel the profiler did not record
 PROFILE_ATTEMPTS = 3
+# phase 17: the demo tree of the full-resolution protocol
+# (tools/fullres_protocol_torch.py: 8 stereo frames, 16 boxes, 4 concave
+# buildings, with fisheye) and the steps of its short run
+FULL_FRAMES, FULL_BOXES, FULL_CONCAVE = 8, 16, 4
+FULL_STEPS = 100
 
 
 def check(cond, msg):
@@ -2256,6 +2278,137 @@ def profiling_phase(cfg, dev, engine, trunk_ms, tmp):
     check(all(found.values()), f"the trace does not name every kernel: {found}")
 
 
+def fullres_phase(dev, tmp):
+    """17. the full-resolution protocol's tree, a short run (see the module docstring)."""
+    from panopticnerf_tpu_torch import export_label_transfer, run, train_net
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import labels as L
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.data.kitti360 import _load_gt_sem_inst
+    from panopticnerf_tpu_torch.ops import intersect_cuda
+    from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
+    from panopticnerf_tpu_torch.run_staged import tree_presets
+    from panopticnerf_tpu_torch.tools import check_data
+    from panopticnerf_tpu_torch.viz.png import read_png
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    tree = f"{tmp}/fulltree"
+    t0 = time.perf_counter()
+    seq = write_demo_tree(tree, n_frames=FULL_FRAMES, hw=KITTI_HW, n_boxes=FULL_BOXES,
+                          n_concave=FULL_CONCAVE, fisheye=True, device=dev)
+    secs = time.perf_counter() - t0
+    print(f"fullres (a): write_demo_tree {FULL_FRAMES} stereo frames of {KITTI_HW[0]}x"
+          f"{KITTI_HW[1]} with fisheye, {FULL_BOXES} boxes + {FULL_CONCAVE} concave buildings in "
+          f"{secs:.2f} s; {card}")
+
+    # (b) the layout checker on it, with the fisheye streams required
+    presets = tree_presets(tree, FULL_FRAMES, KITTI_HW, FULL_BOXES, FULL_CONCAVE)
+    lines = []
+    rc = check_data.main(["--cfg_file", KITTI_CFG, *presets, "data.use_fisheye", "true"],
+                         log=lines.append)
+    rep = check_data.check_tree(tree, seq, list(range(FULL_FRAMES)), use_fisheye=True)
+    width = max(len(k) for k in rep)
+    want = [f" {'+' if st == 'ok' else '!' if req else '~'} {name:<{width}}  {st:<8} "
+            f"{'required' if req else 'optional':<9} {detail}"
+            for name, (st, req, detail) in rep.items()]
+    units = lines[len(rep)]
+    required_ok = all(st == "ok" for st, req, _ in rep.values() if req)
+    print(f"  check_data: exit code {rc}, {len(rep)} streams "
+          f"({sum(req for _, req, _ in rep.values())} required, all ok: {required_ok}; optional "
+          f"not ok: {[k for k, (st, req, _) in rep.items() if not req and st != 'ok']}), the "
+          f"printed report equal to check_tree's: {lines[:len(rep)] == want}; {units.strip()}")
+    check(rc == 0 and required_ok and lines[:len(rep)] == want and " + depth/units" in units
+          and lines[-1].startswith("\nOK"), f"check_data on the full-resolution tree: {lines}")
+
+    # (c) the training main path at full resolution, then its evaluation
+    opts = [*presets, "train.pretrain_steps", str(FULL_STEPS // 2), "model_dir", f"{tmp}/fm",
+            "record_dir", f"{tmp}/frec", "result_dir", f"{tmp}/fres"]
+    cfg = load_config(KITTI_CFG, opts)
+    args = ["--cfg_file", KITTI_CFG, "--device", str(dev), *opts]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    tr = cli(train_net.main, *args, "--max_steps", str(FULL_STEPS))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [1000.0 * s / kk for kk, s in tr["windows"][1:]]
+    losses = tr["losses"]
+    print(f"  train_net (ratio 1.0: {2 * FULL_FRAMES} views of {KITTI_HW[0] * KITTI_HW[1]:,} "
+          f"rays, P = {cfg.data.max_primitives}, K = {cfg.data.max_intervals}): {FULL_STEPS} "
+          f"steps in {wall:.2f} s, median {np.median(ms):.3f} ms/step over {len(ms)} windows "
+          f"after the first; loss_total first 10 {float(losses[:10].mean()):.4f}, last 10 "
+          f"{float(losses[-10:].mean()):.4f}; peak device memory {peak:.2f} GiB; launches "
+          f"{launches}")
+    want = {"A1": 0, "A2": FULL_STEPS, "B": FULL_STEPS, "B'": FULL_STEPS, "C": 0, "C'": 0}
+    check(bool(np.isfinite(losses).all()) and launches == want and not tr["evals"],
+          f"full-resolution training: launches {launches}, expected {want}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ev = cli(run.main, "--type", "evaluate", *args)
+    a1 = launch_counts()["A1"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = ev["render_seconds"]
+    print(f"  run --type evaluate at {KITTI_HW[0]}x{KITTI_HW[1]}: {len(ev['views'])} views, "
+          f"render s/view median {np.median(secs):.3f} (range {min(secs):.3f}-{max(secs):.3f}); "
+          f"PSNR {ev['psnr']:.4f}, mIoU {ev['miou']:.4f}, PQ {ev['pq']:.4f}; A1 launches {a1}; "
+          f"peak device memory {peak:.2f} GiB")
+    check(all(np.isfinite(ev[kk]) for kk in ("psnr", "miou", "pq")) and ev["step"] == FULL_STEPS
+          and a1 == len(ev["views"]) > 0, f"full-resolution evaluation: {a1} A1 launches, {ev}")
+
+    # (d) A1 on one full view against the plain version
+    t0 = time.perf_counter()
+    ds, _, test_ids = make_dataset(cfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(tuple(ds.images.shape[1:3]) == KITTI_HW, f"images {tuple(ds.images.shape)}")
+    near, far, k = cfg.render.near, cfg.render.far, cfg.data.max_intervals
+    o, d = view_rays(ds, int(test_ids[0]))
+    prims = view_primitives(ds, int(test_ids[0]))
+    n, p_all, f = o.shape[0], prims.world_to_prim.shape[0], prims.cut_planes.shape[1]
+    p_val = int(prims.valid.sum())
+    run_k = lambda: intersect_cuda.intersect_rays_cuda(o, d, prims, near, far, k)
+    run_p = lambda: intersect_rays_plain(o, d, prims, near, far, k)
+    out, ref = run_k(), run_p()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+    _, bad, _ = compare(out, ref)
+    t = {"plain_ms": time_ms(run_p), "ms": time_ms(run_k)}
+    t["plain_ms2"], t["ms2"] = time_ms(run_p), time_ms(run_k)
+    t["dev"], t["host"] = device_ms(run_k, "intersect_kernel", reps=20), host_ms(run_k)
+    t["bound"] = bound(n * p_val * (SLAB_OPS + f * PLANE_OPS),
+                       intersect_cuda.intersect_plan_bytes(1, n, p_all, f, k), PEAK_F32)
+    print(f"  A1 on test view {int(test_ids[0])} (make_dataset {build_s:.2f} s): N = {n}, P = "
+          f"{p_all} ({p_val} valid), F = {f}, K = {k}: {bad} entries differ from the plain "
+          f"version, bit for bit: {same} ({int(out.mask.sum())} hit slots); kernel {t['ms']:.4f} / "
+          f"{t['ms2']:.4f} ms, plain {t['plain_ms']:.4f} / {t['plain_ms2']:.4f} ms (events, "
+          f"median of 20, P K P K); device {t['dev']:.5f} ms, the wrapper's host time "
+          f"{t['host']:.4f} ms; bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); {card}")
+    check(n == KITTI_HW[0] * KITTI_HW[1] and same and int(out.mask.sum()) > 0,
+          "A1 differs from its plain version on the full-resolution view")
+    del ds
+
+    # (e) the label-transfer export, one view read back by the loader
+    zero_counts()
+    t0 = time.perf_counter()
+    files = cli(export_label_transfer.main, "--out", f"{tmp}/fexport", *args)
+    secs, a1 = time.perf_counter() - t0, launch_counts()["A1"]
+    check(len(files) == 2 * FULL_FRAMES and a1 == FULL_FRAMES,
+          f"the export wrote {len(files)} files with A1 {a1}")
+    frame = FULL_FRAMES // 2  # the tree's frames are numbered from 0
+    os.makedirs(f"{tmp}/fback")
+    os.symlink(f"{tmp}/fexport", f"{tmp}/fback/data_2d_semantics")
+    sem, inst = _load_gt_sem_inst(f"{tmp}/fback", seq, frame, KITTI_HW)
+    raw = read_png(files[2 * frame]).astype(np.int32)
+    enc = read_png(files[2 * frame + 1]).astype(np.int32)
+    exact = (np.array_equal(L.ids_to_trainids(sem), L.ids_to_trainids(raw))
+             and np.array_equal(inst, enc % 1000) and np.array_equal(enc // 1000, raw))
+    print(f"  export_label_transfer: {len(files)} PNGs of {KITTI_HW[0]}x{KITTI_HW[1]} in "
+          f"{secs:.2f} s (A1 {a1}); frame {frame} read back by the loader bit for bit: {exact}")
+    check(exact, "the full-resolution export's round trip is not exact")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2413,6 +2566,10 @@ def main():
 
     # 16. the plain path against each kernel mode over many steps
     trajectory_phase(cfg, dev, engine, runs)
+
+    # 17. the full-resolution protocol's tree: check_data, a short run, A1 on a full view
+    with tempfile.TemporaryDirectory() as tmp:
+        fullres_phase(dev, tmp)
 
     # one entry per kernel; times at the fine field's N = 262,144 for B / B' / C / C'
     # (C' on C's saved activations, as mode field runs it). No single PyTorch

@@ -1,5 +1,6 @@
 """Package-level checks of the PyTorch port: it imports no JAX (nor flax,
-optax, orbax, nor any module of the JAX package), and its config schema is
+optax, orbax, nor any module of the JAX package) and no PIL (the card's
+machine has none), and its config schema is
 the JAX package's, field for field."""
 
 import dataclasses
@@ -30,7 +31,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import panopticnerf_tpu_torch.run_staged, panopticnerf_tpu_torch.eval.lpips\n"
         "import panopticnerf_tpu_torch.eval.sweep, panopticnerf_tpu_torch.utils.profiling\n"
         "import panopticnerf_tpu_torch.tools.landing_sweep, panopticnerf_tpu_torch.tools.pq_analysis\n"
-        "import panopticnerf_tpu_torch.tools.compute_visible_ids\n"
+        "import panopticnerf_tpu_torch.tools.compute_visible_ids, panopticnerf_tpu_torch.tools.check_data\n"
         "import panopticnerf_tpu_torch.tools.xview_diag\n"
         "import chip_smoke\n"
         # chip_smoke imports the port inside main(); load what it loads
@@ -38,7 +39,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "from panopticnerf_tpu_torch.ops import _nvcc, field_train_cuda, intersect_cuda, mlp_train_cuda\n"
         "from panopticnerf_tpu_torch.data import make_dataset\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'panopticnerf_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'panopticnerf_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
