@@ -890,22 +890,16 @@ def train_phase(cfg, dev, engine, mode):
     then an evaluation of the checkpoint it wrote."""
     import dataclasses
 
-    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
-
-    counters = {"A2": intersect_cuda.intersect_groups_cuda,
-                "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
-                "C": field_train_cuda.field_forward_cuda,
-                "C'": field_train_cuda.field_backward_cuda}
+    counters = ("A2", "B", "B'", "C", "C'")
     steps = TRAIN_STEPS[mode]
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = dataclasses.replace(with_mode(cfg, mode), model_dir=tmp, record_dir=tmp)
         torch.cuda.reset_peak_memory_stats(dev)
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         res = engine.run_train(tcfg, dev, max_steps=steps, log=lambda *a: None)
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = launch_counts(counters)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         losses = res["losses"]
         ms = [1000.0 * s / k for k, s in res["windows"][1:]]  # the first window warms up
@@ -1039,18 +1033,7 @@ def engine_phase(dev, engine, run):
     """11. The engine around the step on the card (see the module docstring)."""
     from panopticnerf_tpu_torch.config import load_config
     from panopticnerf_tpu_torch.data.dataset import train_test_split
-    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
     from panopticnerf_tpu_torch.train.checkpoint import all_steps, save_model
-
-    counters = {"A1": intersect_cuda.intersect_rays_cuda,
-                "A2": intersect_cuda.intersect_groups_cuda,
-                "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
-                "C": field_train_cuda.field_forward_cuda,
-                "C'": field_train_cuda.field_backward_cuda}
-
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
 
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     with tempfile.TemporaryDirectory() as tmp:
@@ -1063,11 +1046,11 @@ def engine_phase(dev, engine, run):
         n_eval_views = len(test_ids if tc.eval_views <= 0 else test_ids[:tc.eval_views])
 
         # (a) the cadence
-        zero()
+        zero_counts()
         t0 = time.perf_counter()
         res = engine.run_train(cfg, dev, max_steps=ENGINE_STEPS, log=lambda *a: None)
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = launch_counts()
         roots = engine.port_roots(cfg)
         steps = all_steps(roots.steps)
         print(f"engine (a): run_train of {ENGINE_STEPS} steps with saves and in-training "
@@ -1142,7 +1125,7 @@ def engine_phase(dev, engine, run):
         check(same, "SIGTERM + resume differs from the uninterrupted run")
 
         # (c) the other entry points
-        zero()
+        zero_counts()
         net = run.main(["--type", "network", "--cfg_file", CFG_FILE, "--device", str(dev),
                         *opts("a")])
         print(f"engine (c): run --type network: {net['rays_per_sec']:.0f} rays/s, "
@@ -1150,10 +1133,10 @@ def engine_phase(dev, engine, run):
               f"{cfg.data.n_rays} rays after {tc.log_interval} warm-up steps), against a median "
               f"{np.median(plain):.3f} ms/step of (a)'s windows without a save or an "
               f"evaluation; {card}")
-        zero()
+        zero_counts()
         files = run.main(["--type", "visualize", "--trajectory", "4", "--cfg_file", CFG_FILE,
                           "--device", str(dev), *opts("a")])
-        a1 = counters["A1"].launches
+        a1 = launch_counts()["A1"]
         pngs = [f for f in files if f.endswith(".png") and os.path.getsize(f) > 0]
         print(f"  run --type visualize --trajectory 4: {len(files)} files ({len(pngs)} PNG), "
               f"A1 launches {a1}")
@@ -1162,22 +1145,22 @@ def engine_phase(dev, engine, run):
         check(len(pngs) == 6 * len(test_ids) + 4 * 4, f"visualize wrote {len(pngs)} PNG files")
 
 
-def kernel_counters():
-    """The six kernels' wrappers, by the names of their launch counts."""
-    from panopticnerf_tpu_torch.ops import field_train_cuda, intersect_cuda, mlp_train_cuda
-
-    return {"A1": intersect_cuda.intersect_rays_cuda, "A2": intersect_cuda.intersect_groups_cuda,
-            "B": mlp_train_cuda.trunk_forward_cuda, "B'": mlp_train_cuda.trunk_backward_cuda,
-            "C": field_train_cuda.field_forward_cuda, "C'": field_train_cuda.field_backward_cuda}
+# the six kernels, by the names of their launch counters (`kernels.launch.<name>`)
+KERNELS = ("A1", "A2", "B", "B'", "C", "C'")
 
 
 def zero_counts():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    """Clear the program's table of spans and counters (utils/profiling.py)."""
+    from panopticnerf_tpu_torch.utils import profiling
+
+    profiling.reset()
 
 
-def launch_counts():
-    return {k: fn.launches for k, fn in kernel_counters().items()}
+def launch_counts(names=KERNELS):
+    """Launches of each kernel since the last `zero_counts()`."""
+    from panopticnerf_tpu_torch.utils import profiling
+
+    return {k: profiling.calls(f"kernels.launch.{k}") for k in names}
 
 
 def cli(main, *args, out=None):
@@ -2012,7 +1995,7 @@ def parallel_phase(phase10, phase5):
             cos = min(min(m0["cos"].values()), min(m1["cos"].values()))
             per = {"trunk": {"B": 2, "B'": 2}, "field": {"C": 2, "C'": 2}}[mode]
             want = {k: n_steps if k == "A2" else per.get(k, 0) * n_steps
-                    for k in kernel_counters()}
+                    for k in KERNELS}
             print(f"parallel (b) {mode}: 2 gloo ranks on one card, {n_steps} steps: median "
                   f"{np.median(m0['ms'][1:]):.3f} ms/step (rank 0; synchronised each step); "
                   f"ranks bit-equal after every step: {m0['digests'] == m1['digests']}; step 1 "
@@ -2497,9 +2480,9 @@ def main():
           f"bound {a1_bound[0]:.5f} ms ({a1_bound[1]})")
 
     # 5. the main path
-    intersect_cuda.intersect_rays_cuda.launches = 0
+    zero_counts()
     res = engine.run_evaluate(cfg, dev, log=lambda *a: None)
-    launches = intersect_cuda.intersect_rays_cuda.launches
+    launches = launch_counts()["A1"]
     secs = res["render_seconds"]
     print(f"run_evaluate: {len(res['views'])} views, render s/view "
           + " ".join(f"{s:.3f}" for s in secs)

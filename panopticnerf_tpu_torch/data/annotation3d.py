@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 
 from panopticnerf_tpu_torch.data.labels import name2label
+from panopticnerf_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -400,6 +401,7 @@ def _text(node, name, default=None):
     return c.text.strip() if c is not None and c.text is not None else default
 
 
+@span("data.boxes")
 def parse_bbox_xml(path: str, max_cut_planes: int = 8) -> list[Bbox3D]:
     """Parse one sequence's 3D-annotation XML into Bbox3D records.
 
@@ -498,6 +500,7 @@ def parse_bbox_xml(path: str, max_cut_planes: int = 8) -> list[Bbox3D]:
     return out
 
 
+@span("data.boxes")
 def load_visible_ids(visible_dir: str, frame: int) -> Optional[np.ndarray]:
     """Per-frame visible-primitive index list (PanopticNeRF preprocessing).
 
@@ -513,6 +516,7 @@ def load_visible_ids(visible_dir: str, frame: int) -> Optional[np.ndarray]:
     return None
 
 
+@span("data.boxes")
 def boxes_visible_in_frame(boxes: list[Bbox3D], frame: int) -> list[int]:
     """Window-based visibility fallback: static boxes whose [start, end]
     window covers `frame` (end == -1 means open-ended)."""

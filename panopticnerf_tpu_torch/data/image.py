@@ -27,6 +27,7 @@ import math
 
 import numpy as np
 
+from panopticnerf_tpu_torch.utils.profiling import span
 from panopticnerf_tpu_torch.viz.png import read_png
 
 PRECISION_BITS = 22  # Pillow's fixed-point weights for 8-bit images
@@ -78,6 +79,7 @@ def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.moveaxis(out, -1, axis)
 
 
+@span("data.resize")
 def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """uint8 (H, W) or (H, W, C) -> size (w, h), as PIL's BILINEAR."""
     if img.dtype != np.uint8:
@@ -102,6 +104,7 @@ def _nearest_index(in_size: int, out_size: int, stepped: bool) -> np.ndarray:
     return np.minimum(np.floor(pos).astype(np.int64), in_size - 1)
 
 
+@span("data.resize")
 def resize_nearest(arr: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """(H, W) uint8, uint16, int32 or float32 -> size (w, h), as PIL's
     NEAREST on modes L, I;16, I and F."""

@@ -49,9 +49,11 @@ from panopticnerf_tpu_torch.data.annotation3d import (
 from panopticnerf_tpu_torch.data.dataset import DeviceDataset
 from panopticnerf_tpu_torch.data.image import load_rgb, resize_bilinear, resize_nearest
 from panopticnerf_tpu_torch.data.pseudo import cross_view_clean, majority_clean
+from panopticnerf_tpu_torch.utils.profiling import span
 from panopticnerf_tpu_torch.viz.png import read_png
 
 IGNORE = 255
+_load_npy = span("data.decode")(np.load)  # .npy streams count as decoding, as PNGs do
 
 
 # ---------------------------------------------------------------- calibration
@@ -179,7 +181,7 @@ def _load_label_map(base: str, hw: tuple[int, int]) -> np.ndarray:
     for ext in (".npy", ".png"):
         p = base + ext
         if os.path.exists(p):
-            arr = np.load(p).astype(np.int32) if ext == ".npy" else read_png(p)
+            arr = _load_npy(p).astype(np.int32) if ext == ".npy" else read_png(p)
             return resize_nearest(arr, (w, h)).astype(np.int32)
     return np.full((h, w), IGNORE, np.int32)
 
@@ -206,7 +208,7 @@ def _load_depth(base: str, hw: tuple[int, int]) -> np.ndarray:
         p = base + ext
         if os.path.exists(p):
             if ext == ".npy":
-                arr = np.load(p).astype(np.float32)
+                arr = _load_npy(p).astype(np.float32)
             else:
                 raw = read_png(p)
                 arr = raw.astype(np.float32) / 1000.0 if raw.dtype == np.uint16 else raw.astype(np.float32)

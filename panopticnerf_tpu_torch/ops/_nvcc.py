@@ -4,7 +4,9 @@ nvcc compiles the source (plain C interface, no PyTorch headers) for
 sm_90a into `panopticnerf_tpu_torch/_build/<name>_<hash>.so`, keyed on a
 hash of the source, the headers of `csrc/` and the flags, and ctypes loads
 it. A library that is already built is loaded as it is. The compiler's output (`-Xptxas -v`:
-registers, shared memory, spills per kernel) is kept beside it in `.log`.
+registers, shared memory, spills per kernel) is kept beside it in `.log`. A process's first
+`load` of a library is the span `kernels.load`, and each source nvcc compiles adds one to the
+counter `kernels.built` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+from panopticnerf_tpu_torch.utils.profiling import count, span
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
@@ -78,6 +82,7 @@ def build_all(names) -> dict:
         while running:
             name, tmp, cmd, proc = running.pop(0)
             _finish(name, paths[name], tmp, cmd, proc)
+            count("kernels.built")
     finally:
         for _, tmp, _, proc in running:  # after a failure: stop the rest
             proc.kill()
@@ -95,5 +100,6 @@ def build(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; one load per process."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build(name))
+        with span("kernels.load"):
+            _loaded[name] = ctypes.CDLL(build(name))
     return _loaded[name]

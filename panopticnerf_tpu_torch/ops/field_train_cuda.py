@@ -10,8 +10,9 @@ Same contracts as `ops.field_train.field_forward_plain` /
 {64, 128, 256} with sem_hidden = W / 2, colour width and class count up to
 128, x_enc padded to 64 and d_enc to 32 columns, up to 32 layers; anything
 else raises. They launch on PyTorch's current stream and do not
-synchronise; each wrapper's `.launches` counts its own launches (C' is one
-launch of the multi-pass backward, its recompute included).
+synchronise; each launch adds one to its counter, `kernels.launch.C` or
+`kernels.launch.C'` (utils/profiling.py; C' is one launch of the multi-pass
+backward, its recompute included).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
     _stream,
     weight_splits,
 )
+from panopticnerf_tpu_torch.utils.profiling import count
 
 HEAD_MAX = 128  # largest padded class count / colour width the kernels take
 
@@ -170,7 +172,7 @@ def field_forward_cuda(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims
     f32 = [sigma | rgb logits], sem (N, C) f32 or None, FieldSaved)."""
     n = _validate(xp, dp, pk, dims)
     res = _launch_forward(load(), xp, dp, pk, dims, n)
-    field_forward_cuda.launches += 1
+    count("kernels.launch.C")
     return res
 
 
@@ -235,12 +237,8 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
             int(dw_dtype == f32), _stream(dev))
     if err != 0:
         raise _launch_failed("field backward", err)
-    field_backward_cuda.launches += 1
+    count("kernels.launch.C'")
     dhb, dbso, dbch, dbco = torch.split(db_h, [ho, cp, cwp, CO_PAD])
     grads = FieldPacked(dwp, dbp, dhw, dhb, dwso, dbso if dims.use_sem else None, dwch, dbch,
                         dwco, dbco)
     return dx, dd, grads
-
-
-field_forward_cuda.launches = 0
-field_backward_cuda.launches = 0

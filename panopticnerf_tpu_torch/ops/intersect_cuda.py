@@ -11,7 +11,8 @@ Two wrappers over the one kernel, each replacing a TPU kernel of
 `intersect_plan_bytes` the bytes A1 / A2 must move (their byte bound).
 The library is built with nvcc on first use (`ops/_nvcc.py`) and bound
 through ctypes; the kernel launches on PyTorch's current stream and does
-not synchronise. Each wrapper's `.launches` counts its own launches.
+not synchronise. Each launch adds one to its counter, `kernels.launch.A1` or
+`kernels.launch.A2` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
 from panopticnerf_tpu_torch.ops.intersect import Primitives, RayIntervals
+from panopticnerf_tpu_torch.utils.profiling import count
 
 MAX_K = 32
 SMEM_LIMIT = 48 * 1024  # bytes of shared memory without an opt-in attribute
@@ -144,7 +146,7 @@ def intersect_rays_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
         raise ValueError(f"rays_o must be (N, 3), got {tuple(rays_o.shape)}")
     one = Primitives(*[None if a is None else a[None] for a in prims])
     out = _launch(rays_o[None], rays_d[None], one, near, far, k)
-    intersect_rays_cuda.launches += 1
+    count("kernels.launch.A1")
     return RayIntervals(*[x[0] for x in out])
 
 
@@ -156,9 +158,5 @@ def intersect_groups_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
     if rays_o.dim() != 3:
         raise ValueError(f"rays_o must be (G, M, 3), got {tuple(rays_o.shape)}")
     out = _launch(rays_o, rays_d, prims, near, far, k)
-    intersect_groups_cuda.launches += 1
+    count("kernels.launch.A2")
     return out
-
-
-intersect_rays_cuda.launches = 0
-intersect_groups_cuda.launches = 0

@@ -8,8 +8,9 @@ Same contracts as `ops.mlp_train.trunk_forward_plain` /
 `trunk_backward_plain`, their plain versions. The kernels take bf16
 activations and weights, W in {64, 128, 256}, x_enc padded to 64 columns
 and up to 32 layers; anything else raises. They launch on PyTorch's current
-stream and do not synchronise; each wrapper's `.launches` counts its own
-launches (B' is one launch of the three-pass backward).
+stream and do not synchronise; each launch adds one to its counter,
+`kernels.launch.B` or `kernels.launch.B'` (utils/profiling.py; B' is one
+launch of the three-pass backward).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
 from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
+from panopticnerf_tpu_torch.utils.profiling import count
 
 WIDTHS = (64, 128, 256)
 MAX_LAYERS = 32
@@ -137,7 +139,7 @@ def trunk_forward_cuda(xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
                                    acts.data_ptr(), n, width, layers, mask, _stream(dev))
     if err != 0:
         raise _launch_failed("trunk forward", err)
-    trunk_forward_cuda.launches += 1
+    count("kernels.launch.B")
     return acts
 
 
@@ -172,9 +174,5 @@ def trunk_backward_cuda(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
             dwp.data_ptr(), dbp.data_ptr(), n, width, layers, mask, splits, chunk, _stream(dev))
     if err != 0:
         raise _launch_failed("trunk backward", err)
-    trunk_backward_cuda.launches += 1
+    count("kernels.launch.B'")
     return dx, dwp, dbp
-
-
-trunk_forward_cuda.launches = 0
-trunk_backward_cuda.launches = 0

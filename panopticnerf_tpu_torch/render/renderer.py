@@ -14,6 +14,13 @@ best-weighted fine depths when that is set (`ops.sampling.topm_eval_select`).
 `render.ray_tile` rays; `intersect_and_render` intersects first, and every
 full-image render of the port goes through it (over the ranks of a
 distributed world, `parallel/render.py`).
+
+Spans (utils/profiling.py): `render.view` around `intersect_and_render`,
+`render.intersect` inside it, and per tile and level
+`render.sample.<level>` (the depths), `render.field.<level>` (the points
+and the model) and `render.composite.<level>` (the containment, the
+compositing, the fixed map); counters `render.rays` and
+`render.rays_padded` (the zero rays that fill the last tile).
 """
 
 from __future__ import annotations
@@ -34,10 +41,12 @@ from panopticnerf_tpu_torch.ops.intersect import (
     labeled_containment,
     samples_in_intervals,
 )
+from panopticnerf_tpu_torch.utils.profiling import count, span
 
 
 # RenderOut's leading per-ray fields (rgb .. inst_sem); the rest are extras.
 N_RAY_FIELDS = 8
+LEVELS = ("coarse", "fine")
 
 
 class SceneBounds(NamedTuple):
@@ -87,24 +96,26 @@ def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
                      noise_std: float = 0.0, noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
                      delta: Optional[torch.Tensor] = None):
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]     # (N, S, 3)
-    pts = (pts - bounds.center) * bounds.scale
-    sigma, rgb, sem = model(pts, rays_d[:, None, :], level=level)
-    if noise_std > 0:
-        # classic NeRF density-noise regulariser (reference raw_noise_std)
-        if noise is None:
-            noise = torch.randn(sigma.shape, generator=generator, device=sigma.device)
-        sigma = sigma + noise_std * noise
+    with span(f"render.field.{LEVELS[level]}"):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]     # (N, S, 3)
+        pts = (pts - bounds.center) * bounds.scale
+        sigma, rgb, sem = model(pts, rays_d[:, None, :], level=level)
+        if noise_std > 0:
+            # classic NeRF density-noise regulariser (reference raw_noise_std)
+            if noise is None:
+                noise = torch.randn(sigma.shape, generator=generator, device=sigma.device)
+            sigma = sigma + noise_std * noise
 
-    inside_iv = inside_lab = cnt = None
-    if iv is not None:
-        inside_iv = samples_in_intervals(z, iv)
-        inside_lab, cnt = labeled_containment(z, iv)
-    out = composite(sigma, rgb, z, sem_logits=sem, inside_intervals=inside_iv,
-                    white_bkgd=white_bkgd, delta=delta)
-    if iv is not None:
-        out = out._replace(sem_fixed=fixed_map_from_weights(
-            out.weights, inside_lab, cnt, iv, num_classes))
+    with span(f"render.composite.{LEVELS[level]}"):
+        inside_iv = inside_lab = cnt = None
+        if iv is not None:
+            inside_iv = samples_in_intervals(z, iv)
+            inside_lab, cnt = labeled_containment(z, iv)
+        out = composite(sigma, rgb, z, sem_logits=sem, inside_intervals=inside_iv,
+                        white_bkgd=white_bkgd, delta=delta)
+        if iv is not None:
+            out = out._replace(sem_fixed=fixed_map_from_weights(
+                out.weights, inside_lab, cnt, iv, num_classes))
     return out, sem, inside_lab, cnt
 
 
@@ -125,12 +136,14 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     noise_std = rc.raw_noise_std if train else 0.0
     dr = draws if draws is not None else RenderDraws()
 
-    if iv is not None and rc.use_primitives:
-        z = sampling.guided_z(iv, rc.n_samples, rc.near, rc.far, perturb, rc.bg_sample_frac,
-                              generator=generator, u_in=dr.coarse, u_bg=dr.bg)
-    else:
-        z = sampling.stratified_z(n, rc.n_samples, rc.near, rc.far, perturb, dev,
-                                  generator=generator, u=dr.coarse)
+    with span("render.sample.coarse"):
+        if iv is not None and rc.use_primitives:
+            z = sampling.guided_z(iv, rc.n_samples, rc.near, rc.far, perturb,
+                                  rc.bg_sample_frac, generator=generator, u_in=dr.coarse,
+                                  u_bg=dr.bg)
+        else:
+            z = sampling.stratified_z(n, rc.n_samples, rc.near, rc.far, perturb, dev,
+                                      generator=generator, u=dr.coarse)
     out_c, sem_c, lab_c, cnt_c = _composite_level(
         model, rays_o, rays_d, z, bounds, 0, iv, num_classes, rc.white_bkgd,
         noise_std, dr.noise_coarse, generator)
@@ -152,17 +165,18 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
 
     # --- hierarchical fine pass: bins are the coarse midpoints, masses the
     # interior coarse weights ---
-    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])                        # (N, S-1)
-    w_interior = out_c.weights[:, 1:-1].detach()                # (N, S-2), no gradient
-    z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, perturb,
-                                 generator=generator, u_fine=dr.fine)
-    z_all = sampling.merge_z(z, z_fine)
-    delta_f = None
-    if not train and 0 < rc.eval_keep_samples < z_all.shape[1]:
-        # forward-only keep-M: the fine field queries only the samples with
-        # coarse-weight support, composited with the full set's deltas
-        z_all, delta_f = sampling.topm_eval_select(z_all, z_mid, w_interior,
-                                                   rc.eval_keep_samples)
+    with span("render.sample.fine"):
+        z_mid = 0.5 * (z[:, 1:] + z[:, :-1])                        # (N, S-1)
+        w_interior = out_c.weights[:, 1:-1].detach()                # (N, S-2), no gradient
+        z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, perturb,
+                                     generator=generator, u_fine=dr.fine)
+        z_all = sampling.merge_z(z, z_fine)
+        delta_f = None
+        if not train and 0 < rc.eval_keep_samples < z_all.shape[1]:
+            # forward-only keep-M: the fine field queries only the samples with
+            # coarse-weight support, composited with the full set's deltas
+            z_all, delta_f = sampling.topm_eval_select(z_all, z_mid, w_interior,
+                                                       rc.eval_keep_samples)
     out_f, sem_f, lab_f, cnt_f = _composite_level(
         model, rays_o, rays_d, z_all, bounds, 1, iv, num_classes, rc.white_bkgd,
         noise_std, dr.noise_fine, generator, delta=delta_f)
@@ -199,6 +213,8 @@ def render_image_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     tile = cfg.render.ray_tile
     n = rays_o.shape[0]
     n_pad = (-n) % tile
+    count("render.rays", n)
+    count("render.rays_padded", n_pad)
     pad = lambda a: torch.cat([a, a.new_zeros((n_pad,) + a.shape[1:])]) if n_pad else a
     ro, rd = pad(rays_o), pad(rays_d)
     iv_p = RayIntervals(*[pad(x) for x in iv]) if iv is not None else None
@@ -222,12 +238,14 @@ def intersect_and_render(cfg: Config, model, rays_o, rays_d, prims: Optional[Pri
     tiles spread over its ranks (`render_image_rays_sharded`) and every
     rank returns the whole view. Evaluated views, trajectory frames and
     panoramas all render through here."""
-    if world is not None and world.distributed:
-        from panopticnerf_tpu_torch.parallel.render import render_image_rays_sharded
+    with span("render.view"):
+        if world is not None and world.distributed:
+            from panopticnerf_tpu_torch.parallel.render import render_image_rays_sharded
 
-        return render_image_rays_sharded(model, rays_o, rays_d, bounds, cfg, world, prims)
-    iv = None
-    if cfg.render.use_primitives:
-        iv = intersect_rays(rays_o, rays_d, prims, cfg.render.near, cfg.render.far,
-                            cfg.data.max_intervals)
-    return render_image_rays(model, rays_o, rays_d, bounds, cfg, iv=iv)
+            return render_image_rays_sharded(model, rays_o, rays_d, bounds, cfg, world, prims)
+        iv = None
+        if cfg.render.use_primitives:
+            with span("render.intersect"):
+                iv = intersect_rays(rays_o, rays_d, prims, cfg.render.near, cfg.render.far,
+                                    cfg.data.max_intervals)
+        return render_image_rays(model, rays_o, rays_d, bounds, cfg, iv=iv)

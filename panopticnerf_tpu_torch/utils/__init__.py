@@ -1,3 +1,12 @@
-from panopticnerf_tpu_torch.utils.profiling import enable_debug_nans, timed, trace
+from panopticnerf_tpu_torch.utils.profiling import (
+    calls,
+    count,
+    enable_debug_nans,
+    reset,
+    snapshot,
+    span,
+    timed,
+    trace,
+)
 
-__all__ = ["enable_debug_nans", "timed", "trace"]
+__all__ = ["calls", "count", "enable_debug_nans", "reset", "snapshot", "span", "timed", "trace"]

@@ -17,6 +17,8 @@ import zlib
 
 import numpy as np
 
+from panopticnerf_tpu_torch.utils.profiling import span
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _FORMATS = {  # (dtype, ndim) -> (bit depth, colour type)
     (np.dtype(np.uint8), 3): (8, 2),
@@ -94,6 +96,7 @@ def _unfilter_wavefront(ft: np.ndarray, x: np.ndarray) -> np.ndarray:
     return s[yy + 1, yy + pp + 2].astype(np.uint8)
 
 
+@span("data.decode")
 def read_png(path: str) -> np.ndarray:
     """-> (H, W) uint8 or uint16 grey, (H, W, 3) uint8 RGB or (H, W, 4)
     uint8 RGBA, as stored."""
