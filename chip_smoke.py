@@ -16,10 +16,11 @@ export.
 Phases (any failure raises; the exit code is then non-zero and no result
 line is printed):
   1. card, power limit, torch / CUDA / nvcc versions;
-  2. build of csrc/intersect.cu, csrc/mlp_train.cu and csrc/field_train.cu,
-     one nvcc each, run together (timed; ptxas registers / shared memory /
-     spills; the forward kernels B and C and C''s heads data pass must not
-     spill, nor have ptxas serialize their wgmma chains);
+  2. build of csrc/intersect.cu, csrc/mlp_train.cu, csrc/field_train.cu and
+     csrc/field_eval.cu, one nvcc each, run together (timed; ptxas registers
+     / shared memory / spills; the forward kernels B, C and E and C''s heads
+     data pass must not spill, nor have ptxas serialize the wgmma chains of
+     B, C, C''s heads data pass or E at W = 128 and 256);
   3. kernel vs plain version on every synthetic_flagship view
      (N = 33,088 rays, P = 32, K = 16, F = 0) and on a cut-plane case
      (F = 8 seeded half-spaces through each box centre): every output equal
@@ -32,8 +33,14 @@ line is printed):
   5. the main path: `engine.run_evaluate` on configs/synthetic_flagship.yaml
      with artifacts/torch/synthetic_flagship_10000.npz — render time per
      view, PSNR / mIoU / PQ beside artifacts/torch/
-     synthetic_flagship_10000_jax_eval.json, and the kernel's launch count,
-     which must equal the number of views rendered;
+     synthetic_flagship_10000_jax_eval.json, and the kernels' launch counts:
+     A1 once per view rendered, E (the evaluation field) once per tile and
+     level of every view; (b) E against its plain version on the
+     checkpoint's coarse and fine fields at the points of one view's first
+     tile: per output the share of values that differ and the relative
+     Frobenius error within EVAL_SHARE / EVAL_REL, a second call equal bit
+     for bit; E's time and the plain model's at that tile, beside the
+     bound;
   6. kernel A2 (grouped intersection) vs its plain version on 20 training
      batches (G = 8 groups of M = 256 rays, K = 16) and on a cut-plane
      case, bit for bit; A2 and plain times, A2's device and host time as
@@ -227,6 +234,8 @@ TRUNK_SOURCE = "panopticnerf_tpu_torch/csrc/mlp_train.cu"
 B_REPLACES = "panopticnerf_tpu/ops/pallas_mlp_train.py:186"
 B2_REPLACES = "panopticnerf_tpu/ops/pallas_mlp_train.py:217"
 FIELD_SOURCE = "panopticnerf_tpu_torch/csrc/field_train.cu"
+EVAL_SOURCE = "panopticnerf_tpu_torch/csrc/field_eval.cu"
+EVAL_REPLACES = "none: the JAX package renders the evaluation field with plain XLA ops"
 C_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:310"
 C2_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:345"
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
@@ -258,6 +267,11 @@ MIN_SIGN_SHARE = 0.99     # entries whose first Adam update has JAX's sign
 # activations bit for bit, so the ceilings above hold it as well.
 FIELD_REL = {"sigma": 5e-4, "sem": 8e-4, "rgb": 3e-3, "dd": 5e-4, "db": 5e-4,
              "bf16 out": 2e-3, "dW bf16": 3e-3, "dW f32": 7e-4, "rec": 3e-2}
+# E vs its plain version (cuBLAS's reduced-precision reductions off), per
+# output: the share of values that differ and the relative Frobenius error
+# (tests/test_torch_cuda.py's ceilings, where they are justified: one-ulp
+# flips of bf16 roundings summed in another order)
+EVAL_SHARE, EVAL_REL = 2e-3, 6e-4
 TRAIN_STEPS = {"trunk": 100, "field": 200, "hybrid": 100}
 ENGINE_STEPS = 200
 ENGINE_OPTS = ["train.ep_iter", "50", "train.save_ep", "2", "train.eval_ep", "2"]
@@ -676,6 +690,71 @@ def trunk_phase(cfg, enc, model, dev):
               f"ms at HBM's rate; the function writes the last only)")
         del acts, acts_ref, got, again, ref
     return res
+
+
+def eval_field_phase(cfg, ds, model):
+    """5 (b): kernel E against its plain version on the checkpoint's fields
+    at the points of view 0's first tile, each level (see the module
+    docstring). -> {level: {"err", "ms", "plain_ms", "bound"}}."""
+    from panopticnerf_tpu_torch.data import view_primitives, view_rays
+    from panopticnerf_tpu_torch.ops.field_eval import field_eval_plain
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
+    from panopticnerf_tpu_torch.ops.intersect import intersect_rays
+    from panopticnerf_tpu_torch.render import SceneBounds, render_image_rays
+
+    calls, real = [], EvalKernel.__call__
+
+    def capture(kernel, pts, dirs, samples):  # the points and the packed field E is given
+        calls.append((pts, dirs, samples, kernel.pk, kernel.dims))
+        return real(kernel, pts, dirs, samples)
+
+    EvalKernel.__call__ = capture
+    try:
+        o, d = (t[:cfg.render.ray_tile] for t in view_rays(ds, 0))
+        iv = intersect_rays(o, d, view_primitives(ds, 0), cfg.render.near, cfg.render.far,
+                            cfg.data.max_intervals)
+        render_image_rays(model, o, d, SceneBounds(ds.bounds_center, ds.bounds_scale), cfg, iv=iv)
+    finally:
+        EvalKernel.__call__ = real
+    check(len(calls) == 2, f"the tile's render called E {len(calls)} times, expected 2")
+    result = {}
+    for level, net, (pts, dirs, s, pk, dims) in zip(("coarse", "fine"), (model.coarse, model.fine),
+                                                     calls):
+        kernel = EvalKernel(pk, dims, pts.device)
+        run = lambda: kernel(pts, dirs, s)
+        got, again = run(), run()
+        matmul = torch.backends.cuda.matmul
+        reduced, matmul.allow_bf16_reduced_precision_reduction = (
+            matmul.allow_bf16_reduced_precision_reduction, False)
+        ref = field_eval_plain(pts, dirs, s, pk, dims)  # each product rounded once, as E's
+        torch.cuda.synchronize()
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        shares = {k: float((a != b).float().mean()) for k, a, b in zip(("sigma", "rgb", "sem"), got,
+                                                                       ref)}
+        rels = {k: rel_err(a, b) for k, a, b in zip(("sigma", "rgb", "sem"), got, ref)}
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        plain = lambda: net(pts.view(-1, s, 3), dirs[:, None, :])
+        ms, plain_ms = time_ms(run), time_ms(plain, reps=5)
+        ms2, plain_ms2 = time_ms(run), time_ms(plain, reps=5)
+        n = pts.shape[0]
+        bnd = bound(2.0 * n * sum(i * o for i, o in field_shapes(dims)),
+                    nbytes(pts, dirs, got, *[t for t in pk if t is not None]))
+        print(f"eval field (b), {level}: E against its plain version at view 0's first tile "
+              f"({n} points, {s} a ray): share of values that differ "
+              + ", ".join(f"{k} {v:.2e}" for k, v in shares.items())
+              + "; relative Frobenius error " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+              + f" (ceilings {EVAL_SHARE} / {EVAL_REL}); max |d| {err:.3e}; a second call bit for "
+              f"bit: {same}; E {ms:.4f} / {ms2:.4f} ms, plain model {plain_ms:.4f} / "
+              f"{plain_ms2:.4f} ms (events around the call, medians); bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})")
+        check(same, f"E ({level}): a second call differs")
+        check(all(v <= EVAL_SHARE for v in shares.values())
+              and all(v <= EVAL_REL for v in rels.values()),
+              f"E ({level}) off its plain version: {shares} {rels}")
+        result[level] = {"err": err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+                         "bound": bnd}
+    return result
 
 
 def field_phase(cfg, enc, model, dev):
@@ -2398,7 +2477,13 @@ def main():
     from panopticnerf_tpu_torch import engine
     from panopticnerf_tpu_torch.config import load_config
     from panopticnerf_tpu_torch.data import view_primitives, view_rays
-    from panopticnerf_tpu_torch.ops import _nvcc, field_train_cuda, intersect_cuda, mlp_train_cuda
+    from panopticnerf_tpu_torch.ops import (
+        _nvcc,
+        field_eval_cuda,
+        field_train_cuda,
+        intersect_cuda,
+        mlp_train_cuda,
+    )
     from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2411,7 +2496,8 @@ def main():
           f"{sh([_nvcc.nvcc_path(), '--version']).splitlines()[-1]}")
 
     # 2. build: one nvcc per source, run together
-    libs = {name: _nvcc.library_path(name) for name in ("intersect", "mlp_train", "field_train")}
+    libs = {name: _nvcc.library_path(name)
+            for name in ("intersect", "mlp_train", "field_train", "field_eval")}
     existed = {name: os.path.exists(path) for name, path in libs.items()}
     t0 = time.perf_counter()
     _nvcc.build_all(libs)
@@ -2423,13 +2509,15 @@ def main():
     intersect_cuda.load()
     mlp_train_cuda.load()
     field_train_cuda.load()
-    for name in ("mlp_train", "field_train"):
+    field_eval_cuda.load()
+    for name in ("mlp_train", "field_train", "field_eval"):
         for line in ptxas_summary(libs[name][:-3] + ".log"):
             print(f"  ptxas {name}: {line}")
-            if re.match(r"(trunk|field)_fwd_kernel|field_bwd_heads_kernel", line):
+            if re.match(r"(trunk|field)_fwd_kernel|field_bwd_heads_kernel|field_eval_kernel", line):
                 check(line.endswith("spills 0/0 B"), f"a wgmma kernel spills: {line}")
         for line in open(libs[name][:-3] + ".log"):  # ptxas: a chain waited out product by product
-            check(not ("serialized" in line and ("_fwd_kernel" in line or "heads_kernel" in line)),
+            check(not ("serialized" in line and ("_fwd_kernel" in line or "heads_kernel" in line
+                                                 or re.search(r"eval_kernelILi(128|256)", line))),
                   f"ptxas serializes a kernel's wgmma chains: {line.strip()}")
 
     # 3. kernel vs plain at the slice's shape
@@ -2482,14 +2570,17 @@ def main():
     # 5. the main path
     zero_counts()
     res = engine.run_evaluate(cfg, dev, log=lambda *a: None)
-    launches = launch_counts()["A1"]
+    launches, e_launches = launch_counts()["A1"], launch_counts(("E",))["E"]
     secs = res["render_seconds"]
+    tiles = -(-ds.images.shape[1] * ds.images.shape[2] // cfg.render.ray_tile)
     print(f"run_evaluate: {len(res['views'])} views, render s/view "
           + " ".join(f"{s:.3f}" for s in secs)
           + f" (median {np.median(secs):.3f}, first view includes warm-up); "
-          f"kernel launches {launches}")
+          f"kernel launches A1 {launches}, E {e_launches} ({tiles} tiles x 2 levels a view)")
     check(launches == len(res["views"]),
           f"kernel launched {launches} times for {len(res['views'])} views")
+    check(e_launches == 2 * tiles * len(res["views"]),
+          f"E launched {e_launches} times for {len(res['views'])} views of {tiles} tiles")
     with open(REF_JSON) as fh:
         ref = json.load(fh)
     check(sorted(ref["views"]) == sorted(res["views"]),
@@ -2503,6 +2594,7 @@ def main():
     h, w = ds.images.shape[1:3]
     check(tuple(out.rgb.shape) == (h * w, 3) and bool(torch.isfinite(out.rgb).all())
           and bool(torch.isfinite(out.sem_logits).all()), "non-finite or misshaped render")
+    ev_field = eval_field_phase(cfg, ds, model)
 
     # 6-10. the training slice
     from panopticnerf_tpu_torch.data import make_dataset
@@ -2578,6 +2670,8 @@ def main():
         entry("field_backward", FIELD_SOURCE, C2_REPLACES, train["field"]["C'"],
               max(v[0] for k, v in fe.items() if k.startswith("d") and k.endswith("/bf16")),
               ft_["bwd"], ft_["bwd_plain"], ft_["bwd_bound"]),
+        entry("field_eval", EVAL_SOURCE, EVAL_REPLACES, e_launches, ev_field["fine"]["err"],
+              ev_field["fine"]["ms"], ev_field["fine"]["plain_ms"], ev_field["fine"]["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

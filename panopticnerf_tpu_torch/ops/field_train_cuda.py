@@ -109,10 +109,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDims) -> int:
-    """Checks the inputs and the packed weights against `dims`; -> n."""
-    if xp.device.type != "cuda":
-        raise ValueError(f"the field kernels need CUDA tensors, got {xp.device}")
+def check_packed(pk: FieldPacked, dims: FieldDims, dev: torch.device) -> None:
+    """Checks packed weights against `dims` and the field kernels' limits
+    (C, C' and the evaluation field E)."""
     w = dims.width
     if w not in WIDTHS:
         raise ValueError(f"field width {w} not in {WIDTHS}")
@@ -123,12 +122,7 @@ def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDi
                          f"exceed {HEAD_MAX}")
     if not 1 <= dims.layers <= MAX_LAYERS:
         raise ValueError(f"{dims.layers} layers outside [1, {MAX_LAYERS}]")
-    n = xp.shape[0]
-    if n < 1:
-        raise ValueError("no points")
-    dev, bf, f32 = xp.device, torch.bfloat16, torch.float32
-    _check("x", xp, bf, (n, F_PAD), dev)
-    _check("d", dp, bf, (n, D_PAD), dev)
+    bf, f32 = torch.bfloat16, torch.float32
     _check("trunk weights", pk.wp, bf, (dims.layers, w + F_PAD, w), dev)
     _check("trunk biases", pk.bp, f32, (dims.layers, w), dev)
     _check("head weights", pk.hw, bf, (w, dims.ho), dev)
@@ -140,6 +134,18 @@ def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDi
     _check("colour biases", pk.bch, f32, (dims.cwp,), dev)
     _check("color_out weights", pk.wco, bf, (dims.cwp, CO_PAD), dev)
     _check("color_out biases", pk.bco, f32, (CO_PAD,), dev)
+
+
+def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDims) -> int:
+    """Checks the inputs and the packed weights against `dims`; -> n."""
+    if xp.device.type != "cuda":
+        raise ValueError(f"the field kernels need CUDA tensors, got {xp.device}")
+    n = xp.shape[0]
+    if n < 1:
+        raise ValueError("no points")
+    check_packed(pk, dims, xp.device)
+    _check("x", xp, torch.bfloat16, (n, F_PAD), xp.device)
+    _check("d", dp, torch.bfloat16, (n, D_PAD), xp.device)
     return n
 
 

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from panopticnerf_tpu_torch.config import Config
+from panopticnerf_tpu_torch.models.eval_field import eval_field
 from panopticnerf_tpu_torch.ops.intersect import Primitives, RayIntervals, intersect_rays
 from panopticnerf_tpu_torch.parallel.distributed import World
 from panopticnerf_tpu_torch.render.renderer import (
@@ -52,6 +53,7 @@ def render_image_rays_sharded(model, rays_o, rays_d, bounds: SceneBounds, cfg: C
         for x in iv:  # padding rows get the zero intervals render_image_rays pads with
             x[n_real:] = 0
 
+    model = eval_field(model, cfg.model, dev)  # bound once for the view's tiles
     parts = []
     for s in range(0, len(idx), tile):
         iv_t = RayIntervals(*[x[s:s + tile] for x in iv]) if iv is not None else None

@@ -20,7 +20,9 @@ Spans (utils/profiling.py): `render.view` around `intersect_and_render`,
 `render.sample.<level>` (the depths), `render.field.<level>` (the points
 and the model) and `render.composite.<level>` (the containment, the
 compositing, the fixed map); counters `render.rays` and
-`render.rays_padded` (the zero rays that fill the last tile).
+`render.rays_padded` (the zero rays that fill the last tile), and in the
+evaluation branch `render.field.points` (every point a field evaluates)
+and `render.field.points_fused` (those kernel E evaluates).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from panopticnerf_tpu_torch.config import Config
+from panopticnerf_tpu_torch.models.eval_field import eval_field
 from panopticnerf_tpu_torch.ops import sampling
 from panopticnerf_tpu_torch.ops.composite import composite
 from panopticnerf_tpu_torch.ops.intersect import (
@@ -95,10 +98,12 @@ def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
                      iv: Optional[RayIntervals], num_classes: int, white_bkgd: bool,
                      noise_std: float = 0.0, noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     delta: Optional[torch.Tensor] = None):
+                     delta: Optional[torch.Tensor] = None, evaluate: bool = False):
     with span(f"render.field.{LEVELS[level]}"):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]     # (N, S, 3)
         pts = (pts - bounds.center) * bounds.scale
+        if evaluate:
+            count("render.field.points", z.numel())
         sigma, rgb, sem = model(pts, rays_d[:, None, :], level=level)
         if noise_std > 0:
             # classic NeRF density-noise regulariser (reference raw_noise_std)
@@ -127,10 +132,14 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
 
     `model` is called as model(pts, viewdirs, level=...). With `train`, the
     random numbers come from `draws` where given, else from `generator`.
+    Without `train` and without gradients, on a CUDA device, the fields
+    whose shape kernel E takes evaluate through it (`models.eval_field`).
     """
     rc = cfg.render
     n = rays_o.shape[0]
     dev = rays_o.device
+    if not train:
+        model = eval_field(model, cfg.model, dev)
     num_classes = cfg.model.num_classes
     perturb = rc.perturb and train
     noise_std = rc.raw_noise_std if train else 0.0
@@ -146,7 +155,7 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
                                       generator=generator, u=dr.coarse)
     out_c, sem_c, lab_c, cnt_c = _composite_level(
         model, rays_o, rays_d, z, bounds, 0, iv, num_classes, rc.white_bkgd,
-        noise_std, dr.noise_coarse, generator)
+        noise_std, dr.noise_coarse, generator, evaluate=not train)
 
     def pack(out, sem_samples, inside_k, cnt, z_used, coarse=None):
         return RenderOut(
@@ -179,7 +188,7 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
                                                        rc.eval_keep_samples)
     out_f, sem_f, lab_f, cnt_f = _composite_level(
         model, rays_o, rays_d, z_all, bounds, 1, iv, num_classes, rc.white_bkgd,
-        noise_std, dr.noise_fine, generator, delta=delta_f)
+        noise_std, dr.noise_fine, generator, delta=delta_f, evaluate=not train)
     coarse = pack(out_c, sem_c, lab_c, cnt_c, z)
     return pack(out_f, sem_f, lab_f, cnt_f, z_all, coarse=coarse)
 
@@ -218,6 +227,7 @@ def render_image_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     pad = lambda a: torch.cat([a, a.new_zeros((n_pad,) + a.shape[1:])]) if n_pad else a
     ro, rd = pad(rays_o), pad(rays_d)
     iv_p = RayIntervals(*[pad(x) for x in iv]) if iv is not None else None
+    model = eval_field(model, cfg.model, rays_o.device)  # bound once for the view's tiles
 
     tiles = []
     for s in range(0, n + n_pad, tile):

@@ -714,3 +714,227 @@ def test_intersect_kernel_on_panorama_rays(cuda_device):
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
         assert 0 < int(out.mask.sum()) < out.mask.numel()
+
+
+# Kernel E (the evaluation field): the shipped fields, ragged point counts
+# and the heads switched off. (ModelConfig changes, rays, samples per ray).
+_EVAL_CASES = [
+    ({"num_classes": 19}, 4096, 128),                                    # 8x256, a fine tile
+    ({"num_classes": 19, "trunk_depth": 4, "trunk_width": 64, "skips": (),
+      "color_width": 64}, 4096, 64),                                     # the 4x64 proposal
+    ({"trunk_width": 128, "color_width": 64, "num_classes": 8}, 1001, 96),  # 128-wide, keep-M
+    ({"num_classes": 19}, 1, 64), ({"num_classes": 19}, 37, 37),
+    ({"num_classes": 100, "use_semantic": False, "color_width": 50}, 333, 13),
+    ({"num_classes": 5, "use_viewdirs": False, "trunk_width": 64, "trunk_depth": 3,
+      "skips": (0,), "color_width": 27}, 129, 7),
+    ({"num_classes": 128, "trunk_width": 128, "skips": (1, 4), "color_width": 100}, 70, 64),
+]
+# E against its plain version: both sum each product in f32 and round it to
+# bf16, in another order (wgmma chains against cuBLAS), so a sum that lands
+# within a rounding of a bf16 boundary rounds the other way in a few places,
+# and an activation one bf16 ulp off moves what follows it. The plain
+# version runs with cuBLAS's reduced-precision reductions off: with them,
+# cuBLAS may round a split-K partial sum to bf16 (colour width 50 read
+# 3.0e-2 of rgb off against 7.7e-5 without). Measured on the H100 at the
+# cases above: at most 3.9e-4 of an output's values differ, the relative
+# Frobenius error at most 1.2e-4. Ceilings: five times both.
+EVAL_SHARE, EVAL_REL = 2e-3, 6e-4
+
+
+def _eval_case(device, change, rays, samples, seed):
+    """A field with seeded weights and biases away from zero, its packing,
+    points in [-1.5, 1.5]^3 on `rays` rays of `samples` points."""
+    import dataclasses
+
+    from panopticnerf_tpu_torch.config import ModelConfig
+    from panopticnerf_tpu_torch.models.nerf import NeRFMLP
+    from panopticnerf_tpu_torch.ops.field_eval import eval_dims, pack_eval
+
+    cfg = dataclasses.replace(ModelConfig(), **change)
+    torch.manual_seed(seed)
+    net = NeRFMLP(cfg).to(device)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.randn_like(p) * 0.05)
+    dims = eval_dims(cfg)
+    g = torch.Generator(device).manual_seed(seed)
+    pts = (torch.rand(rays * samples, 3, device=device, generator=g) * 2 - 1) * 1.5
+    dirs = torch.nn.functional.normalize(torch.randn(rays, 3, device=device, generator=g), dim=-1)
+    return net, dims, pack_eval(net, dims, torch.bfloat16), pts, dirs
+
+
+@pytest.mark.parametrize("change,rays,samples", _EVAL_CASES)
+def test_eval_field_kernel_matches_plain(cuda_device, change, rays, samples):
+    """Kernel E against its plain version (the model's own ops) per output,
+    within EVAL_SHARE / EVAL_REL; finite; the plain version equals the
+    model; the kernel launch counted once."""
+    from panopticnerf_tpu_torch.ops.field_eval import field_eval_plain
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
+
+    net, dims, pk, pts, dirs = _eval_case(cuda_device, change, rays, samples, rays + samples)
+    before = launches("E")
+    got = EvalKernel(pk, dims, cuda_device)(pts, dirs, samples)
+    assert launches("E") == before + 1
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        ref = field_eval_plain(pts, dirs, samples, pk, dims)
+        model = net(pts.view(rays, samples, 3), dirs[:, None, :] if dims.d_dim else None)
+        torch.cuda.synchronize()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    for name, a, b, m in zip(("sigma", "rgb", "sem"), got, ref, model):
+        if b is None:
+            assert a is None and m is None, name
+            continue
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert torch.equal(b, m.reshape(b.shape)), name
+        assert bool(torch.isfinite(a).all()), name
+        share = float((a != b).float().mean())
+        assert share <= EVAL_SHARE and _rel(a, b) <= EVAL_REL, (name, share, _rel(a, b))
+
+
+@pytest.mark.parametrize("samples,x_freqs,d_freqs", [(64, 10, 4), (37, 10, 4), (96, 6, 2),
+                                                      (128, 0, -1), (1, 10, 0)])
+def test_eval_field_encodings_bit_for_bit(cuda_device, samples, x_freqs, d_freqs):
+    """The encodings E computes into shared memory (written out by its
+    probe) equal `positional_encoding` on the card, cast to bf16, bit for
+    bit: points near the scene, far out and at 2^k multiples; each ray's
+    directions repeated over its samples; zeros in the padding columns."""
+    from panopticnerf_tpu_torch.ops.encoding import positional_encoding
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import field_eval_encodings_cuda
+
+    rays = 999
+    g = torch.Generator(cuda_device).manual_seed(samples + x_freqs)
+    n = rays * samples
+    pts = torch.cat([torch.rand(n // 3, 3, device=cuda_device, generator=g) * 2 - 1,
+                     (torch.rand(n // 3, 3, device=cuda_device, generator=g) * 2 - 1) * 60,
+                     torch.randn(n - 2 * (n // 3), 3, device=cuda_device, generator=g) * 4])
+    pts[:16] = torch.ldexp(torch.ones(16, 3, device=cuda_device),
+                           torch.arange(-8, 8, device=cuda_device)[:, None])
+    dirs = torch.nn.functional.normalize(torch.randn(rays, 3, device=cuda_device, generator=g),
+                                         dim=-1)
+    x_k, d_k = field_eval_encodings_cuda(pts, dirs, samples, x_freqs, d_freqs)
+    x_ref = torch.zeros_like(x_k)
+    xe = positional_encoding(pts, x_freqs)
+    x_ref[:, :xe.shape[1]] = xe.to(torch.bfloat16)
+    d_ref = torch.zeros_like(d_k)
+    if d_freqs >= 0:
+        de = positional_encoding(dirs, d_freqs).to(torch.bfloat16).repeat_interleave(samples, 0)
+        d_ref[:, :de.shape[1]] = de
+    torch.cuda.synchronize()
+    assert torch.equal(x_k.view(torch.int16), x_ref.view(torch.int16))
+    assert torch.equal(d_k.view(torch.int16), d_ref.view(torch.int16))
+
+
+def test_eval_field_kernel_repeats_bit_for_bit(cuda_device):
+    """Two calls of E on the same inputs give the same bits (no atomics,
+    fixed summation orders), at a fine tile's 524,288 points."""
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
+
+    _, dims, pk, pts, dirs = _eval_case(cuda_device, {"num_classes": 19}, 4096, 128, 5)
+    kernel = EvalKernel(pk, dims, cuda_device)
+    first, second = kernel(pts, dirs, 128), kernel(pts, dirs, 128)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_eval_field_wrapper_rejects_bad_inputs(cuda_device):
+    import dataclasses
+
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
+
+    _, dims, pk, pts, dirs = _eval_case(cuda_device, {"num_classes": 7}, 8, 16, 0)
+    kernel = EvalKernel(pk, dims, cuda_device)
+    with pytest.raises(ValueError):
+        kernel(pts.cpu(), dirs, 16)
+    with pytest.raises(TypeError):
+        kernel(pts.double(), dirs, 16)
+    with pytest.raises(ValueError):  # not rays x samples
+        kernel(pts[:100].contiguous(), dirs, 16)
+    with pytest.raises(ValueError):
+        EvalKernel(pk, dims, "cpu")
+    with pytest.raises(ValueError):
+        EvalKernel(pk._replace(wp=pk.wp[:, :, :32]), dims, cuda_device)
+    with pytest.raises(ValueError):  # a width the kernel does not take
+        EvalKernel(pk, dataclasses.replace(dims, width=96), cuda_device)
+    with pytest.raises(ValueError):  # an encoding width that is not 3 (2 F + 1)
+        EvalKernel(pk, dataclasses.replace(dims, x_dim=62), cuda_device)
+
+
+def _view_gaps(out, ref):
+    """The benchmark's numbers (benchmark/harness/render.py `gaps`) of one
+    view: mean |rgb gap|; mean |gap| over the reference's mean |value| of
+    depth and of the semantic logits."""
+    rel = lambda a, b: float((a - b).abs().mean() / b.abs().mean().clamp(min=1e-30))
+    return (float((out.rgb - ref.rgb).abs().mean()), rel(out.depth, ref.depth),
+            rel(out.sem_logits, ref.sem_logits))
+
+
+def _render_both(cfg, device, ds, view, seed):
+    """One view through `intersect_and_render` with E and with the plain
+    model (seeded lecun weights, biases away from zero), and E's launches
+    and the two counters over E's render."""
+    from panopticnerf_tpu_torch.data import view_primitives, view_rays
+    from panopticnerf_tpu_torch.models import init_params, make_network
+    from panopticnerf_tpu_torch.render import renderer
+    from panopticnerf_tpu_torch.utils import profiling
+
+    model = make_network(cfg, device).eval()
+    init_params(model, torch.Generator(device).manual_seed(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.05, generator=torch.Generator(device).manual_seed(len(name)))
+    o, d = view_rays(ds, view)
+    bounds = renderer.SceneBounds(ds.bounds_center, ds.bounds_scale)
+    render = lambda: renderer.intersect_and_render(cfg, model, o, d, view_primitives(ds, view),
+                                                   bounds)
+    profiling.reset()
+    out = render()
+    counts = (launches("E"), profiling.calls("render.field.points"),
+              profiling.calls("render.field.points_fused"))
+    profiling.reset()
+    keep = renderer.eval_field
+    renderer.eval_field = lambda m, c, dv: m
+    try:
+        ref = render()
+    finally:
+        renderer.eval_field = keep
+    torch.cuda.synchronize()
+    return out, ref, counts, o.shape[0]
+
+
+def test_eval_render_views_against_the_plain_model(cuda_device, tmp_path):
+    """A flagship view and a KITTI-360 demo-tree view (4x64 proposal coarse,
+    8x256 fine) through `intersect_and_render`: E's maps against the plain
+    model's within a tenth of the benchmark's limits (benchmark/limits/),
+    E launched once per tile and level, every field point fused."""
+    import os
+
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = str(tmp_path / "tree")
+    write_demo_tree(root, n_frames=2, hw=(376, 1408), n_boxes=8, seed=1, n_concave=2,
+                    device=cuda_device)
+    cases = {
+        "flagship": (load_config(os.path.join(repo, "configs", "synthetic_flagship.yaml"),
+                                 ["data.synthetic_num_frames", "2"]),
+                     (1e-5, 1.5e-5, 3e-4)),
+        "kitti360": (load_config(os.path.join(repo, "configs", "kitti360_panoptic.yaml"),
+                                 ["data.root", root, "data.frame_start", "0",
+                                  "data.frame_num", "2"]),
+                     (1e-5, 5e-6, 3e-4)),
+    }
+    for name, (cfg, limits) in cases.items():
+        ds, _, _ = make_dataset(cfg, cuda_device)
+        out, ref, (e, points, fused), n = _render_both(cfg, cuda_device, ds, 1, 11)
+        tiles = -(-n // cfg.render.ray_tile)
+        assert e == 2 * tiles and points == fused > 0, (name, e, tiles, points, fused)
+        gaps = _view_gaps(out, ref)
+        assert all(g <= lim for g, lim in zip(gaps, limits)), (name, gaps, limits)
+        assert bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.sem_logits).all())
