@@ -1,15 +1,20 @@
 """What every cell shares: finding its files by name, the program's config,
-the seeds, the weights, the device record, the guard against JAX, the
-per-layer readers and the result line.
+the seeds, the device record, the guard against JAX, the per-layer readers
+and the result line.
 
 A cell of `BENCHMARK.json` names a configuration (`configs/<name>.json`
 under `paths`, found through the entry's `file`) and a traffic mix
 (`traffic/<traffic>.json`), whose `kind` names the driver module
-(`harness/<kind>.py`, with `run(ctx) -> dict`). A per-layer metric is the
-reader `metrics/<name>.py` (`read(ctx) -> float | None`, and `LAYERS`, the
-kernel layers it reads from the trace); a kernel layer is the directory
-`kernel_names/<layer>/` of pattern files. Adding any of these is adding a
-file: nothing here names a cell, a configuration, a mix or a metric.
+(`harness/<kind>.py`, with `run(ctx) -> dict`). The configuration file's
+`reference` key names its plain reference, the module
+`reference/<reference>.py`: `make_weights(conf_program, seed, device)`,
+the seeded draw that both sides get; `fp8_quant`, the control's rounding;
+`render_view` for render mixes; `Trainer`, `leaf_gap` and `quiet_leaves`
+for train mixes. A per-layer metric is the reader `metrics/<name>.py`
+(`read(ctx) -> float | None`, and `LAYERS`, the kernel layers it reads
+from the trace); a kernel layer is the directory `kernel_names/<layer>/`
+of pattern files. Adding any of these, a reference too, is adding a file:
+nothing here names a cell, a configuration, a reference, a mix or a metric.
 """
 
 from __future__ import annotations
@@ -69,6 +74,11 @@ def driver(kind: str) -> ModuleType:
     return importlib.import_module(f"harness.{kind}")
 
 
+def reference(conf_file: dict) -> ModuleType:
+    """The configuration's plain reference, `reference/<conf_file["reference"]>.py`."""
+    return importlib.import_module(f"reference.{conf_file['reference']}")
+
+
 def cell_metrics(bench: dict, cell_name: str, group: str) -> list[dict]:
     """The metrics of `group` ("end_to_end" | "per_layer") that a cell
     reports: those listing it under `workloads`, and those without the key
@@ -124,30 +134,6 @@ def sub_seeds(seed: int) -> dict[str, int]:
     and the checked sample, from the run's seed (any non-negative integer)."""
     words = np.random.SeedSequence(int(seed)).generate_state(4)
     return dict(zip(("scene", "weights", "draws", "sample"), (int(w) for w in words)))
-
-
-def make_weights(conf_program: dict, seed: int, device) -> dict:
-    """Every parameter of both fields, f32 on `device`, in one draw: each
-    weight from a normal truncated at +-2 scaled to variance 1 / fan_in
-    (flax Dense's lecun normal), every bias 0."""
-    import torch
-
-    from reference.nerf import param_shapes, std_normal_trunc
-
-    shapes = param_shapes(conf_program)
-    weights = {k: s for k, s in shapes.items() if k.endswith(".weight")}
-    total = sum(o * i for o, i in weights.values())
-    g = torch.Generator(device).manual_seed(seed)
-    flat = std_normal_trunc(torch.rand(total, generator=g, device=device).clamp(1e-7, 1 - 1e-7))
-    out, at = {}, 0
-    for k, s in shapes.items():
-        if k.endswith(".weight"):
-            o, i = s
-            out[k] = flat[at:at + o * i].view(o, i) * (1.0 / np.sqrt(i) / 0.87962566103423978)
-            at += o * i
-        else:
-            out[k] = torch.zeros(s, device=device)
-    return out
 
 
 def build_dataset(conf_file: dict, seeds: dict, tmpdir: str, device, sync) -> tuple:

@@ -3,9 +3,14 @@
 Each view goes through the program's `intersect_and_render` (kernel A1,
 then the tiled coarse and fine evaluation render) with the benchmark's
 seeded weights, and its rgb, depth and learned semantic labels are read
-back to the host, as the export needs them. `render_rays_per_s` is every
-ray of every view rendered and read back in the window over the window's
-wall time.
+back to the host, as the export needs them. The window keeps one view
+dispatched ahead of the one it waits for: view v+1 is enqueued before view
+v's maps are awaited, and each view's copies to the host are enqueued right
+behind its own kernels, so the device is not left idle while the host reads
+back one view and enqueues the next. `render_rays_per_s` is every ray of
+every view rendered and read back in the window over the window's wall
+time: once the time is up nothing more is sent, the view in flight is
+awaited and counted, and the clock is read after that wait.
 
 The comparison (after the window, with the program's model freed): the
 reference renders a sample of the window's views, drawn from the seed,
@@ -27,23 +32,29 @@ from harness import core, trace
 
 def setup(ctx: dict) -> dict:
     """The scene, the dataset and the evaluation model with the seeded
-    weights; `render(v)` renders view v and reads its maps back: rgb, depth
-    and the composited semantic logits, which the export's panoptic fusion
-    turns into labels."""
+    weights of the configuration's reference (`ref`, which renders the
+    comparison too); `launch(v)` enqueues view v's render and the copies of
+    its maps to the host (rgb, depth and the composited semantic logits,
+    which the export's panoptic fusion turns into labels) and returns a
+    handle; `fetch(handle)` waits for those copies and returns the maps;
+    `render(v)` is the two in one."""
     from panopticnerf_tpu_torch.data import view_primitives, view_rays
     from panopticnerf_tpu_torch.models import make_network
     from panopticnerf_tpu_torch.render.renderer import SceneBounds, intersect_and_render
 
     dev, conf = ctx["device"], ctx["conf"]
     cfg, ds, _, build_s = core.build_dataset(conf, ctx["seeds"], ctx["tmpdir"], dev, ctx["sync"])
-    weights = core.make_weights(conf["program"], ctx["seeds"]["weights"], dev)
+    ref = core.reference(conf)
+    weights = ref.make_weights(conf["program"], ctx["seeds"]["weights"], dev)
     model = make_network(cfg, dev).eval()
     model.load_state_dict(weights)
     bounds = SceneBounds(ds.bounds_center, ds.bounds_scale)
     fault = ctx.get("fault")
 
+    on_card = torch.device(dev).type == "cuda"
+
     @torch.no_grad()
-    def render(v: int):
+    def launch(v: int):
         o, d = view_rays(ds, v)
         out = intersect_and_render(cfg, model, o, d, view_primitives(ds, v), bounds)
         maps = [out.rgb, out.depth, out.sem_logits]
@@ -52,10 +63,23 @@ def setup(ctx: dict) -> dict:
                     for m in maps]
         elif fault == "alter_answer":
             maps[2] = torch.roll(maps[2], 1, dims=-1)
-        return [m.cpu() for m in maps]
+        if not on_card:
+            return maps, None
+        host = [m.to("cpu", non_blocking=True) for m in maps]  # into pinned memory
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
-    return dict(cfg=cfg, ds=ds, build_s=build_s, weights=weights, model=model, render=render,
-                n_views=ds.images.shape[0], n_rays=int(ds.images.shape[1] * ds.images.shape[2]))
+    def fetch(handle):
+        host, done = handle
+        if done is not None:
+            done.synchronize()
+        return host
+
+    return dict(cfg=cfg, ds=ds, build_s=build_s, ref=ref, weights=weights, model=model,
+                launch=launch, fetch=fetch, render=lambda v: fetch(launch(v)),
+                n_views=ds.images.shape[0],
+                n_rays=int(ds.images.shape[1] * ds.images.shape[2]))
 
 
 def sample_views(seed: int, views, count: int) -> list[int]:
@@ -65,14 +89,12 @@ def sample_views(seed: int, views, count: int) -> list[int]:
 
 def reference_side(conf_program: dict, s: dict, views, quant=None) -> dict:
     """view -> the reference's (rgb, depth, semantic logits) on the host."""
-    from reference import nerf as ref
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     scene = {k: getattr(s["ds"], k) for k in s["ds"]._fields}
     out = {}
     for v in views:
-        r = ref.render_view(s["weights"], conf_program, scene, v, quant)
+        r = s["ref"].render_view(s["weights"], conf_program, scene, v, quant)
         out[v] = [r["rgb"].cpu(), r["depth"].cpu(), r["sem_logits"].cpu()]
     return out
 
@@ -95,9 +117,10 @@ def gaps(got: dict, ref_maps: dict) -> dict:
 def run(ctx: dict) -> dict:
     sync, traffic = ctx["sync"], ctx["traffic"]
     s = setup(ctx)
-    render, n_views = s["render"], s["n_views"]
-    for i in range(traffic["warmup_views"]):
-        render(i % n_views)
+    launch, fetch, n_views = s["launch"], s["fetch"], s["n_views"]
+    # the warm-up holds as many views in flight as the window does
+    for h in [launch(i % n_views) for i in range(max(2, traffic["warmup_views"]))]:
+        fetch(h)
     sync()
     setup_s = time.perf_counter() - ctx["t0"]
 
@@ -105,13 +128,15 @@ def run(ctx: dict) -> dict:
     views = 0
     t0 = time.perf_counter()
     marks = []
+    pending = launch(0)
     while True:
-        v = views % n_views
-        got[v] = render(v)
+        ahead = launch((views + 1) % n_views) if time.perf_counter() - t0 < ctx["seconds"] else None
+        got[views % n_views] = fetch(pending)
         views += 1
         marks.append(time.perf_counter())
-        if marks[-1] - t0 >= ctx["seconds"]:
+        if ahead is None:
             break
+        pending = ahead
     sync()
     window_s = time.perf_counter() - t0
     print(f"set-up {setup_s!r} s (scene and dataset {s['build_s']!r} s); s per view: "
@@ -123,11 +148,15 @@ def run(ctx: dict) -> dict:
         from torch.profiler import record_function
 
         def work():
+            handles = []
             for i in range(traffic["trace_views"]):
                 v = (views + i) % n_views
                 traced_views.append(v)
                 with record_function("bench.view"):
-                    render(v)
+                    handles.append(launch(v))
+                if len(handles) > 1:
+                    fetch(handles[-2])
+            fetch(handles[-1])
             sync()
             return traffic["trace_views"]
 
@@ -136,7 +165,7 @@ def run(ctx: dict) -> dict:
 
     dev = ctx["device"]
     peak = torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda" else 0
-    del s["model"], s["render"], render
+    del s["model"], s["render"], s["launch"], s["fetch"], launch, fetch
     gc.collect()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()

@@ -66,9 +66,10 @@ def _half(d: dict, cfg) -> dict:
 
 
 def setup(ctx: dict) -> dict:
-    """The scene, the dataset, the model with the seeded weights, one train
-    state and its step; then the first `check_steps` steps through the
-    window's call and feed, with what the comparison keeps of them."""
+    """The scene, the dataset, the model with the seeded weights of the
+    configuration's reference (`ref`, which trains the comparison too), one
+    train state and its step; then the first `check_steps` steps through
+    the window's call and feed, with what the comparison keeps of them."""
     import dataclasses
 
     from panopticnerf_tpu_torch.models import make_network
@@ -77,7 +78,8 @@ def setup(ctx: dict) -> dict:
     dev, seeds, traffic = ctx["device"], ctx["seeds"], ctx["traffic"]
     conf = ctx["conf"]
     cfg, ds, train_ids, build_s = core.build_dataset(conf, seeds, ctx["tmpdir"], dev, ctx["sync"])
-    weights = core.make_weights(conf["program"], seeds["weights"], dev)
+    ref = core.reference(conf)
+    weights = ref.make_weights(conf["program"], seeds["weights"], dev)
     model = make_network(cfg, dev)
     model.load_state_dict(weights)
     state = make_train_state(cfg, model)
@@ -109,7 +111,7 @@ def setup(ctx: dict) -> dict:
     gen = torch.Generator(dev).manual_seed(seeds["draws"])
     hw = tuple(ds.images.shape[1:3])
     names_of = {p: n for n, p in model.named_parameters()}
-    s = dict(cfg=cfg, ds=ds, build_s=build_s, weights=weights, model=model, state=state,
+    s = dict(cfg=cfg, ds=ds, build_s=build_s, ref=ref, weights=weights, model=model, state=state,
              start=start, view_ids=view_ids,
              draw=lambda: _draws(gen, cfg, len(train_ids), hw, dev),
              one=lambda d: step(state, ds, view_ids, d))
@@ -131,25 +133,21 @@ def reference_side(conf_program: dict, s: dict, quant=None, n_rays=None) -> dict
     """The reference over the kept steps from the same weights and draws:
     `quant` computes it in a lower precision (the control), `n_rays` on
     the batches' first rays only (the half-batch fault)."""
-    from reference import nerf as ref
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     scene = {k: getattr(s["ds"], k) for k in s["ds"]._fields}
-    trainer = ref.Trainer(conf_program, s["weights"], s["start"], quant)
+    trainer = s["ref"].Trainer(conf_program, s["weights"], s["start"], quant)
     losses = [trainer.step(scene, s["view_ids"], d, n_rays) for d in s["kept"]]
     delta = {k: trainer.params[k].detach() - w for k, w in s["weights"].items()}
     return {"losses": losses, "grads1": trainer.first_grads, "delta": delta}
 
 
-def gaps(side: dict, ref_side: dict) -> tuple[dict, str]:
+def gaps(ref, side: dict, ref_side: dict) -> tuple[dict, str]:
     """The numbers compared -> ({loss_gap, grad_gap, change_gap}, a note):
     each step's loss (relative), the first gradient's and the change's
     norms by their worst leaf; leaves whose reference gradient is nought
     to rounding (under a thousandth of the median leaf's) are left out of
-    the change."""
-    from reference import nerf as ref
-
+    the change, by `ref`'s (the reference module's) `quiet_leaves`."""
     quiet = ref.quiet_leaves(ref_side["grads1"])
     loss_gap = max(abs(a - b) / max(abs(b), 1e-30)
                    for a, b in zip(side["losses"], ref_side["losses"]))
@@ -228,7 +226,7 @@ def run(ctx: dict) -> dict:
     gc.collect()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
-    numbers, note = gaps(s["side"], reference_side(ctx["conf"]["program"], s))
+    numbers, note = gaps(s["ref"], s["side"], reference_side(ctx["conf"]["program"], s))
     print(note, file=sys.stderr)
     return {
         "e2e": {"train_rays_per_s": steps * cfg.data.n_rays / window_s, "setup_s": setup_s},

@@ -32,20 +32,21 @@ def _zero_half(m):
     return torch.cat([m[: m.shape[0] // 2], torch.zeros_like(m[m.shape[0] // 2:])])
 
 
-def read_train(ctx, drv, ref) -> dict:
+def read_train(ctx, drv) -> dict:
     s = drv.setup(ctx)
+    ref = s["ref"]
     for k in ("model", "state", "one"):
         del s[k]
     gc.collect()
     conf = ctx["conf"]["program"]
     base = drv.reference_side(conf, s)
     n = conf["data"]["n_rays"]
-    return {"program": drv.gaps(s["side"], base)[0],
-            "control": drv.gaps(drv.reference_side(conf, s, quant=ref.fp8_quant), base)[0],
-            "half_batch": drv.gaps(drv.reference_side(conf, s, n_rays=n // 2), base)[0]}
+    return {"program": drv.gaps(ref, s["side"], base)[0],
+            "control": drv.gaps(ref, drv.reference_side(conf, s, quant=ref.fp8_quant), base)[0],
+            "half_batch": drv.gaps(ref, drv.reference_side(conf, s, n_rays=n // 2), base)[0]}
 
 
-def read_render(ctx, drv, ref) -> dict:
+def read_render(ctx, drv) -> dict:
     import torch
 
     s = drv.setup(ctx)
@@ -59,7 +60,8 @@ def read_render(ctx, drv, ref) -> dict:
     half = {v: [_zero_half(m) for m in maps] for v, maps in got.items()}
     altered = {v: [m[0], m[1], torch.roll(m[2], 1, dims=-1)] for v, m in got.items()}
     return {"program": drv.gaps(got, base),
-            "control": drv.gaps(drv.reference_side(conf, s, views, quant=ref.fp8_quant), base),
+            "control": drv.gaps(drv.reference_side(conf, s, views, quant=s["ref"].fp8_quant),
+                                base),
             "half_batch": drv.gaps(half, base), "alter_answer": drv.gaps(altered, base)}
 
 
@@ -73,7 +75,6 @@ def main(argv=None, device="cuda", overrides=None, spec=None) -> list[dict]:
     import torch
 
     from harness import core
-    from reference import nerf as ref
 
     bench = spec or core.load_json(os.path.join(ROOT, "BENCHMARK.json"))
     cell, _, conf = core.find_cell(bench, args.workload)
@@ -88,7 +89,7 @@ def main(argv=None, device="cuda", overrides=None, spec=None) -> list[dict]:
         try:
             ctx = {"device": args.device, "sync": sync, "seeds": core.sub_seeds(seed),
                    "conf": conf, "traffic": traffic, "tmpdir": tmpdir}
-            rec = (read_train if traffic["kind"] == "train" else read_render)(ctx, drv, ref)
+            rec = (read_train if traffic["kind"] == "train" else read_render)(ctx, drv)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
         rec = {"workload": args.workload, "seed": seed, **rec}

@@ -15,6 +15,15 @@ a lower-precision format first.
 Only the options the benchmark's configurations use are written; any
 other value raises, so that the reference never silently computes
 something else than the configuration states.
+
+A configuration names its reference module by its file's `reference` key
+(`harness/core.reference`). This one is "nerf": its parameters
+(`param_shapes`), their seeded draw (`make_weights`) and its field
+(`field_apply`). The pipeline around the field (intersection, sampling,
+compositing, the losses, Adam, the tiled view) takes the field as an
+argument, so a module of another field reuses it with its own field and
+draw: `render_view = partial(nerf.render_view, field=its_field)`, and the
+same for `Trainer`.
 """
 
 from __future__ import annotations
@@ -281,9 +290,10 @@ class Level(NamedTuple):
     cnt: torch.Tensor          # (N, S)
 
 
-def render_level(params, cfg, level, o, d, z, center, scale, iv: Intervals, quant=None) -> Level:
+def render_level(params, cfg, level, o, d, z, center, scale, iv: Intervals, quant=None,
+                 field: Callable = field_apply) -> Level:
     pts = ((o[:, None] + d[:, None] * z[..., None]) - center) * scale
-    sigma, rgb, sem = field_apply(params, cfg, level, pts, d[:, None], quant)
+    sigma, rgb, sem = field(params, cfg, level, pts, d[:, None], quant)
     delta = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], -1)
     tau = torch.logaddexp(sigma, torch.zeros_like(sigma)) * delta
     alpha = 1.0 - torch.exp(-tau)
@@ -300,18 +310,20 @@ def render_level(params, cfg, level, o, d, z, center, scale, iv: Intervals, quan
                  sem, lab, cnt)
 
 
-def render(params, cfg, o, d, iv, center, scale, draws: Optional[dict], quant=None):
-    """Coarse then fine render of rays (N, 3). `draws` (training): the
-    uniforms "coarse", "bg", "fine"; None renders deterministically."""
+def render(params, cfg, o, d, iv, center, scale, draws: Optional[dict], quant=None,
+           field: Callable = field_apply):
+    """Coarse then fine render of rays (N, 3) through `field`, which takes
+    `field_apply`'s arguments. `draws` (training): the uniforms "coarse",
+    "bg", "fine"; None renders deterministically."""
     r = cfg["render"]
     dr = draws or {}
     z = guided(iv, r["n_samples"], r["near"], r["far"], r["bg_sample_frac"],
                dr.get("coarse"), dr.get("bg"))
-    coarse = render_level(params, cfg, 0, o, d, z, center, scale, iv, quant)
+    coarse = render_level(params, cfg, 0, o, d, z, center, scale, iv, quant, field)
     z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
     z_f = pdf_samples(z_mid, coarse.weights[:, 1:-1].detach(), r["n_importance"], dr.get("fine"))
     z_all = torch.cat([z, z_f], 1).sort(dim=1, stable=True).values
-    fine = render_level(params, cfg, 1, o, d, z_all, center, scale, iv, quant)
+    fine = render_level(params, cfg, 1, o, d, z_all, center, scale, iv, quant, field)
     return coarse, fine
 
 
@@ -400,13 +412,14 @@ def lr_at(cfg: dict, t: int) -> float:
 
 
 class Trainer:
-    """The reference training loop from given f32 parameters at step
-    `start` (which sets the learning rate and the semantic gate), with a
-    fresh Adam (its bias correction counts from 1)."""
+    """The reference training loop through `field` from given f32
+    parameters at step `start` (which sets the learning rate and the
+    semantic gate), with a fresh Adam (its bias correction counts from 1)."""
 
-    def __init__(self, cfg: dict, params: dict, start: int, quant=None):
+    def __init__(self, cfg: dict, params: dict, start: int, quant=None,
+                 field: Callable = field_apply):
         check_supported(cfg)
-        self.cfg, self.t, self.quant = cfg, start, quant
+        self.cfg, self.t, self.quant, self.field = cfg, start, quant, field
         self.params = {k: v.detach().clone().float().requires_grad_(True) for k, v in params.items()}
         self.m = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.v = {k: torch.zeros_like(v) for k, v in self.params.items()}
@@ -429,7 +442,7 @@ class Trainer:
         tr = c["train"]
         sem_on = not (tr["pretrain"] == "nerf" and self.t < tr["pretrain_steps"])
         coarse, fine = render(self.params, c, b["o"], b["d"], iv, scene["bounds_center"],
-                              scene["bounds_scale"], u, self.quant)
+                              scene["bounds_scale"], u, self.quant, self.field)
         loss = losses(coarse, fine, b, iv, c, sem_on)
         grads = torch.autograd.grad(loss, list(self.params.values()), allow_unused=True)
         lr = lr_at(c, self.t)
@@ -467,9 +480,10 @@ def view_rays(scene: dict, view: int):
 
 @torch.no_grad()
 def render_view(params: dict, cfg: dict, scene: dict, view: int, quant=None,
-                tile: int = 8192) -> dict:
-    """One whole view, deterministic (no jitter), in tiles of `tile` rays:
-    rgb (N, 3), depth (N,), the composited learned semantic logits (N, C)."""
+                tile: int = 8192, field: Callable = field_apply) -> dict:
+    """One whole view through `field`, deterministic (no jitter), in tiles
+    of `tile` rays: rgb (N, 3), depth (N,), the composited learned semantic
+    logits (N, C)."""
     check_supported(cfg)
     r, d = cfg["render"], cfg["data"]
     ev = dict(cfg, render=dict(r, n_samples=r["eval_n_samples"] or r["n_samples"],
@@ -484,7 +498,7 @@ def render_view(params: dict, cfg: dict, scene: dict, view: int, quant=None,
                        scene["prim_inst"][view], scene["prim_valid"][view], planes,
                        r["near"], r["far"], d["max_intervals"])
         _, fine = render(params, ev, ot, dt_, iv, scene["bounds_center"], scene["bounds_scale"],
-                         None, quant)
+                         None, quant, field)
         out["rgb"].append(fine.rgb)
         out["depth"].append(fine.depth)
         out["sem_logits"].append(fine.sem)
@@ -519,3 +533,23 @@ def std_normal_trunc(u: torch.Tensor) -> torch.Tensor:
     """A normal truncated at +-2 from uniforms in (0, 1), by its inverse CDF."""
     lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
     return math.sqrt(2) * torch.erfinv(2 * (lo + u * (1 - 2 * lo)) - 1)
+
+
+def make_weights(conf_program: dict, seed: int, device) -> dict:
+    """Every parameter of both fields, f32 on `device`, in one draw: each
+    weight from a normal truncated at +-2 scaled to variance 1 / fan_in
+    (flax Dense's lecun normal), every bias 0."""
+    shapes = param_shapes(conf_program)
+    weights = {k: s for k, s in shapes.items() if k.endswith(".weight")}
+    total = sum(o * i for o, i in weights.values())
+    g = torch.Generator(device).manual_seed(seed)
+    flat = std_normal_trunc(torch.rand(total, generator=g, device=device).clamp(1e-7, 1 - 1e-7))
+    out, at = {}, 0
+    for k, s in shapes.items():
+        if k.endswith(".weight"):
+            o, i = s
+            out[k] = flat[at:at + o * i].view(o, i) * (1.0 / math.sqrt(i) / 0.87962566103423978)
+            at += o * i
+        else:
+            out[k] = torch.zeros(s, device=device)
+    return out

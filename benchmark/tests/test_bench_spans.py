@@ -64,12 +64,18 @@ def test_the_readers_on_a_synthetic_table(monkeypatch):
 
 
 def test_the_padding_of_both_render_cells():
-    """The padding arithmetic of `render_image_rays` at the cells' view sizes, tiles of 4096
-    rays: 2.08 % at 188x704 and 10.24 % at 94x352."""
-    for (h, w), pct in (((188, 704), 2.08), ((94, 352), 10.24)):
-        n = h * w
-        padded = -n % 4096
+    """The padding arithmetic of `render_image_rays` at the cells' view sizes and the tiles
+    their configurations give: none at 188x704 or 94x352 in tiles of 33,088 rays (at the
+    shipped 4096 it was 2.08 % and 10.24 %)."""
+    for name, (h, w), pct in (("kitti360_panoptic", (188, 704), 0.0),
+                              ("synthetic_flagship", (94, 352), 0.0)):
+        conf = core.load_json(os.path.join(BENCH_DIR, "configs", f"{name}.json"))
+        tile, n = conf["program"]["render"]["ray_tile"], h * w
+        padded = -n % tile
         assert round(100.0 * padded / (n + padded), 2) == pct
+    for (h, w), pct in (((188, 704), 2.08), ((94, 352), 10.24)):
+        padded = -(h * w) % 4096
+        assert round(100.0 * padded / (h * w + padded), 2) == pct
 
 
 NAMES = ["render_sampling_ms.render", "render_field_ms.render", "render_composite_ms.render",

@@ -51,3 +51,11 @@ def test_a_silent_layer_fails_after_three_sessions(monkeypatch, tmp_path):
         trace.traced_stretch(work, str(tmp_path), {"field_train": ["x"]}, {"field_train"},
                              lambda: None)
     assert len(calls) == trace.ATTEMPTS
+
+
+def test_the_device_readers_of_a_render_stretch():
+    from harness import core
+
+    ctx = {"trace": {"busy_s": 0.18, "window_s": 0.3, "units": 2}}
+    assert core.metric_reader("device_idle_pct.render").read(ctx) == pytest.approx(40.0)
+    assert core.metric_reader("render_busy_ms.render").read(ctx) == pytest.approx(90.0)
