@@ -16,8 +16,8 @@ export.
 Phases (any failure raises; the exit code is then non-zero and no result
 line is printed):
   1. card, power limit, torch / CUDA / nvcc versions;
-  2. build of csrc/intersect.cu, csrc/mlp_train.cu, csrc/field_train.cu and
-     csrc/field_eval.cu, one nvcc each, run together (timed; ptxas registers
+  2. build of csrc/intersect.cu, csrc/mlp_train.cu, csrc/field_train.cu,
+     csrc/field_eval.cu and csrc/hash_grid.cu, one nvcc each, run together (timed; ptxas registers
      / shared memory / spills; the forward kernels B, C and E and C''s heads
      data pass must not spill, nor have ptxas serialize the wgmma chains of
      B, C, C''s heads data pass or E at W = 128 and 256);
@@ -40,7 +40,17 @@ line is printed):
      tile: per output the share of values that differ and the relative
      Frobenius error within EVAL_SHARE / EVAL_REL, a second call equal bit
      for bit; E's time and the plain model's at that tile, beside the
-     bound;
+     bound; (c) kernel G (the hash grid, csrc/hash_grid.cu) and E with its
+     features on the seeded hybrid fields of configs/torch/kitti360_grid.yaml
+     at fine tiles of 4096 and 33,088 rays: G bit for bit against its plain
+     encoding, E within EVAL_SHARE / EVAL_REL of its plain version, the
+     times of G (and its device time), its plain encoding, E with and
+     without the grid's columns and the plain hybrid model, the bounds;
+     then GRID_VIEWS 188x704 views of a KITTI-360 demo tree through the
+     evaluation entry (`intersect_and_render`) with the counters cleared
+     just before: G and E each launched 2 x tiles a view, G encoding and E
+     evaluating every field point, the maps within a tenth of the cell
+     kitti360-grid-render's limits of the plain hybrid model's;
   6. kernel A2 (grouped intersection) vs its plain version on 20 training
      batches (G = 8 groups of M = 256 rays, K = 16) and on a cut-plane
      case, bit for bit; A2 and plain times, A2's device and host time as
@@ -236,6 +246,13 @@ B2_REPLACES = "panopticnerf_tpu/ops/pallas_mlp_train.py:217"
 FIELD_SOURCE = "panopticnerf_tpu_torch/csrc/field_train.cu"
 EVAL_SOURCE = "panopticnerf_tpu_torch/csrc/field_eval.cu"
 EVAL_REPLACES = "none: the JAX package renders the evaluation field with plain XLA ops"
+GRID_SOURCE = "panopticnerf_tpu_torch/csrc/hash_grid.cu"
+GRID_REPLACES = "none: the JAX package has no hash grid (PanopticNeRF-360's hybrid field)"
+GRID_CFG_FILE = os.path.join(REPO, "configs", "torch", "kitti360_grid.yaml")
+GRID_VIEWS = 2            # phase 5 (c): hybrid views through the evaluation entry
+# phase 5 (c): a tenth of benchmark/limits/kitti360-grid-render.json (mean |rgb
+# gap|, relative mean |gap| of depth and of the semantic logits)
+GRID_VIEW_GAP = (1e-5, 5e-6, 3e-4)
 C_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:310"
 C2_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:345"
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
@@ -470,7 +487,7 @@ def field_shapes(dims):
     head block [sem_hidden | sigma | feature], the colour branch, sem_out."""
     w = dims.width
     shapes = trunk_shapes(dims.x_dim, w, dims.layers, dims.skips)
-    shapes += [(w, (dims.sem_hidden if dims.use_sem else 0) + 1 + w),
+    shapes += [(w + dims.grid_dim, (dims.sem_hidden if dims.use_sem else 0) + 1 + w),
                (w + dims.d_dim, dims.color_width), (dims.color_width, 3)]
     return shapes + ([(dims.sem_hidden, dims.num_classes)] if dims.use_sem else [])
 
@@ -520,6 +537,7 @@ def ptxas_summary(log_path):
             k = re.search(r"\d+((?:trunk|field|reduce|wgrad)_[a-z_]+?)(?:ILi(\d+)E|I|E)",
                           m.group(1))
             name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
+            name += ", grid" if k and "Lb1E" in m.group(1) else ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spills {m.group(1)}/{m.group(2)} B"
@@ -704,9 +722,9 @@ def eval_field_phase(cfg, ds, model):
 
     calls, real = [], EvalKernel.__call__
 
-    def capture(kernel, pts, dirs, samples):  # the points and the packed field E is given
+    def capture(kernel, pts, dirs, samples, grid=None):  # the points and packed field E gets
         calls.append((pts, dirs, samples, kernel.pk, kernel.dims))
-        return real(kernel, pts, dirs, samples)
+        return real(kernel, pts, dirs, samples, grid)
 
     EvalKernel.__call__ = capture
     try:
@@ -755,6 +773,193 @@ def eval_field_phase(cfg, ds, model):
         result[level] = {"err": err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
                          "bound": bnd}
     return result
+
+
+def grid_points(rays, samples, dev, seed):
+    """Sample points as a render makes them: `samples` sorted depths on each
+    of `rays` rays from origins near the scene's centre, scene-normalised
+    (some outside the unit cube, which take its border cells)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    o = (torch.rand(rays, 1, 3, device=dev, generator=g) * 2 - 1) * 0.3
+    d = torch.nn.functional.normalize(torch.randn(rays, 1, 3, device=dev, generator=g), dim=-1)
+    t = torch.rand(rays, samples, 1, device=dev, generator=g).sort(dim=1).values * 1.5
+    return (o + d * t).reshape(-1, 3).contiguous(), d[:, 0].contiguous()
+
+
+def grid_phase(dev):
+    """5 (c): kernel G and E with the grid's features, on the hybrid fields of
+    configs/torch/kitti360_grid.yaml (8x256 fine, 4x64 coarse, each with 16 levels
+    of 2 features, tables of 2^19 rows; seeded, tables uniform in +-1) at a
+    fine tile of the shipped tile (4096 rays x 128 samples), and at the
+    benchmark's tile (33,088 rays) for both levels: G bit for bit against
+    the plain encoding; E with features against its plain version (share /
+    relative error within EVAL_SHARE / EVAL_REL); the times of G, of its
+    plain encoding, of E with features, of E without (the same field
+    without the grid's columns) and of the plain hybrid model; G's device
+    time; G's bound (its own I/O, 12 bytes in and 64 out a point, at HBM's
+    rate, against ~60 f32 operations a point and level at the f32 peak) and
+    E's. -> {"G": ..., "E": ...} at the benchmark's fine tile."""
+    import dataclasses
+
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.models.nerf import NeRFMLP, coarse_field_cfg
+    from panopticnerf_tpu_torch.ops.field_eval import eval_dims, field_eval_plain, pack_eval
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
+    from panopticnerf_tpu_torch.ops.hash_grid import GRID, hash_grid_encode
+    from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
+    from panopticnerf_tpu_torch.utils.profiling import calls
+
+    fine_cfg = load_config(GRID_CFG_FILE).model
+    out = {}
+    for level, rays, s in (("fine", 4096, 128), ("fine", 33088, 128), ("coarse", 33088, 64)):
+        cfg = fine_cfg if level == "fine" else coarse_field_cfg(fine_cfg, True)
+        torch.manual_seed(0)
+        net = NeRFMLP(cfg).to(dev)
+        gen = torch.Generator(dev).manual_seed(0)
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                if ".table_" in name:
+                    p.copy_(torch.rand(p.shape, device=dev, generator=gen) * 2 - 1)
+                else:
+                    p.add_(torch.randn(p.shape, device=dev, generator=gen) * 0.05)
+        dims = eval_dims(cfg)
+        check(dims is not None and dims.grid_dim == 32, f"E does not take the hybrid field: {dims}")
+        pk = pack_eval(net, dims, torch.bfloat16)
+        tables = [t.detach() for t in net.grid.tables()]
+        gk, ek = GridKernel(tables, dev), EvalKernel(pk, dims, dev)
+        ek_nogrid = EvalKernel(pk._replace(hw=pk.hw[:dims.width].contiguous()),
+                               dataclasses.replace(dims, grid_dim=0), dev)
+        pts, dirs = grid_points(rays, s, dev, rays + s)
+        n = pts.shape[0]
+        before = calls("kernels.launch.G")
+        g = gk(pts)
+        check(calls("kernels.launch.G") == before + 1, "G's launch not counted")
+        ref_g = hash_grid_encode(pts, tables).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        exact = torch.equal(g.view(torch.int16), ref_g.view(torch.int16))
+        check(exact, "G differs from its plain encoding")
+        del ref_g
+        got = ek(pts, dirs, s, g)
+        matmul = torch.backends.cuda.matmul
+        reduced, matmul.allow_bf16_reduced_precision_reduction = (
+            matmul.allow_bf16_reduced_precision_reduction, False)
+        ref = field_eval_plain(pts, dirs, s, pk, dims, g)
+        torch.cuda.synchronize()
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        shares = {k: float((a != b).float().mean()) for k, a, b in zip(("sigma", "rgb", "sem"),
+                                                                       got, ref)}
+        rels = {k: rel_err(a, b) for k, a, b in zip(("sigma", "rgb", "sem"), got, ref)}
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        del ref
+        check(all(v <= EVAL_SHARE for v in shares.values())
+              and all(v <= EVAL_REL for v in rels.values()),
+              f"E with the grid's features off its plain version: {shares} {rels}")
+        g_ms = [time_ms(lambda: gk(pts)) for _ in range(2)]
+        g_dev = device_ms(lambda: gk(pts), "hash_grid_kernel")
+        g_plain = time_ms(lambda: hash_grid_encode(pts, tables).to(torch.bfloat16), reps=3)
+        e_ms = [time_ms(lambda: ek(pts, dirs, s, g)) for _ in range(2)]
+        e0_ms = [time_ms(lambda: ek_nogrid(pts, dirs, s)) for _ in range(2)]
+        with torch.no_grad():
+            m_plain = time_ms(lambda: net(pts.view(-1, s, 3), dirs[:, None, :]), reps=3)
+        g_bound = bound(n * (GRID.levels * 60 + 9), n * (12 + 2 * GRID.dim), PEAK_F32)
+        e_bound = bound(2.0 * n * sum(i * o for i, o in field_shapes(dims)),
+                        nbytes(pts, dirs, g, got, *[t for t in pk if t is not None]))
+        print(f"grid (c), {level} {cfg.trunk_depth}x{cfg.trunk_width}, {rays} rays x {s}: G bit "
+              f"for bit against its plain encoding: {exact}; G {g_ms[0]:.4f} / {g_ms[1]:.4f} ms "
+              f"(device {g_dev:.4f}), plain encoding {g_plain:.4f} ms, bound {g_bound[0]:.4f} ms "
+              f"({g_bound[1]}); E with features {e_ms[0]:.4f} / {e_ms[1]:.4f} ms, E without "
+              f"{e0_ms[0]:.4f} / {e0_ms[1]:.4f} ms, plain hybrid model {m_plain:.4f} ms, E's "
+              f"bound {e_bound[0]:.4f} ms ({e_bound[1]}); E against its plain version: share of "
+              "values that differ " + ", ".join(f"{k} {v:.2e}" for k, v in shares.items())
+              + "; relative Frobenius error " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+              + f"; max |d| {err:.3e}")
+        if (level, rays) == ("fine", 33088):
+            out = {"G": {"err": 0.0, "ms": min(g_ms), "plain_ms": g_plain, "bound": g_bound},
+                   "E": {"err": err, "ms": min(e_ms), "plain_ms": m_plain, "bound": e_bound}}
+        del net, pk, gk, ek, ek_nogrid, g, got, pts, dirs
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["launches"] = grid_view_check(dev, tmp)
+    return out
+
+
+def grid_view_check(dev, tmp):
+    """5 (c), the main path: GRID_VIEWS 188x704 views of a two-frame KITTI-360
+    demo tree through `intersect_and_render` with the model of
+    configs/torch/kitti360_grid.yaml (seeded lecun weights, biases drawn in
+    N(0, 0.05), tables uniform in +-1, where the grid moves every map), the
+    program's counters cleared just before; the same views with
+    `renderer.eval_field` giving back the plain hybrid model. Checks G and E
+    each launched 2 x tiles a view, `render.grid.points` and
+    `render.field.points_fused` equal to `render.field.points`, and each
+    view's gaps within GRID_VIEW_GAP. -> {"G": launches, "E": launches}."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.models import init_params, make_network
+    from panopticnerf_tpu_torch.render import renderer
+    from panopticnerf_tpu_torch.utils import profiling
+
+    root = f"{tmp}/tree"
+    write_demo_tree(root, n_frames=2, hw=KITTI_HW, n_boxes=8, seed=1, n_concave=2, device=dev)
+    cfg = load_config(GRID_CFG_FILE, ["data.root", root, "data.frame_start", "0",
+                                      "data.frame_num", "2"])
+    ds, _, _ = make_dataset(cfg, dev)
+    model = make_network(cfg, dev).eval()
+    init_params(model, torch.Generator(dev).manual_seed(11))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            gen = torch.Generator(dev).manual_seed(len(name))
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.05, generator=gen)
+            elif ".table_" in name:
+                p.uniform_(-1.0, 1.0, generator=gen)
+    bounds = renderer.SceneBounds(ds.bounds_center, ds.bounds_scale)
+    views = list(range(GRID_VIEWS))
+
+    def render():
+        with torch.no_grad():
+            return [renderer.intersect_and_render(cfg, model, *view_rays(ds, v),
+                                                  view_primitives(ds, v), bounds) for v in views]
+
+    torch.cuda.synchronize()
+    profiling.reset()
+    outs = render()
+    torch.cuda.synchronize()
+    launches = {k: profiling.calls(f"kernels.launch.{k}") for k in ("G", "E")}
+    points = {k: profiling.calls(f"render.{k}")
+              for k in ("field.points", "field.points_fused", "grid.points")}
+    keep = renderer.eval_field
+    renderer.eval_field = lambda m, c, d: m
+    try:
+        refs = render()
+    finally:
+        renderer.eval_field = keep
+    torch.cuda.synchronize()
+    rel = lambda a, b: float((a - b).abs().mean() / b.abs().mean().clamp(min=1e-30))
+    gaps = [(float((o.rgb - r.rgb).abs().mean()), rel(o.depth, r.depth),
+             rel(o.sem_logits, r.sem_logits)) for o, r in zip(outs, refs)]
+    rays = ds.images.shape[1] * ds.images.shape[2]
+    tiles = -(-rays // cfg.render.ray_tile)
+    print(f"grid (c), main path: {len(views)} views of {ds.images.shape[1]}x"
+          f"{ds.images.shape[2]} ({rays} rays, {tiles} tiles of {cfg.render.ray_tile}) through "
+          f"intersect_and_render, counters cleared before: launches G {launches['G']}, E "
+          f"{launches['E']} (2 x tiles x views = {2 * tiles * len(views)}); points "
+          + ", ".join(f"{k} {v}" for k, v in points.items())
+          + "; gaps against the plain hybrid model (mean |rgb|, relative depth, relative "
+          "logits) " + "; ".join(", ".join(f"{x:.3e}" for x in g) for g in gaps)
+          + f" (ceilings {GRID_VIEW_GAP})")
+    check(launches["G"] == launches["E"] == 2 * tiles * len(views),
+          f"hybrid views: launches {launches}, expected {2 * tiles * len(views)} each")
+    check(points["field.points"] > 0
+          and points["field.points"] == points["field.points_fused"] == points["grid.points"],
+          f"hybrid views: points {points}")
+    check(all(x <= c for g in gaps for x, c in zip(g, GRID_VIEW_GAP))
+          and all(bool(torch.isfinite(o.rgb).all() and torch.isfinite(o.sem_logits).all())
+                  for o in outs), f"hybrid views off the plain model: {gaps}")
+    del model, ds, outs, refs
+    torch.cuda.empty_cache()
+    return launches
 
 
 def field_phase(cfg, enc, model, dev):
@@ -2481,6 +2686,7 @@ def main():
         _nvcc,
         field_eval_cuda,
         field_train_cuda,
+        hash_grid_cuda,
         intersect_cuda,
         mlp_train_cuda,
     )
@@ -2497,7 +2703,7 @@ def main():
 
     # 2. build: one nvcc per source, run together
     libs = {name: _nvcc.library_path(name)
-            for name in ("intersect", "mlp_train", "field_train", "field_eval")}
+            for name in ("intersect", "mlp_train", "field_train", "field_eval", "hash_grid")}
     existed = {name: os.path.exists(path) for name, path in libs.items()}
     t0 = time.perf_counter()
     _nvcc.build_all(libs)
@@ -2510,6 +2716,7 @@ def main():
     mlp_train_cuda.load()
     field_train_cuda.load()
     field_eval_cuda.load()
+    hash_grid_cuda.load()
     for name in ("mlp_train", "field_train", "field_eval"):
         for line in ptxas_summary(libs[name][:-3] + ".log"):
             print(f"  ptxas {name}: {line}")
@@ -2595,6 +2802,7 @@ def main():
     check(tuple(out.rgb.shape) == (h * w, 3) and bool(torch.isfinite(out.rgb).all())
           and bool(torch.isfinite(out.sem_logits).all()), "non-finite or misshaped render")
     ev_field = eval_field_phase(cfg, ds, model)
+    ev_grid = grid_phase(dev)
 
     # 6-10. the training slice
     from panopticnerf_tpu_torch.data import make_dataset
@@ -2672,6 +2880,12 @@ def main():
               ft_["bwd"], ft_["bwd_plain"], ft_["bwd_bound"]),
         entry("field_eval", EVAL_SOURCE, EVAL_REPLACES, e_launches, ev_field["fine"]["err"],
               ev_field["fine"]["ms"], ev_field["fine"]["plain_ms"], ev_field["fine"]["bound"]),
+        entry("field_eval_grid", EVAL_SOURCE, EVAL_REPLACES, ev_grid["launches"]["E"],
+              ev_grid["E"]["err"], ev_grid["E"]["ms"], ev_grid["E"]["plain_ms"],
+              ev_grid["E"]["bound"]),
+        entry("hash_grid_encode", GRID_SOURCE, GRID_REPLACES, ev_grid["launches"]["G"],
+              ev_grid["G"]["err"], ev_grid["G"]["ms"], ev_grid["G"]["plain_ms"],
+              ev_grid["G"]["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@
 The same schema as `panopticnerf_tpu/config/config.py` (field for field,
 default for default — `tests/test_torch_package.py` pins it), so both
 packages read the same `configs/*.yaml` and take the same flat `KEY VALUE`
-overrides. It is a copy rather than an import because this package imports
+overrides; the port adds one key, `model.hash_grid` (`PORT_ONLY`), which
+the JAX package does not have, so a config that sets it
+(`configs/torch/kitti360_grid.yaml`) runs on the port alone. It is a copy
+rather than an import because this package imports
 nothing of the JAX package. The field comments live in the reference
 schema; the ones here say only what the port does with a field.
 """
@@ -72,6 +75,11 @@ class ModelConfig:
     pallas_mode: str = "trunk"
     coarse_trunk_depth: int = 0
     coarse_trunk_width: int = 0
+    # Port-only (the JAX package has no grid): PanopticNeRF-360's hybrid
+    # field, Instant-NGP's multi-resolution hash grid (ops/hash_grid.py, its
+    # sizes fixed there) whose features join the trunk's output at the heads'
+    # input.
+    hash_grid: bool = False
 
 
 @dataclass
@@ -194,6 +202,10 @@ class Config:
         return os.path.join(self.result_dir, self.task, self.exp_name)
 
 
+# The port's keys that the reference schema lacks, by section.
+PORT_ONLY = {"model": ("hash_grid",)}
+
+
 # Reference-style flat CLI keys -> dotted paths (the same table as the
 # reference schema's).
 _ALIASES = {
@@ -304,3 +316,10 @@ def make_cfg(args: Any) -> Config:
 
 def to_dict(cfg: Any) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def without_port_only(d: dict) -> dict:
+    """`to_dict` of a Config without the port's own keys (`PORT_ONLY`): the
+    reference schema's `to_dict` of the same settings."""
+    return {k: {n: x for n, x in v.items() if n not in PORT_ONLY.get(k, ())}
+            if isinstance(v, dict) else v for k, v in d.items()}

@@ -3,7 +3,9 @@
 The tree is the flax `PanopticNeRF` params — nested dicts, or the flat
 `{"coarse/trunk_0/kernel": array}` form that tools/export_torch_params.py
 writes to `.npz`. Flax `Dense.kernel` is (in, out); `nn.Linear.weight` is
-(out, in). Module names are the same in both packages.
+(out, in). Module names are the same in both packages. A hash grid's table
+(`coarse.grid.table_0`, port-only) is kept as it is, (rows, F), under its
+own leaf name.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ def params_from_flax(np_tree) -> dict:
         arr = np.array(value, np.float32)  # a writable copy
         if leaf == "kernel":
             state[".".join(path + ["weight"])] = torch.from_numpy(np.ascontiguousarray(arr.T))
-        elif leaf == "bias":
-            state[".".join(path + ["bias"])] = torch.from_numpy(arr)
+        elif leaf == "bias" or leaf.startswith("table_"):
+            state[".".join(path + [leaf])] = torch.from_numpy(arr)
         else:
             raise KeyError(f"unexpected flax leaf {key!r}")
     return state
@@ -61,8 +63,8 @@ def params_to_flax(state_dict) -> dict:
         arr = value.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
             flat["/".join(path + ["kernel"])] = np.ascontiguousarray(arr.T)
-        elif leaf == "bias":
-            flat["/".join(path + ["bias"])] = arr.copy()
+        elif leaf == "bias" or leaf.startswith("table_"):
+            flat["/".join(path + [leaf])] = arr.copy()
         else:
             raise KeyError(f"unexpected state_dict entry {key!r}")
     return flat

@@ -24,6 +24,14 @@
 // weights of ops/field_train.py (kernel C's layout), the biases rounded to
 // bf16 and held as f32. Outputs: sigma (P), rgb (P, 3), sem (P, classes), f32.
 //
+// A hybrid field (PanopticNeRF-360: a hash grid beside the MLP) adds g
+// (P, 32) bf16, the grid's features that kernel G (hash_grid.cu) wrote, and
+// its sigma, sem_hidden and feature heads read [h | g]: their packed block
+// has W + 32 rows, and each of their products one more K chunk, the x box,
+// into which the consumers load g (columns 0-31, zeros after) before each of
+// the two products (s, then d_enc, take the box in between). The kGrid
+// instantiations; a field without a grid runs the others, unchanged.
+//
 // What bounds it: the products, ~1.26 MFLOP per point for the 8x256 field
 // (2 x in x out per Dense layer, heads included; 1.29 on the packed shapes),
 // against 104 bytes of its own I/O per point (pts 12, outputs 92): ~12,000
@@ -65,6 +73,7 @@ struct EvalParams {
   unsigned skip_mask;
   int x_freqs, d_freqs;  // bands of each encoding; d_freqs < 0: no view directions
   int classes, cwp, cp, use_sem, tiles;
+  const bf16* grid;  // (n, 32): the hash grid's features (kGrid only)
 };
 
 // flax Dense's two roundings: the f32 product to bf16, then + the bf16 bias,
@@ -178,6 +187,30 @@ __device__ __forceinline__ void encode_d(const EvalParams& p, uint32_t box, int 
   fence_proxy_async();  // for the products (async proxy) that read them
 }
 
+// g of this warpgroup's 64 points into their rows of the x box (at `box`):
+// columns 0-31, then zeros (rows past n: zeros). Thread t takes row t % 64
+// and half t / 64 of its 64-byte row of g: two 16-byte chunks.
+__device__ __forceinline__ void load_grid(const EvalParams& p, uint32_t box, int cw, int row0) {
+  const int t = threadIdx.x & 127, r = t & 63, half = t >> 6;
+  const int pt = row0 + r;
+  const uint32_t row = box + sw128_row(cw * 64 + r);
+  const uint32_t z[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {  // chunk 2 half + q: columns [16 half + 8 q, + 8)
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (pt < p.n) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p.grid + (size_t)pt * 32) + 2 * half + q);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    }
+    st_shared_v4(row ^ ((2 * half + q) << 4), w);
+    st_shared_v4(row ^ ((4 + 2 * half + q) << 4), z);
+  }
+  fence_proxy_async();  // for the products (async proxy) that read them
+}
+
 // The epilogue of one product into a tile at `buf`: this warpgroup's rows of
 // flax_dense(acc, bias), ReLU if kRelu, bf16, into columns [0, 16 jps) by
 // stmatrix; then the writes fenced for the async proxy and the warpgroup
@@ -271,12 +304,15 @@ __device__ __forceinline__ void colour_eval(float (&acc)[R], uint32_t sm, uint32
 //   sem = s @ W_so: out;
 //   d_enc into the x box; feature = h @ W_head[:, SA:] over h (no ReLU);
 //   r = [feature | d_enc] @ W_ch into the x box; rgb = sigmoid(r @ W_co): out.
-template <int W>
+// kGrid: g into the x box before [sem_hidden | sigma] and before feature,
+// each reading [h | g] (KB + 1 chunks); d_enc after the feature product.
+template <int W, bool kGrid>
 __global__ void __launch_bounds__(kWsThreads, 1)
     field_eval_kernel(const __grid_constant__ EvalParams p) {
   using D = EvalDims<W>;
   using S = FwdSmem<W, true>;
   constexpr int SH = D::SH, SA = D::SA, KB = W / 64;
+  constexpr int KH = kGrid ? KB + 1 : KB;  // K chunks of the heads' input
   constexpr int NS = (SA + 63) / 64 * 64;  // [sem_hidden | sigma] product: whole boxes
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sm = fwd_setup<S>(smem_raw);
@@ -289,10 +325,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       const int nsem = p.cp > 64 ? 2 : 1, nch = p.cwp > 64 ? 2 : 1;  // N = 128, else 64
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
         push_trunk<S, W>(sm, it, &p.wp, p.layers, p.skip_mask);
-        for (int kc = 0; kc < KB; ++kc) push<S>(sm, it, &p.hw, 0, 64 * kc, 0, NS / 64);
+        for (int kc = 0; kc < KH; ++kc) push<S>(sm, it, &p.hw, 0, 64 * kc, 0, NS / 64);
         if (p.use_sem)
           for (int kc = 0; kc < (SH + 63) / 64; ++kc) push<S>(sm, it, &p.wso, 0, 64 * kc, 0, nsem);
-        for (int kc = 0; kc < KB; ++kc) push<S>(sm, it, &p.hw, SA, 64 * kc, 0, KB);
+        for (int kc = 0; kc < KH; ++kc) push<S>(sm, it, &p.hw, SA, 64 * kc, 0, KB);
         for (int kc = 0; kc <= KB; ++kc) push<S>(sm, it, &p.wch, 0, 64 * kc, 0, nch);
         for (int kc = 0; kc < (p.cwp + 63) / 64; ++kc) push<S>(sm, it, &p.wco, 0, 64 * kc, 0, 1);
       }
@@ -323,15 +359,21 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       named_bar(1 + cw, 128);  // every warp's product has read h
       eval_epilogue<true>(h, p.bp + (size_t)l * W, sm, cw, W / 16);
     }
+    if constexpr (kGrid) {  // g into the x box (the trunk has read x_enc)
+      load_grid(p, xbox, cw, row0);
+      named_bar(1 + cw, 128);
+      zero(acc);  // the trunk's last h is dead over load_grid
+    }
     {  // [sem_hidden | sigma]: sigma out, s = relu(flax(...)) into the x box
       auto& ho = prefix<NS / 2>(acc);
-      fwd_product<S>(ho, sm, it, sm + cw * 64 * 128, 0, KB);
+      fwd_product<S>(ho, sm, it, sm + cw * 64 * 128, 0, KH);
       if ((t & 3) == 0)  // column SH: ho[4 (SH / 8) + 2 h] of the lanes with t % 4 = 0
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int pt = eval_point(row0, h);
           if (pt < p.n) p.sigma[pt] = flax_dense(ho[4 * (SH / 8) + 2 * h], p.hb[SH]);
         }
+      if constexpr (kGrid) named_bar(1 + cw, 128);  // every warp's product has read g
       if (p.use_sem) eval_epilogue<true>(ho, p.hb, xbox, cw, SH / 16);
     }
     if (p.use_sem) {  // sem = flax(s W_so, b_so)
@@ -346,12 +388,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
     named_bar(1 + cw, 128);  // every warp's product has read s
-    encode_d(p, xbox, cw, row0);  // published by the feature epilogue's barrier
-    zero(acc);
-    {  // feature = flax(h W_head[:, SA:], b), no ReLU, over h
-      auto& feat = prefix<W / 2>(acc);
-      fwd_product<S>(feat, sm, it, sm + cw * 64 * 128, 0, KB);
+    if constexpr (kGrid) {
+      load_grid(p, xbox, cw, row0);
       named_bar(1 + cw, 128);
+    } else {
+      encode_d(p, xbox, cw, row0);  // published by the feature epilogue's barrier
+    }
+    zero(acc);
+    {  // feature = flax([h | g] W_head[:, SA:], b), no ReLU, over h
+      auto& feat = prefix<W / 2>(acc);
+      fwd_product<S>(feat, sm, it, sm + cw * 64 * 128, 0, KH);
+      named_bar(1 + cw, 128);
+      if constexpr (kGrid) encode_d(p, xbox, cw, row0);  // g is read; published as above
       eval_epilogue<false>(feat, p.hb + SA, sm, cw, W / 16);
     }
     if (p.cwp > 64)
@@ -391,14 +439,14 @@ __global__ void __launch_bounds__(128)
 }
 
 // The weights' TMA maps into p, its tile count, and the launch.
-template <int W>
+template <int W, bool kGrid>
 int eval_fwd(EvalParams& p, const void* wp, const void* hw, const void* wso, const void* wch,
              const void* wco, cudaStream_t s) {
   using D = EvalDims<W>;
   using S = FwdSmem<W, true>;
   int err;
   if ((err = make_tma_map(&p.wp, wp, W, W + kFPad, p.layers)) ||
-      (err = make_tma_map(&p.hw, hw, D::SA + W, W, 1)) ||
+      (err = make_tma_map(&p.hw, hw, D::SA + W, W + (kGrid ? 32 : 0), 1)) ||
       (err = make_tma_map(&p.wch, wch, p.cwp, W + 32, 1)) ||
       (err = make_tma_map(&p.wco, wco, 32, p.cwp, 1)) ||
       (p.use_sem && (err = make_tma_map(&p.wso, wso, p.cp, D::SH, 1))))
@@ -406,9 +454,9 @@ int eval_fwd(EvalParams& p, const void* wp, const void* hw, const void* wso, con
   p.tiles = (p.n + kBM - 1) / kBM;
   const int sms = sm_count(), grid = sms > 0 && sms < p.tiles ? sms : p.tiles;
   static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t e = allow_smem((const void*)field_eval_kernel<W>, S::kBytes, smem_set);
+  const cudaError_t e = allow_smem((const void*)field_eval_kernel<W, kGrid>, S::kBytes, smem_set);
   if (e != cudaSuccess) return (int)e;
-  field_eval_kernel<W><<<grid, kWsThreads, S::kBytes, s>>>(p);
+  field_eval_kernel<W, kGrid><<<grid, kWsThreads, S::kBytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -418,7 +466,8 @@ int eval_fwd(EvalParams& p, const void* wp, const void* hw, const void* wso, con
 // (ops/field_eval_cuda.py) checks dtypes, shapes and contiguity, allocates
 // the outputs, and requires W in {64, 128, 256}, sem_hidden = W / 2, CP and
 // CWP multiples of 32 up to 128, 1 <= L <= 32, x_freqs <= 10, d_freqs <= 4
-// (or -1: no view directions), n = rays x samples >= 1. Returns 0 when the
+// (or -1: no view directions), n = rays x samples >= 1; `grid` null, or g
+// (n, 32) bf16 with hw (W + 32, HO). Returns 0 when the
 // launch was accepted, else the CUDA error code (kTmaEncodeFailed when a TMA
 // descriptor cannot be encoded); nothing synchronises.
 extern "C" int field_eval_launch(const void* pts, const void* dirs, const void* wp, const void* bp,
@@ -427,7 +476,7 @@ extern "C" int field_eval_launch(const void* pts, const void* dirs, const void* 
                                  const void* bco, void* sigma, void* rgb, void* sem, int n,
                                  int samples, int width, int layers, unsigned skip_mask,
                                  int x_freqs, int d_freqs, int classes, int cwp, int cp,
-                                 int use_sem, void* stream) {
+                                 int use_sem, const void* grid, void* stream) {
   const auto cf = [](const void* q) { return static_cast<const float*>(q); };
   EvalParams p{};
   p.pts = cf(pts);
@@ -450,11 +499,18 @@ extern "C" int field_eval_launch(const void* pts, const void* dirs, const void* 
   p.cwp = cwp;
   p.cp = cp;
   p.use_sem = use_sem;
+  p.grid = static_cast<const bf16*>(grid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (grid) switch (width) {
+      case 64: return eval_fwd<64, true>(p, wp, hw, wso, wch, wco, s);
+      case 128: return eval_fwd<128, true>(p, wp, hw, wso, wch, wco, s);
+      case 256: return eval_fwd<256, true>(p, wp, hw, wso, wch, wco, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   switch (width) {
-    case 64: return eval_fwd<64>(p, wp, hw, wso, wch, wco, s);
-    case 128: return eval_fwd<128>(p, wp, hw, wso, wch, wco, s);
-    case 256: return eval_fwd<256>(p, wp, hw, wso, wch, wco, s);
+    case 64: return eval_fwd<64, false>(p, wp, hw, wso, wch, wco, s);
+    case 128: return eval_fwd<128, false>(p, wp, hw, wso, wch, wco, s);
+    case 256: return eval_fwd<256, false>(p, wp, hw, wso, wch, wco, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,7 @@ import math
 
 import torch
 
-from panopticnerf_tpu_torch.models.nerf import NeRFMLP, PanopticNeRF, coarse_field_cfg
+from panopticnerf_tpu_torch.models.nerf import HashGrid, NeRFMLP, PanopticNeRF, coarse_field_cfg
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal") draws
 # from a normal truncated at +-2 and divides by that distribution's stddev.
@@ -19,7 +19,8 @@ def make_network(cfg, device: torch.device | str) -> PanopticNeRF:
 @torch.no_grad()
 def init_params(model: PanopticNeRF, generator: torch.Generator) -> PanopticNeRF:
     """Draw every weight as flax `Dense` does by default (lecun normal:
-    truncated normal, variance 1 / fan_in) and zero every bias, in place.
+    truncated normal, variance 1 / fan_in) and zero every bias, in place;
+    a hash grid's tables uniform in +-1e-4, as Instant-NGP draws them.
     `generator` lives on the model's device."""
     for module in model.modules():
         if isinstance(module, torch.nn.Linear):
@@ -27,7 +28,10 @@ def init_params(model: PanopticNeRF, generator: torch.Generator) -> PanopticNeRF
             torch.nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                         generator=generator)
             module.bias.zero_()
+        elif isinstance(module, HashGrid):
+            for table in module.tables():
+                table.uniform_(-1e-4, 1e-4, generator=generator)
     return model
 
 
-__all__ = ["NeRFMLP", "PanopticNeRF", "coarse_field_cfg", "init_params", "make_network"]
+__all__ = ["HashGrid", "NeRFMLP", "PanopticNeRF", "coarse_field_cfg", "init_params", "make_network"]

@@ -10,6 +10,11 @@ own. Each level E does not take runs the plain model. The packed weights
 of a field, and E bound to them, are kept while its parameters stay as
 they were (`leaves_key`): a view's tiles pack and check
 each field once.
+
+A hybrid field (a hash grid beside the MLP, model.hash_grid) runs
+kernel G on its tables first, per tile and level (span
+`render.grid.<level>` inside the renderer's `render.field.<level>`; counter
+`render.grid.points`, the points G encodes), and E reads G's features.
 """
 
 from __future__ import annotations
@@ -20,10 +25,10 @@ import torch
 
 from panopticnerf_tpu_torch.config import ModelConfig
 from panopticnerf_tpu_torch.models.nerf import PanopticNeRF, coarse_field_cfg
-from panopticnerf_tpu_torch.ops.field_eval import eval_dims, evaluator, pack_eval
-from panopticnerf_tpu_torch.utils.profiling import count
+from panopticnerf_tpu_torch.ops.field_eval import eval_dims, evaluator, grid_evaluator, pack_eval
+from panopticnerf_tpu_torch.utils.profiling import count, span
 
-# net -> (leaves_key, device, evaluator): the packed field last evaluated
+# net -> (leaves_key, device, (evaluator, grid evaluator | None)): the packed field last evaluated
 _packed: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -39,15 +44,18 @@ def _evaluator(net: torch.nn.Module, dims, device: torch.device):
     hit = _packed.get(net)
     if hit is None or hit[0] != key or hit[1] != device:
         pk = pack_eval(net, dims, torch.bfloat16)
-        hit = _packed[net] = (key, device, evaluator(pk, dims, device))
+        grid = grid_evaluator(net.grid.tables(), device) if dims.grid_dim else None
+        hit = _packed[net] = (key, device, (evaluator(pk, dims, device), grid))
     return hit[2]
 
 
 class EvalField:
     """Drop-in for `PanopticNeRF` in `render_rays` (called as
     `field(pts, viewdirs, level=...)`, pts (N, S, 3), viewdirs (N, 1, 3)):
-    kernel E at the levels in `dims`, the model at the others. Counts the
-    points E evaluates (`render.field.points_fused`). Lives for one
+    kernel E at the levels in `dims` (after kernel G where the field has a
+    hash grid), the model at the others. Counts the points E evaluates
+    (`render.field.points_fused`) and those G encodes
+    (`render.grid.points`). Lives for one
     evaluation render, whose weights do not change: each level's packing
     is looked up once."""
 
@@ -70,8 +78,14 @@ class EvalField:
         run = self._run.get(lv)
         if run is None:
             run = self._run[lv] = _evaluator(net, dims, pts.device)
-        sigma, rgb, sem = run(pts.reshape(n * s, 3).contiguous(),
-                              viewdirs.reshape(n, 3).contiguous(), s)
+        field, grid_fn = run
+        flat = pts.reshape(n * s, 3).contiguous()
+        grid = None
+        if grid_fn is not None:
+            with span(f"render.grid.{('coarse', 'fine')[lv]}"):
+                count("render.grid.points", n * s)
+                grid = grid_fn(flat)
+        sigma, rgb, sem = field(flat, viewdirs.reshape(n, 3).contiguous(), s, grid)
         return (sigma.reshape(n, s), rgb.reshape(n, s, 3),
                 None if sem is None else sem.reshape(n, s, -1))
 

@@ -17,6 +17,11 @@ The heads of mode "trunk":
   rounded in that order, then the sigmoid in float32.
 A small proposal coarse field (model.coarse_trunk_depth/width) runs its
 trunk as the plain flax chain and the trunk-mode heads in every mode.
+A hybrid field (model.hash_grid, port-only) runs in mode "trunk"
+alone: the trunk through B / B', the grid as its plain differentiable
+encoding (`ops/hash_grid.py`), and the heads as above on [h, g]; modes
+"field" and "hybrid" (kernels C / C', which have no grid input) raise
+ValueError.
 The JAX package sends any mode string other than "trunk" and "hybrid" to
 the field path; the port takes exactly the three names and raises
 ValueError for any other.
@@ -42,12 +47,20 @@ from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
 MODES = ("trunk", "hybrid", "field")
 
 
+def _check_mode(cfg: ModelConfig, mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"model.pallas_mode {mode!r} is not one of {MODES}")
+    if mode != "trunk" and cfg.hash_grid:
+        raise ValueError(f"model.pallas_mode {mode!r} has no hash grid input (kernels C / C'); "
+                         "a field with model.hash_grid trains in mode 'trunk' or with "
+                         "model.use_pallas false")
+
+
 def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
                       viewdirs: Optional[torch.Tensor], level: int = 0,
                       mode: str = "trunk"):
     """Same contract as `PanopticNeRF.forward` (scene-normalised pts)."""
-    if mode not in MODES:
-        raise ValueError(f"model.pallas_mode {mode!r} is not one of {MODES}")
+    _check_mode(cfg, mode)
     net = model.fine if (level == 1 and model.has_fine) else model.coarse
     eff = coarse_field_cfg(cfg, model.has_fine) if level == 0 else cfg
     small_coarse = eff is not cfg
@@ -84,6 +97,8 @@ def fused_field_apply(model: PanopticNeRF, cfg: ModelConfig, pts: torch.Tensor,
         h = fused_trunk_train(x_enc, [layer.weight.t() for layer in layers],
                               [layer.bias for layer in layers], kernel_skips).to(dt)
 
+    if net.grid is not None:
+        h = torch.cat([h, net.grid(pts.reshape(-1, 3)).to(dt)], dim=-1)
     heads = [net.feature] + ([net.sem_hidden] if c.use_semantic else []) + [net.sigma]
     w_cat = torch.cat([m.weight for m in heads]).to(dt)
     b_cat = torch.cat([m.bias for m in heads]).to(dt)
@@ -118,8 +133,7 @@ class FusedTrainAdapter:
     the plain model."""
 
     def __init__(self, model: PanopticNeRF, cfg_model: ModelConfig, mode: str = "trunk"):
-        if mode not in MODES:
-            raise ValueError(f"model.pallas_mode {mode!r} is not one of {MODES}")
+        _check_mode(cfg_model, mode)
         self.model = model
         self.cfg = cfg_model
         self.mode = mode

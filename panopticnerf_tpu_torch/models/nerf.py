@@ -6,6 +6,13 @@ view-independent semantic head; a view-dependent colour branch
 (feature + dir PE -> 128 -> rgb). Coarse and fine fields are separate
 instances.
 
+With model.hash_grid a field is PanopticNeRF-360's hybrid (port-only:
+the JAX package has no grid): its own multi-resolution hash grid
+(`HashGrid`, `ops/hash_grid.py`) encodes the point, and the sigma,
+sem_hidden and feature heads read [h, g], the trunk's output and the
+grid's 32 features cast to the compute dtype; the trunk and the colour
+branch are unchanged.
+
 Precision follows the reference's flax placement exactly: the encodings are
 computed in float32 and cast to the compute dtype; every Dense multiplies
 in the compute dtype with its float32 parameters cast down, rounds the
@@ -23,6 +30,7 @@ from torch import nn
 
 from panopticnerf_tpu_torch.config import ModelConfig
 from panopticnerf_tpu_torch.ops.encoding import positional_encoding, posenc_dim
+from panopticnerf_tpu_torch.ops.hash_grid import GRID, hash_grid_encode
 
 
 def coarse_field_cfg(cfg: ModelConfig, has_fine: bool) -> ModelConfig:
@@ -46,6 +54,23 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return torch.nn.functional.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
+class HashGrid(nn.Module):
+    """One field's hash grid: a float32 table `table_<l>` of (rows_l, F) per
+    level (`GRID.rows`)."""
+
+    def __init__(self):
+        super().__init__()
+        for level, rows in enumerate(GRID.rows):
+            setattr(self, f"table_{level}", nn.Parameter(torch.zeros(rows, GRID.features)))
+
+    def tables(self) -> list:
+        return [getattr(self, f"table_{level}") for level in range(GRID.levels)]
+
+    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+        """pts (..., 3) scene-normalised -> (..., L x F) float32."""
+        return hash_grid_encode(pts, self.tables())
+
+
 class NeRFMLP(nn.Module):
     """One radiance + semantics field (coarse or fine)."""
 
@@ -60,6 +85,7 @@ class NeRFMLP(nn.Module):
         for i in range(cfg.trunk_depth):
             setattr(self, f"trunk_{i}", nn.Linear(in_dim, w))
             in_dim = w + x_dim if i in cfg.skips else w
+        in_dim += GRID.dim if cfg.hash_grid else 0
         self.sigma = nn.Linear(in_dim, 1)
         if cfg.use_semantic:
             self.sem_hidden = nn.Linear(in_dim, w // 2)
@@ -67,6 +93,7 @@ class NeRFMLP(nn.Module):
         self.feature = nn.Linear(in_dim, w)
         self.color_hidden = nn.Linear(w + (d_dim if cfg.use_viewdirs else 0), cfg.color_width)
         self.color_out = nn.Linear(cfg.color_width, 3)
+        self.grid = HashGrid() if cfg.hash_grid else None
 
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor]):
         """pts (..., 3) scene-normalised positions; viewdirs (..., 3) unit,
@@ -80,6 +107,8 @@ class NeRFMLP(nn.Module):
             h = torch.relu(_dense(h, getattr(self, f"trunk_{i}"), dt))
             if i in c.skips:
                 h = torch.cat([h, x_enc], dim=-1)
+        if self.grid is not None:
+            h = torch.cat([h, self.grid(pts).to(dt)], dim=-1)
 
         sigma = _dense(h, self.sigma, dt)[..., 0].float()
         sem_logits = None

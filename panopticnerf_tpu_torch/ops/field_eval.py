@@ -22,7 +22,13 @@ order. Dispatch (`evaluator`): on a CUDA device E (`csrc/field_eval.cu`,
 raises. `eval_dims` says whether E takes a field's shape: W in
 {64, 128, 256}, up to 32 layers, skips before the last layer, the encodings
 within 64 / 32 columns, the colour width and the class count within 128
-(the kernel computes in bf16 only).
+(the kernel computes in bf16 only), with or without the hash grid.
+
+A hybrid field (model.hash_grid) adds the hash grid: kernel G
+(`ops/hash_grid_cuda.py`) writes its features g (P, 32) bf16 per tile and
+level, and E reads [h, g] as the input of its sigma, sem_hidden and feature
+heads (their packed block has W + 32 rows); `grid_evaluator` is G's
+dispatch, as `evaluator` is E's.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from panopticnerf_tpu_torch.config import ModelConfig
 from panopticnerf_tpu_torch.ops.encoding import posenc_dim, positional_encoding
 from panopticnerf_tpu_torch.ops.field_train import D_PAD, FieldDims, FieldPacked, pack_field
 from panopticnerf_tpu_torch.ops.field_train_cuda import HEAD_MAX
+from panopticnerf_tpu_torch.ops.hash_grid import GRID, hash_grid_encode
 from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
 from panopticnerf_tpu_torch.ops.mlp_train_cuda import MAX_LAYERS, WIDTHS
 
@@ -57,7 +64,8 @@ def eval_dims(c: ModelConfig) -> Optional[FieldDims]:
     return FieldDims(x_dim=x_dim, d_dim=d_dim, width=c.trunk_width,
                      sem_hidden=c.trunk_width // 2, color_width=c.color_width,
                      num_classes=c.num_classes, layers=c.trunk_depth,
-                     skips=tuple(sorted({s + 1 for s in c.skips})), use_sem=c.use_semantic)
+                     skips=tuple(sorted({s + 1 for s in c.skips})), use_sem=c.use_semantic,
+                     grid_dim=GRID.dim if c.hash_grid else 0)
 
 
 def freqs(dim: int) -> int:
@@ -79,11 +87,13 @@ def pack_eval(net: torch.nn.Module, dims: FieldDims, dtype: torch.dtype) -> Fiel
 
 
 def field_eval_plain(pts: torch.Tensor, dirs: torch.Tensor, samples: int, pk: FieldPacked,
-                     dims: FieldDims):
+                     dims: FieldDims, grid: Optional[torch.Tensor] = None):
     """Plain version of kernel E: pts (R x S, 3) float32 (point p on ray
-    p // S), dirs (R, 3) float32, the packed weights -> (sigma (P,),
-    rgb (P, 3), sem (P, C) | None), float32. The model's ops in the model's
-    order, each product on the packed slice that holds the model's weight."""
+    p // S), dirs (R, 3) float32, the packed weights, with `dims.grid_dim`
+    the hash grid's features `grid` (P, grid_dim) in the compute dtype ->
+    (sigma (P,), rgb (P, 3), sem (P, C) | None), float32. The model's ops in
+    the model's order, each product on the packed slice that holds the
+    model's weight."""
     dt = pk.wp.dtype
     w, sh, sa, xd = dims.width, dims.sem_hidden, dims.sa, dims.x_dim
 
@@ -100,6 +110,8 @@ def field_eval_plain(pts: torch.Tensor, dirs: torch.Tensor, samples: int, pk: Fi
         else:
             h = dense(h, pk.wp[i, :w], pk.bp[i])
         h = torch.relu(h)
+    if dims.grid_dim:
+        h = torch.cat([h, grid.to(dt)], dim=-1)
     sigma = dense(h, pk.hw[:, sh:sh + 1], pk.hb[sh:sh + 1])[..., 0].float()
     sem = None
     if dims.use_sem:
@@ -118,15 +130,31 @@ def field_eval_plain(pts: torch.Tensor, dirs: torch.Tensor, samples: int, pk: Fi
 
 
 def evaluator(pk: FieldPacked, dims: FieldDims, device):
-    """The packed field as a callable `(pts, dirs, samples)` with the
-    contract of `field_eval_plain`: kernel E bound to the weights on a CUDA
-    device (`ops.field_eval_cuda.EvalKernel`, the weights checked once), the
-    plain version on the CPU; any other device raises."""
+    """The packed field as a callable `(pts, dirs, samples, grid=None)` with
+    the contract of `field_eval_plain`: kernel E bound to the weights on a
+    CUDA device (`ops.field_eval_cuda.EvalKernel`, the weights checked
+    once), the plain version on the CPU; any other device raises."""
     dev = torch.device(device)
     if dev.type == "cuda":
         from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
 
         return EvalKernel(pk, dims, dev)
     if dev.type == "cpu":
-        return lambda pts, dirs, samples: field_eval_plain(pts, dirs, samples, pk, dims)
+        return lambda pts, dirs, samples, grid=None: field_eval_plain(pts, dirs, samples, pk,
+                                                                      dims, grid)
     raise ValueError(f"evaluation field: no implementation for device {dev}")
+
+
+def grid_evaluator(tables, device):
+    """A field's hash grid as a callable `pts (P, 3) float32 -> (P, 32)
+    bf16`: kernel G bound to the tables on a CUDA device
+    (`ops.hash_grid_cuda.GridKernel`), the plain encoding rounded to bf16 on
+    the CPU; any other device raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
+
+        return GridKernel([t.detach() for t in tables], dev)
+    if dev.type == "cpu":
+        return lambda pts: hash_grid_encode(pts, tables).to(torch.bfloat16)
+    raise ValueError(f"hash grid: no implementation for device {dev}")

@@ -8,7 +8,9 @@ the weights' checks and pointers are not paid again on each launch. The
 kernel takes float32 points and directions, bf16 weights with float32
 biases holding bf16 values, W in {64, 128, 256} with sem_hidden = W / 2, a
 colour width and class count up to 128, up to 32 layers, encodings of at
-most 10 (points) and 4 (directions) bands; anything else raises. It
+most 10 (points) and 4 (directions) bands, and for a hybrid field (`dims.grid_dim`
+32) the hash grid's features g (P, 32) bf16 that kernel G wrote, which its
+sigma, sem_hidden and feature heads read after h; anything else raises. It
 launches on PyTorch's current stream and does not synchronise; each launch
 adds one to the counter `kernels.launch.E` (utils/profiling.py).
 `field_eval_encodings_cuda` writes out the encodings as E computes them
@@ -37,7 +39,7 @@ _U = ctypes.c_uint
 def load() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
     lib = _nvcc.load("field_eval")
-    lib.field_eval_launch.argtypes = [_P] * 15 + [_I, _I, _I, _I, _U] + [_I] * 6 + [_P]
+    lib.field_eval_launch.argtypes = [_P] * 15 + [_I, _I, _I, _I, _U] + [_I] * 6 + [_P, _P]
     lib.field_eval_launch.restype = _I
     lib.field_eval_encode_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     lib.field_eval_encode_launch.restype = _I
@@ -46,13 +48,16 @@ def load() -> ctypes.CDLL:
 
 class EvalKernel:
     """Kernel E on one field's packed weights: `(pts (R x S, 3), dirs (R, 3),
-    S)` float32 -> (sigma (P,), rgb (P, 3), sem (P, C) | None), float32.
+    S, grid (P, grid_dim) bf16 | None)` float32 -> (sigma (P,), rgb (P, 3),
+    sem (P, C) | None), float32.
     Holds `pk` (the tensors the kernel reads stay alive with it)."""
 
     def __init__(self, pk: FieldPacked, dims: FieldDims, device: torch.device):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"the evaluation field kernel needs a CUDA device, got {device}")
+        if dims.grid_dim not in (0, 32):
+            raise ValueError(f"kernel E takes 0 or 32 hash grid features, not {dims.grid_dim}")
         if any(d and d != posenc_dim(3, freqs(d)) for d in (dims.x_dim, dims.d_dim)):
             raise ValueError(f"encoding widths {dims.x_dim} / {dims.d_dim} are not 3 (2 F + 1)")
         check_packed(pk, dims, self.device)
@@ -64,13 +69,20 @@ class EvalKernel:
                       freqs(dims.x_dim), freqs(dims.d_dim), dims.num_classes, dims.cwp, dims.cp,
                       int(dims.use_sem))
 
-    def __call__(self, pts: torch.Tensor, dirs: torch.Tensor, samples: int):
+    def __call__(self, pts: torch.Tensor, dirs: torch.Tensor, samples: int,
+                 grid: torch.Tensor | None = None):
         dev, f32 = self.device, torch.float32
         n, rays = pts.shape[0], dirs.shape[0]
         if samples < 1 or n != rays * samples:
             raise ValueError(f"{n} points are not {rays} rays x {samples} samples")
         _check("pts", pts, f32, (n, 3), dev)
         _check("dirs", dirs, f32, (rays, 3), dev)
+        if self.dims.grid_dim:
+            if grid is None:
+                raise ValueError("a hybrid field's E needs the hash grid's features")
+            _check("grid features", grid, torch.bfloat16, (n, self.dims.grid_dim), dev)
+        elif grid is not None:
+            raise ValueError("grid features given to a field without a hash grid")
         sigma = torch.empty((n,), dtype=f32, device=dev)
         rgb = torch.empty((n, 3), dtype=f32, device=dev)
         sem = (torch.empty((n, self.dims.num_classes), dtype=f32, device=dev)
@@ -79,7 +91,7 @@ class EvalKernel:
             with torch.cuda.device(dev):
                 err = self.lib.field_eval_launch(
                     pts.data_ptr(), dirs.data_ptr(), *self.weights, sigma.data_ptr(),
-                    rgb.data_ptr(), _ptr(sem), n, samples, *self.shape, _stream(dev))
+                    rgb.data_ptr(), _ptr(sem), n, samples, *self.shape, _ptr(grid), _stream(dev))
             if err != 0:
                 raise _launch_failed("evaluation field", err)
             count("kernels.launch.E")

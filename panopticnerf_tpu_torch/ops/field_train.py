@@ -33,7 +33,9 @@ left in float32.
 Packed layout (the port's own; the TPU kernel padded every block to 128
 lanes): the trunk as `ops/mlp_train.py` (x_enc padded to F_PAD = 64); d_enc
 padded to D_PAD = 32; head block (W, HO) with columns [sem_hidden (SH) |
-sigma | zeros up to SA = round_up(SH + 1, 32) | feature (W)], HO = SA + W;
+sigma | zeros up to SA = round_up(SH + 1, 32) | feature (W)], HO = SA + W
+(a hybrid field's head block has W + grid_dim rows: those of h, then those
+of the hash grid's features; only kernel E reads it);
 `sem_out` (SH, CP), CP = round_up(classes, 32); colour hidden (W + D_PAD,
 CWP), CWP = round_up(color_width, 32); `color_out` (CWP, CO_PAD = 32).
 Widths are multiples of 32, the CUDA kernels' column granularity (four
@@ -87,6 +89,7 @@ class FieldDims:
     layers: int
     skips: tuple
     use_sem: bool
+    grid_dim: int = 0  # hash grid features the heads read after h (E only; C / C' take none)
 
     def __post_init__(self):
         if self.x_dim > F_PAD or self.d_dim > D_PAD:
@@ -128,7 +131,7 @@ class FieldPacked(NamedTuple):
 
     wp: torch.Tensor    # (L, W + F_PAD, W)
     bp: torch.Tensor    # (L, W)
-    hw: torch.Tensor    # (W, HO)
+    hw: torch.Tensor    # (W + grid_dim, HO)
     hb: torch.Tensor    # (HO,)
     wso: Optional[torch.Tensor]  # (SH, CP)
     bso: Optional[torch.Tensor]  # (CP,)
@@ -165,7 +168,7 @@ def pack_field(params, dims: FieldDims, dtype: torch.dtype) -> FieldPacked:
     layers = [p[f"trunk_{i}"] for i in range(dims.layers)]
     wp, bp = pack_trunk([lw.t() for lw, _ in layers], [lb for _, lb in layers],
                         dims.skips, dtype)
-    hw, hb = z(w, dims.ho), z(dims.ho, dt=torch.float32)
+    hw, hb = z(w + dims.grid_dim, dims.ho), z(dims.ho, dt=torch.float32)
     wso = bso = None
     if dims.use_sem:
         hw[:, :sh] = p["sem_hidden"][0].t()

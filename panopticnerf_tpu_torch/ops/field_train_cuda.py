@@ -125,7 +125,7 @@ def check_packed(pk: FieldPacked, dims: FieldDims, dev: torch.device) -> None:
     bf, f32 = torch.bfloat16, torch.float32
     _check("trunk weights", pk.wp, bf, (dims.layers, w + F_PAD, w), dev)
     _check("trunk biases", pk.bp, f32, (dims.layers, w), dev)
-    _check("head weights", pk.hw, bf, (w, dims.ho), dev)
+    _check("head weights", pk.hw, bf, (w + dims.grid_dim, dims.ho), dev)
     _check("head biases", pk.hb, f32, (dims.ho,), dev)
     if dims.use_sem:
         _check("sem_out weights", pk.wso, bf, (dims.sem_hidden, dims.cp), dev)
@@ -143,6 +143,8 @@ def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDi
     n = xp.shape[0]
     if n < 1:
         raise ValueError("no points")
+    if dims.grid_dim:
+        raise ValueError("kernels C / C' take no hash grid features")
     check_packed(pk, dims, xp.device)
     _check("x", xp, torch.bfloat16, (n, F_PAD), xp.device)
     _check("d", dp, torch.bfloat16, (n, D_PAD), xp.device)

@@ -863,6 +863,126 @@ def test_eval_field_wrapper_rejects_bad_inputs(cuda_device):
         EvalKernel(pk, dataclasses.replace(dims, x_dim=62), cuda_device)
 
 
+# --------------------------------------------------------------- kernel G
+
+def _grid_case(device, change, seed):
+    """A hybrid field (the hash grid of configs/torch/kitti360_grid.yaml at
+    `change`'s widths) with seeded weights and tables uniform in +-1."""
+    import dataclasses
+
+    from panopticnerf_tpu_torch.config import ModelConfig
+    from panopticnerf_tpu_torch.models.nerf import NeRFMLP
+
+    cfg = dataclasses.replace(ModelConfig(hash_grid=True), **change)
+    torch.manual_seed(seed)
+    net = NeRFMLP(cfg).to(device)
+    g = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if ".table_" in name:
+                p.copy_(torch.rand(p.shape, device=device, generator=g) * 2 - 1)
+            else:
+                p.add_(torch.randn_like(p) * 0.05)
+    return cfg, net
+
+
+def _grid_points(device, n, seed):
+    """Points inside the cube, far outside it, on its faces and at cell
+    corners of every level."""
+    g = torch.Generator(device).manual_seed(seed)
+    pts = torch.cat([torch.rand(n // 2, 3, device=device, generator=g) * 2 - 1,
+                     torch.randn(n - n // 2, 3, device=device, generator=g) * 1.5])
+    pts[:6] = torch.tensor([[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0], [1.0, -1.0, 0.0],
+                            [2.0, -3.0, 0.5], [0.0, 0.0, 0.0], [0.5, 0.25, -0.125]])
+    return pts
+
+
+def test_hash_grid_kernel_bit_for_bit(cuda_device):
+    """Kernel G equals the plain encoding rounded to bf16, bit for bit (the
+    plain version's order of operations, no contraction), at every level of
+    the grid (dense and hashed), for points inside and outside the cube;
+    one launch counted."""
+    from panopticnerf_tpu_torch.ops.hash_grid import hash_grid_encode
+    from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
+
+    _, net = _grid_case(cuda_device, {"num_classes": 19}, 3)
+    tables = [t.detach() for t in net.grid.tables()]
+    pts = _grid_points(cuda_device, 300_001, 3)
+    before = launches("G")
+    got = GridKernel(tables, cuda_device)(pts)
+    assert launches("G") == before + 1
+    ref = hash_grid_encode(pts, tables).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (pts.shape[0], 32) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+def test_hash_grid_wrapper_rejects_bad_inputs(cuda_device):
+    from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
+
+    _, net = _grid_case(cuda_device, {"num_classes": 7, "trunk_width": 64}, 0)
+    tables = [t.detach() for t in net.grid.tables()]
+    kernel = GridKernel(tables, cuda_device)
+    with pytest.raises(ValueError):
+        kernel(torch.zeros(10, 3))
+    with pytest.raises(TypeError):
+        kernel(torch.zeros(10, 3, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError):  # a table of another size
+        GridKernel([tables[0][:5].contiguous()] + tables[1:], cuda_device)
+    with pytest.raises(ValueError):  # F != 2
+        GridKernel([t.repeat(1, 2) for t in tables], cuda_device)
+    with pytest.raises(ValueError):  # a level short
+        GridKernel(tables[:-1], cuda_device)
+    with pytest.raises(ValueError):
+        GridKernel(tables, "cpu")
+
+
+@pytest.mark.parametrize("change,rays,samples", [
+    ({"num_classes": 19}, 1001, 128),  # the fine field of kitti360_grid
+    ({"num_classes": 19, "trunk_depth": 4, "trunk_width": 64, "skips": (), "color_width": 64},
+     2047, 64),  # its 4x64 proposal coarse
+    ({"num_classes": 8, "trunk_width": 128, "color_width": 64, "use_semantic": False}, 33, 37),
+])
+def test_eval_field_kernel_with_grid_matches_plain(cuda_device, change, rays, samples):
+    """Kernel E with the hash grid's features (from kernel G) against its
+    plain version with the same features, within EVAL_SHARE / EVAL_REL;
+    the plain version equals the hybrid model."""
+    from panopticnerf_tpu_torch.ops.field_eval import eval_dims, field_eval_plain, pack_eval
+    from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
+    from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
+
+    cfg, net = _grid_case(cuda_device, change, rays)
+    dims = eval_dims(cfg)
+    assert dims is not None and dims.grid_dim == 32
+    pk = pack_eval(net, dims, torch.bfloat16)
+    g = torch.Generator(cuda_device).manual_seed(samples)
+    pts = (torch.rand(rays * samples, 3, device=cuda_device, generator=g) * 2 - 1) * 1.2
+    dirs = torch.nn.functional.normalize(torch.randn(rays, 3, device=cuda_device, generator=g),
+                                         dim=-1)
+    grid = GridKernel([t.detach() for t in net.grid.tables()], cuda_device)(pts)
+    got = EvalKernel(pk, dims, cuda_device)(pts, dirs, samples, grid)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        ref = field_eval_plain(pts, dirs, samples, pk, dims, grid)
+        with torch.no_grad():
+            model = net(pts.view(rays, samples, 3), dirs[:, None, :])
+        torch.cuda.synchronize()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    for name, a, b, m in zip(("sigma", "rgb", "sem"), got, ref, model):
+        if b is None:
+            assert a is None and m is None, name
+            continue
+        assert torch.equal(b, m.reshape(b.shape)), name
+        assert bool(torch.isfinite(a).all()), name
+        share = float((a != b).float().mean())
+        assert share <= EVAL_SHARE and _rel(a, b) <= EVAL_REL, (name, share, _rel(a, b))
+    with pytest.raises(ValueError):  # a hybrid field's E needs the features
+        EvalKernel(pk, dims, cuda_device)(pts, dirs, samples)
+
+
 def _view_gaps(out, ref):
     """The benchmark's numbers (benchmark/harness/render.py `gaps`) of one
     view: mean |rgb gap|; mean |gap| over the reference's mean |value| of
@@ -874,8 +994,9 @@ def _view_gaps(out, ref):
 
 def _render_both(cfg, device, ds, view, seed):
     """One view through `intersect_and_render` with E and with the plain
-    model (seeded lecun weights, biases away from zero), and E's launches
-    and the two counters over E's render."""
+    model (seeded lecun weights, biases away from zero, a hash grid's tables
+    uniform in +-1), and E's launches, the two counters, G's launches and
+    the grid's points over E's render."""
     from panopticnerf_tpu_torch.data import view_primitives, view_rays
     from panopticnerf_tpu_torch.models import init_params, make_network
     from panopticnerf_tpu_torch.render import renderer
@@ -887,6 +1008,8 @@ def _render_both(cfg, device, ds, view, seed):
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.normal_(0.0, 0.05, generator=torch.Generator(device).manual_seed(len(name)))
+            elif ".table_" in name:  # a hash grid's tables where they move the maps
+                p.uniform_(-1.0, 1.0, generator=torch.Generator(device).manual_seed(len(name)))
     o, d = view_rays(ds, view)
     bounds = renderer.SceneBounds(ds.bounds_center, ds.bounds_scale)
     render = lambda: renderer.intersect_and_render(cfg, model, o, d, view_primitives(ds, view),
@@ -894,7 +1017,8 @@ def _render_both(cfg, device, ds, view, seed):
     profiling.reset()
     out = render()
     counts = (launches("E"), profiling.calls("render.field.points"),
-              profiling.calls("render.field.points_fused"))
+              profiling.calls("render.field.points_fused"), launches("G"),
+              profiling.calls("render.grid.points"))
     profiling.reset()
     keep = renderer.eval_field
     renderer.eval_field = lambda m, c, dv: m
@@ -932,9 +1056,37 @@ def test_eval_render_views_against_the_plain_model(cuda_device, tmp_path):
     }
     for name, (cfg, limits) in cases.items():
         ds, _, _ = make_dataset(cfg, cuda_device)
-        out, ref, (e, points, fused), n = _render_both(cfg, cuda_device, ds, 1, 11)
+        out, ref, (e, points, fused, _, _), n = _render_both(cfg, cuda_device, ds, 1, 11)
         tiles = -(-n // cfg.render.ray_tile)
         assert e == 2 * tiles and points == fused > 0, (name, e, tiles, points, fused)
         gaps = _view_gaps(out, ref)
         assert all(g <= lim for g, lim in zip(gaps, limits)), (name, gaps, limits)
         assert bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.sem_logits).all())
+
+
+def test_grid_render_view_against_the_plain_model(cuda_device, tmp_path):
+    """A KITTI-360 demo-tree view of configs/torch/kitti360_grid.yaml (both fields
+    hybrid) through `intersect_and_render`: G then E against the plain
+    hybrid model within a tenth of the benchmark's limits for kitti360;
+    G and E launched once per tile and level; every point encoded and
+    fused."""
+    import os
+
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = str(tmp_path / "tree")
+    write_demo_tree(root, n_frames=2, hw=(376, 1408), n_boxes=8, seed=1, n_concave=2,
+                    device=cuda_device)
+    cfg = load_config(os.path.join(repo, "configs", "torch", "kitti360_grid.yaml"),
+                      ["data.root", root, "data.frame_start", "0", "data.frame_num", "2"])
+    ds, _, _ = make_dataset(cfg, cuda_device)
+    out, ref, (e, points, fused, g, encoded), n = _render_both(cfg, cuda_device, ds, 1, 11)
+    tiles = -(-n // cfg.render.ray_tile)
+    assert e == g == 2 * tiles and points == fused == encoded > 0, (e, g, tiles, points, fused,
+                                                                     encoded)
+    gaps = _view_gaps(out, ref)
+    assert all(x <= lim for x, lim in zip(gaps, (1e-5, 5e-6, 3e-4))), gaps
+    assert bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.sem_logits).all())

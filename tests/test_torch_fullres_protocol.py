@@ -19,6 +19,7 @@ import fullres_protocol_torch as protocol  # noqa: E402  (tools/fullres_protocol
 import run_staged as jax_run_staged  # noqa: E402  (tools/run_staged.py)
 
 from panopticnerf_tpu_torch import run_staged  # noqa: E402
+from panopticnerf_tpu_torch.config.config import without_port_only  # noqa: E402
 
 TREE = "/t"
 # the JAX scripts' options of the 10k continuation: PRE and ARM
@@ -62,7 +63,8 @@ def test_protocol_configs_match_jax(arm):
                                                 proposal=proposal)
         cfg, notes = run_staged.stage_cfg(name, prev, 2000, common, user_keys,
                                           proposal=proposal)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and notes == jnotes, name
+        assert without_port_only(dataclasses.asdict(cfg)) == dataclasses.asdict(jcfg), name
+        assert notes == jnotes and cfg.model.hash_grid is False, name
         d = cfg.data
         assert (d.root, d.frame_num, d.max_primitives, d.max_intervals, d.ratio,
                 cfg.render.far, cfg.train.max_steps) == (TREE, 8, 32, 12, 1.0, 40.0, 2000)
@@ -77,6 +79,7 @@ def test_protocol_configs_match_jax(arm):
     jopts = [*JAX_PRE, *JAX_COARSE[arm], *JAX_SCHEDULE, "train.init_from", prev,
              "exp_name", "kitti360_panoptic_10k"]
     cfg = load_config(protocol.CFG_FILE, lopts)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_load_config(protocol.CFG_FILE, jopts))
+    assert without_port_only(dataclasses.asdict(cfg)) == dataclasses.asdict(
+        jax_load_config(protocol.CFG_FILE, jopts))
     assert (cfg.train.eval_ep * cfg.train.ep_iter, cfg.train.save_best, cfg.train.pretrain,
             cfg.render.eval_keep_samples) == (2000, True, "", 0)

@@ -73,11 +73,16 @@ def _schema(cls):
 
 
 def test_config_schema_matches_jax_package():
+    """Field for field and default for default, but for the port's one own
+    key, `model.hash_grid` (the JAX package has no grid), off by default."""
     from panopticnerf_tpu.config.config import _ALIASES as jax_aliases
     from panopticnerf_tpu.config.config import Config as JaxConfig
-    from panopticnerf_tpu_torch.config.config import _ALIASES, Config
+    from panopticnerf_tpu_torch.config.config import _ALIASES, PORT_ONLY, Config
 
-    assert _schema(Config) == _schema(JaxConfig)
+    schema = _schema(Config)
+    assert PORT_ONLY == {"model": ("hash_grid",)}
+    assert schema["model"][1].pop("hash_grid") == (str(bool), False)
+    assert schema == _schema(JaxConfig)
     assert _ALIASES == jax_aliases
 
 
@@ -85,10 +90,43 @@ def test_config_schema_matches_jax_package():
 def test_every_shipped_yaml_loads_identically(cfg_file):
     from panopticnerf_tpu.config.config import load_config as jax_load_config
     from panopticnerf_tpu.config.config import to_dict as jax_to_dict
-    from panopticnerf_tpu_torch.config.config import load_config, to_dict
+    from panopticnerf_tpu_torch.config.config import load_config, to_dict, without_port_only
 
     opts = ["N_samples", "32", "use_stereo", "false", "render.far", "80", "gpus", "0"]
-    assert to_dict(load_config(cfg_file, opts)) == jax_to_dict(jax_load_config(cfg_file, opts))
+    port = to_dict(load_config(cfg_file, opts))
+    assert port["model"]["hash_grid"] is False
+    assert without_port_only(port) == jax_to_dict(jax_load_config(cfg_file, opts))
+
+
+@pytest.mark.parametrize("cfg_file", sorted(glob.glob(os.path.join(REPO, "configs", "torch",
+                                                                 "*.yaml"))))
+def test_every_port_only_yaml_is_jax_reading_plus_its_keys(cfg_file, tmp_path):
+    """A config of the port alone (configs/torch/) sets a port-only key: the JAX package
+    refuses it whole, and reads the file without that key as the port reads the rest."""
+    import yaml
+
+    from panopticnerf_tpu.config.config import load_config as jax_load_config
+    from panopticnerf_tpu.config.config import to_dict as jax_to_dict
+    from panopticnerf_tpu_torch.config.config import (
+        PORT_ONLY,
+        load_config,
+        to_dict,
+        without_port_only,
+    )
+
+    opts = ["N_samples", "32", "use_stereo", "false", "render.far", "80", "gpus", "0"]
+    raw = yaml.safe_load(open(cfg_file))
+    own = [(s, k) for s, keys in PORT_ONLY.items() for k in keys if k in raw.get(s, {})]
+    assert own, cfg_file
+    with pytest.raises(KeyError):
+        jax_load_config(cfg_file, opts)
+    port = to_dict(load_config(cfg_file, opts))
+    for s, k in own:
+        del raw[s][k]
+    stripped = str(tmp_path / "without_port_keys.yaml")
+    with open(stripped, "w") as f:
+        yaml.safe_dump(raw, f)
+    assert without_port_only(port) == jax_to_dict(jax_load_config(stripped, opts))
 
 
 def test_config_rejects_unknown_keys():
