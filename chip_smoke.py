@@ -17,9 +17,9 @@ Phases (any failure raises; the exit code is then non-zero and no result
 line is printed):
   1. card, power limit, torch / CUDA / nvcc versions;
   2. build of csrc/intersect.cu, csrc/mlp_train.cu, csrc/field_train.cu,
-     csrc/field_eval.cu and csrc/hash_grid.cu, one nvcc each, run together (timed; ptxas registers
-     / shared memory / spills; the forward kernels B, C and E and C''s heads
-     data pass must not spill, nor have ptxas serialize the wgmma chains of
+     csrc/field_eval.cu, csrc/hash_grid.cu and csrc/composite.cu, one nvcc each, run together
+     (timed; ptxas registers / shared memory / spills; the forward kernels B, C and E, C''s
+     heads data pass and V must not spill, nor have ptxas serialize the wgmma chains of
      B, C, C''s heads data pass or E at W = 128 and 256);
   3. kernel vs plain version on every synthetic_flagship view
      (N = 33,088 rays, P = 32, K = 16, F = 0) and on a cut-plane case
@@ -34,8 +34,8 @@ line is printed):
      with artifacts/torch/synthetic_flagship_10000.npz — render time per
      view, PSNR / mIoU / PQ beside artifacts/torch/
      synthetic_flagship_10000_jax_eval.json, and the kernels' launch counts:
-     A1 once per view rendered, E (the evaluation field) once per tile and
-     level of every view; (b) E against its plain version on the
+     A1 once per view rendered, E (the evaluation field) and V (the
+     compositing) once per tile and level of every view; (b) E against its plain version on the
      checkpoint's coarse and fine fields at the points of one view's first
      tile: per output the share of values that differ and the relative
      Frobenius error within EVAL_SHARE / EVAL_REL, a second call equal bit
@@ -48,9 +48,15 @@ line is printed):
      without the grid's columns and the plain hybrid model, the bounds;
      then GRID_VIEWS 188x704 views of a KITTI-360 demo tree through the
      evaluation entry (`intersect_and_render`) with the counters cleared
-     just before: G and E each launched 2 x tiles a view, G encoding and E
+     just before: G, E and V each launched 2 x tiles a view, G encoding and E
      evaluating every field point, the maps within a tenth of the cell
-     kitti360-grid-render's limits of the plain hybrid model's;
+     kitti360-grid-render's limits of the plain hybrid model's; (d) kernel V
+     (csrc/composite.cu) against the plain compositing ops at the render
+     cells' shapes (33,088 rays of a 188x704 demo-tree view, its A1
+     intervals, K = 16, the guided depths at S = 64 and 128, seeded field
+     outputs with 19 logits): every output within COMPOSITE_W_ABS /
+     COMPOSITE_REL, a second call bit for bit, V's and the plain ops' times
+     and V's device time beside its bound (its own bytes at HBM's rate);
   6. kernel A2 (grouped intersection) vs its plain version on 20 training
      batches (G = 8 groups of M = 256 rays, K = 16) and on a cut-plane
      case, bit for bit; A2 and plain times, A2's device and host time as
@@ -253,6 +259,12 @@ GRID_VIEWS = 2            # phase 5 (c): hybrid views through the evaluation ent
 # phase 5 (c): a tenth of benchmark/limits/kitti360-grid-render.json (mean |rgb
 # gap|, relative mean |gap| of depth and of the semantic logits)
 GRID_VIEW_GAP = (1e-5, 5e-6, 3e-4)
+COMPOSITE_SOURCE = "panopticnerf_tpu_torch/csrc/composite.cu"
+COMPOSITE_REPLACES = "none: the JAX package composites with plain XLA ops"
+# phase 5 (d): V against the plain ops (tests/test_torch_cuda.py's ceilings: only
+# the order of the sums differs): a weight's largest |gap|, a map's relative
+# Frobenius error
+COMPOSITE_W_ABS, COMPOSITE_REL = 1e-6, 1e-5
 C_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:310"
 C2_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:345"
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
@@ -926,7 +938,7 @@ def grid_view_check(dev, tmp):
     profiling.reset()
     outs = render()
     torch.cuda.synchronize()
-    launches = {k: profiling.calls(f"kernels.launch.{k}") for k in ("G", "E")}
+    launches = {k: profiling.calls(f"kernels.launch.{k}") for k in ("G", "E", "V")}
     points = {k: profiling.calls(f"render.{k}")
               for k in ("field.points", "field.points_fused", "grid.points")}
     keep = renderer.eval_field
@@ -944,12 +956,13 @@ def grid_view_check(dev, tmp):
     print(f"grid (c), main path: {len(views)} views of {ds.images.shape[1]}x"
           f"{ds.images.shape[2]} ({rays} rays, {tiles} tiles of {cfg.render.ray_tile}) through "
           f"intersect_and_render, counters cleared before: launches G {launches['G']}, E "
-          f"{launches['E']} (2 x tiles x views = {2 * tiles * len(views)}); points "
+          f"{launches['E']}, V {launches['V']} (2 x tiles x views = {2 * tiles * len(views)}); "
+          "points "
           + ", ".join(f"{k} {v}" for k, v in points.items())
           + "; gaps against the plain hybrid model (mean |rgb|, relative depth, relative "
           "logits) " + "; ".join(", ".join(f"{x:.3e}" for x in g) for g in gaps)
           + f" (ceilings {GRID_VIEW_GAP})")
-    check(launches["G"] == launches["E"] == 2 * tiles * len(views),
+    check(launches["G"] == launches["E"] == launches["V"] == 2 * tiles * len(views),
           f"hybrid views: launches {launches}, expected {2 * tiles * len(views)} each")
     check(points["field.points"] > 0
           and points["field.points"] == points["field.points_fused"] == points["grid.points"],
@@ -960,6 +973,84 @@ def grid_view_check(dev, tmp):
     del model, ds, outs, refs
     torch.cuda.empty_cache()
     return launches
+
+
+def composite_plain(sigma, rgb, sem, z, iv, classes):
+    """The evaluation branch's compositing as plain ops (V's plain version)."""
+    from panopticnerf_tpu_torch.ops.composite import composite
+    from panopticnerf_tpu_torch.ops.intersect import (
+        fixed_map_from_weights,
+        labeled_containment,
+        samples_in_intervals,
+    )
+
+    out = composite(sigma, rgb, z, sem_logits=sem, inside_intervals=samples_in_intervals(z, iv))
+    lab, cnt = labeled_containment(z, iv)
+    return out._replace(sem_fixed=fixed_map_from_weights(out.weights, lab, cnt, iv, classes))
+
+
+def composite_phase(dev, tmp):
+    """5 (d): kernel V (csrc/composite.cu) against the plain ops at the render
+    cells' shapes: the first 33,088 rays of a 188x704 view of a two-frame
+    KITTI-360 demo tree, their A1 intervals (K = 16), the guided depths of
+    each level (S = 64 and 128), seeded field outputs (sigma N(0, 3), rgb
+    U(0, 1), 19 logits N(0, 1)). Every output within COMPOSITE_W_ABS /
+    COMPOSITE_REL, a second call equal bit for bit; V's time (events and its
+    device time) and the plain ops' beside V's bound (its own bytes at HBM's
+    rate). -> {"err", "ms", "plain_ms", "bound"} at S = 128."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.ops import sampling
+    from panopticnerf_tpu_torch.ops.composite_cuda import composite_cuda
+    from panopticnerf_tpu_torch.ops.intersect import RayIntervals, intersect_rays
+
+    root = f"{tmp}/composite_tree"
+    write_demo_tree(root, n_frames=2, hw=KITTI_HW, n_boxes=8, seed=3, n_concave=2, device=dev)
+    cfg = load_config(KITTI_CFG, ["data.root", root, "data.frame_start", "0",
+                                  "data.frame_num", "2"])
+    ds, _, _ = make_dataset(cfg, dev)
+    rays = 33088
+    o, d = (t[:rays] for t in view_rays(ds, 0))
+    rc = cfg.render
+    iv = intersect_rays(o, d, view_primitives(ds, 0), rc.near, rc.far, cfg.data.max_intervals)
+    iv = RayIntervals(*[t.contiguous() for t in iv])
+    classes, k = cfg.model.num_classes, cfg.data.max_intervals
+    out = {}
+    for s in (64, 128):
+        z = sampling.guided_z(iv, s, rc.near, rc.far, False, rc.bg_sample_frac)
+        g = torch.Generator(dev).manual_seed(s)
+        sigma = torch.randn(rays, s, device=dev, generator=g) * 3.0
+        rgb = torch.rand(rays, s, 3, device=dev, generator=g)
+        sem = torch.randn(rays, s, classes, device=dev, generator=g)
+        run = lambda: composite_cuda(sigma, rgb, z, sem_logits=sem, iv=iv, num_classes=classes)
+        plain = lambda: composite_plain(sigma, rgb, sem, z, iv, classes)
+        got, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        w_abs = float((got.weights - ref.weights).abs().max())
+        rels = {f: rel_err(a, b) for f, a, b in zip(got._fields, got, ref) if f != "weights"}
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        ms, plain_ms = [time_ms(run) for _ in range(2)], [time_ms(plain, reps=5) for _ in range(2)]
+        v_dev = device_ms(run, "volume_composite_kernel", reps=10)
+        moved = nbytes(sigma, rgb, sem, z, iv.t_in, iv.t_out, iv.semantic, iv.mask, got)
+        bnd = bound(0, moved)
+        inside = float(iv.mask.any(-1).float().mean())
+        print(f"composite (d), S = {s}: V against the plain ops at {rays} rays x {s} samples, "
+              f"K = {k} ({inside:.3f} of the rays hit a primitive), C = {classes}: weights max "
+              f"|d| {w_abs:.3e} (ceiling {COMPOSITE_W_ABS}); relative Frobenius error "
+              + ", ".join(f"{f} {v:.2e}" for f, v in rels.items())
+              + f" (ceiling {COMPOSITE_REL}); a second call bit for bit: {same}; V {ms[0]:.4f} / "
+              f"{ms[1]:.4f} ms (device {v_dev:.4f}), plain ops {plain_ms[0]:.4f} / "
+              f"{plain_ms[1]:.4f} ms (events around the call, medians); bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}: {moved} bytes), {100 * bnd[0] / v_dev:.1f} % of it on the device")
+        check(same, f"V (S = {s}): a second call differs")
+        check(w_abs <= COMPOSITE_W_ABS and all(v <= COMPOSITE_REL for v in rels.values()),
+              f"V (S = {s}) off the plain ops: weights {w_abs}, {rels}")
+        out = {"err": err, "ms": min(ms), "plain_ms": min(plain_ms), "bound": bnd}
+    del ds
+    torch.cuda.empty_cache()
+    return out
 
 
 def field_phase(cfg, enc, model, dev):
@@ -2684,6 +2775,7 @@ def main():
     from panopticnerf_tpu_torch.data import view_primitives, view_rays
     from panopticnerf_tpu_torch.ops import (
         _nvcc,
+        composite_cuda,
         field_eval_cuda,
         field_train_cuda,
         hash_grid_cuda,
@@ -2703,7 +2795,8 @@ def main():
 
     # 2. build: one nvcc per source, run together
     libs = {name: _nvcc.library_path(name)
-            for name in ("intersect", "mlp_train", "field_train", "field_eval", "hash_grid")}
+            for name in ("intersect", "mlp_train", "field_train", "field_eval", "hash_grid",
+                         "composite")}
     existed = {name: os.path.exists(path) for name, path in libs.items()}
     t0 = time.perf_counter()
     _nvcc.build_all(libs)
@@ -2717,6 +2810,10 @@ def main():
     field_train_cuda.load()
     field_eval_cuda.load()
     hash_grid_cuda.load()
+    composite_cuda.load()
+    for line in ptxas_summary(libs["composite"][:-3] + ".log"):
+        print(f"  ptxas composite: {line}")
+        check(line.endswith("spills 0/0 B"), f"V spills: {line}")
     for name in ("mlp_train", "field_train", "field_eval"):
         for line in ptxas_summary(libs[name][:-3] + ".log"):
             print(f"  ptxas {name}: {line}")
@@ -2778,16 +2875,19 @@ def main():
     zero_counts()
     res = engine.run_evaluate(cfg, dev, log=lambda *a: None)
     launches, e_launches = launch_counts()["A1"], launch_counts(("E",))["E"]
+    v_launches = launch_counts(("V",))["V"]
     secs = res["render_seconds"]
     tiles = -(-ds.images.shape[1] * ds.images.shape[2] // cfg.render.ray_tile)
     print(f"run_evaluate: {len(res['views'])} views, render s/view "
           + " ".join(f"{s:.3f}" for s in secs)
           + f" (median {np.median(secs):.3f}, first view includes warm-up); "
-          f"kernel launches A1 {launches}, E {e_launches} ({tiles} tiles x 2 levels a view)")
+          f"kernel launches A1 {launches}, E {e_launches}, V {v_launches} ({tiles} tiles x 2 "
+          "levels a view)")
     check(launches == len(res["views"]),
           f"kernel launched {launches} times for {len(res['views'])} views")
-    check(e_launches == 2 * tiles * len(res["views"]),
-          f"E launched {e_launches} times for {len(res['views'])} views of {tiles} tiles")
+    check(e_launches == v_launches == 2 * tiles * len(res["views"]),
+          f"E / V launched {e_launches} / {v_launches} times for {len(res['views'])} views of "
+          f"{tiles} tiles")
     with open(REF_JSON) as fh:
         ref = json.load(fh)
     check(sorted(ref["views"]) == sorted(res["views"]),
@@ -2803,6 +2903,8 @@ def main():
           and bool(torch.isfinite(out.sem_logits).all()), "non-finite or misshaped render")
     ev_field = eval_field_phase(cfg, ds, model)
     ev_grid = grid_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ev_comp = composite_phase(dev, tmp)
 
     # 6-10. the training slice
     from panopticnerf_tpu_torch.data import make_dataset
@@ -2886,6 +2988,8 @@ def main():
         entry("hash_grid_encode", GRID_SOURCE, GRID_REPLACES, ev_grid["launches"]["G"],
               ev_grid["G"]["err"], ev_grid["G"]["ms"], ev_grid["G"]["plain_ms"],
               ev_grid["G"]["bound"]),
+        entry("volume_composite", COMPOSITE_SOURCE, COMPOSITE_REPLACES, v_launches,
+              ev_comp["err"], ev_comp["ms"], ev_comp["plain_ms"], ev_comp["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

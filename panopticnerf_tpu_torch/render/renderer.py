@@ -21,8 +21,15 @@ Spans (utils/profiling.py): `render.view` around `intersect_and_render`,
 and the model) and `render.composite.<level>` (the containment, the
 compositing, the fixed map); counters `render.rays` and
 `render.rays_padded` (the zero rays that fill the last tile), and in the
-evaluation branch `render.field.points` (every point a field evaluates)
-and `render.field.points_fused` (those kernel E evaluates).
+evaluation branch `render.field.points` (every point a field evaluates),
+`render.field.points_fused` (those kernel E evaluates),
+`render.composite.rays` (every ray composited, per level) and
+`render.composite.rays_fused` (those kernel V composites).
+
+On a CUDA device without gradients the evaluation branch composites each
+level with kernel V (`ops/composite_cuda.py`: the weights, the maps, the
+instance mass and the fixed map in one launch) where its inputs fit the
+kernel; training, the CPU and other inputs run the plain ops.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from panopticnerf_tpu_torch.config import Config
 from panopticnerf_tpu_torch.models.eval_field import eval_field
 from panopticnerf_tpu_torch.ops import sampling
 from panopticnerf_tpu_torch.ops.composite import composite
+from panopticnerf_tpu_torch.ops.composite_cuda import composite_cuda, takes as takes_composite
 from panopticnerf_tpu_torch.ops.intersect import (
     Primitives,
     RayIntervals,
@@ -94,6 +102,17 @@ class RenderOut(NamedTuple):
     sample_cnt: Optional[torch.Tensor] = None         # (N, S)
 
 
+def _fused_composite_takes(sigma, sem, iv: Optional[RayIntervals], num_classes: int) -> bool:
+    """Whether an evaluation level composites through kernel V
+    (`ops/composite_cuda.py`): on a CUDA device, without gradients, at the
+    shapes V takes. The choice reads only its inputs."""
+    if sigma.device.type != "cuda" or torch.is_grad_enabled():
+        return False
+    k = 0 if iv is None else iv.t_in.shape[-1]
+    classes = max(0 if sem is None else sem.shape[-1], num_classes if iv is not None else 0)
+    return takes_composite(sigma.shape[-1], k, classes)
+
+
 def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
                      iv: Optional[RayIntervals], num_classes: int, white_bkgd: bool,
                      noise_std: float = 0.0, noise: Optional[torch.Tensor] = None,
@@ -112,6 +131,16 @@ def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
             sigma = sigma + noise_std * noise
 
     with span(f"render.composite.{LEVELS[level]}"):
+        if evaluate:
+            count("render.composite.rays", z.shape[0])
+            if _fused_composite_takes(sigma, sem, iv, num_classes):
+                count("render.composite.rays_fused", z.shape[0])
+                dense = lambda t: None if t is None else t.contiguous()
+                iv_d = None if iv is None else RayIntervals(*map(dense, iv))
+                out = composite_cuda(dense(sigma), dense(rgb), dense(z), sem_logits=dense(sem),
+                                     delta=dense(delta), iv=iv_d, num_classes=num_classes,
+                                     white_bkgd=white_bkgd)
+                return out, sem, None, None
         inside_iv = inside_lab = cnt = None
         if iv is not None:
             inside_iv = samples_in_intervals(z, iv)
@@ -133,7 +162,10 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     `model` is called as model(pts, viewdirs, level=...). With `train`, the
     random numbers come from `draws` where given, else from `generator`.
     Without `train` and without gradients, on a CUDA device, the fields
-    whose shape kernel E takes evaluate through it (`models.eval_field`).
+    whose shape kernel E takes evaluate through it (`models.eval_field`),
+    and each level composites through kernel V where it takes the level's
+    inputs; the per-sample extras `sample_inside_k` and `sample_cnt` are
+    then None (only the training loss reads them).
     """
     rc = cfg.render
     n = rays_o.shape[0]

@@ -1090,3 +1090,199 @@ def test_grid_render_view_against_the_plain_model(cuda_device, tmp_path):
     gaps = _view_gaps(out, ref)
     assert all(x <= lim for x, lim in zip(gaps, (1e-5, 5e-6, 3e-4))), gaps
     assert bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.sem_logits).all())
+
+
+def _composite_inputs(device, n, s, k, c, seed, logits=True, intervals=True, delta=False,
+                      zero_rays=0):
+    """Seeded inputs of one compositing level, as the evaluation render
+    hands them over: E's f32 outputs, sorted depths, A1's intervals (entry
+    sorted; misses at BIG with label -1 and mask False; some labelled -1
+    but kept, as unlabelled stuff; a label past C - 1, which the fixed map
+    clamps), samples placed exactly on an entry and an exit depth, and
+    `zero_rays` trailing rays with the all-zero intervals a tile's padding
+    gets."""
+    from panopticnerf_tpu_torch.ops.intersect import RayIntervals
+
+    g = torch.Generator().manual_seed(seed)
+    sigma = torch.randn(n, s, generator=g) * 3.0
+    rgb = torch.rand(n, s, 3, generator=g)
+    sem = torch.randn(n, s, c, generator=g) * 2.0 if logits else None
+    z = 0.5 + 12.0 * torch.rand(n, s, generator=g)
+    dl = 0.2 * torch.rand(n, s, generator=g) if delta else None
+    iv = None
+    if intervals:
+        t_in = (0.5 + 10.0 * torch.rand(n, k, generator=g)).sort(-1).values
+        t_out = t_in + 3.0 * torch.rand(n, k, generator=g)
+        mask = torch.rand(n, k, generator=g) < 0.75
+        semantic = torch.randint(-1, c + 2, (n, k), generator=g, dtype=torch.int32)
+        if s >= 8:  # samples exactly on the first interval's entry and exit depths
+            z[:, 3] = t_in[:, 0]
+            z[:, 7] = t_out[:, 0]
+        t_in = torch.where(mask, t_in, BIG)
+        t_out = torch.where(mask, t_out, BIG)
+        semantic = torch.where(mask, semantic, -1).to(torch.int32)
+        if zero_rays:
+            for t in (t_in, t_out, semantic, mask):
+                t[-zero_rays:] = 0
+        iv = RayIntervals(t_in, t_out, semantic, semantic.clone(), mask)
+    z = z.sort(-1).values
+    put = lambda t: None if t is None else t.to(device).contiguous()
+    return (put(sigma), put(rgb), put(sem), put(z), put(dl),
+            None if iv is None else RayIntervals(*map(put, iv)))
+
+
+def _composite_plain(sigma, rgb, sem, z, dl, iv, c, white_bkgd):
+    """The evaluation branch's plain ops, as `render_rays` ran them before V."""
+    from panopticnerf_tpu_torch.ops.composite import composite
+    from panopticnerf_tpu_torch.ops.intersect import (
+        fixed_map_from_weights,
+        labeled_containment,
+        samples_in_intervals,
+    )
+
+    inside = samples_in_intervals(z, iv) if iv is not None else None
+    out = composite(sigma, rgb, z, sem_logits=sem, inside_intervals=inside,
+                    white_bkgd=white_bkgd, delta=dl)
+    if iv is not None:
+        lab, cnt = labeled_containment(z, iv)
+        out = out._replace(sem_fixed=fixed_map_from_weights(out.weights, lab, cnt, iv, c))
+    return out
+
+
+# V against the plain ops. Only the order of the sums differs (the same f32
+# products, no multiply-add contraction on either side): the exclusive
+# transmittance's sum of up to 128 taus moves a weight by a few ulps of 1
+# (abs <= 1e-6); a map, a sum of S weighted values or of K masses, by a few
+# ulps of its largest terms (relative Frobenius error <= 1e-5). A wrong
+# containment edge, a dropped sample or a lost class moves them by 1e-2 or more.
+W_ABS, MAP_REL = 1e-6, 1e-5
+
+
+@pytest.mark.parametrize("s,k,c,logits,intervals,delta,white,zero_rays", [
+    (64, 16, 19, True, True, False, False, 0),
+    (128, 16, 19, True, True, False, False, 0),
+    (96, 16, 19, True, True, True, False, 0),    # keep-M 96 with the full set's deltas
+    (128, 12, 19, True, True, False, True, 5),   # the full-resolution protocol's K
+    (64, 12, 45, False, True, False, False, 5),  # no learned logits; 45 classes
+    (128, 16, 19, True, False, False, True, 0),  # no primitives
+    (48, 8, 8, True, True, False, True, 3),      # synthetic_panoptic's shapes
+    (37, 32, 128, True, True, True, False, 1),   # ragged S, the largest K and C
+    (1, 1, 1, True, True, False, False, 0),
+])
+def test_composite_kernel_matches_plain(cuda_device, s, k, c, logits, intervals, delta, white,
+                                        zero_rays):
+    from panopticnerf_tpu_torch.ops.composite_cuda import composite_cuda
+
+    n = 1000
+    sigma, rgb, sem, z, dl, iv = _composite_inputs(cuda_device, n, s, k, c, s * 7 + k + c,
+                                                   logits, intervals, delta, zero_rays)
+    before = launches("V")
+    got = composite_cuda(sigma, rgb, z, sem_logits=sem, delta=dl, iv=iv, num_classes=c,
+                         white_bkgd=white)
+    assert launches("V") == before + 1
+    ref = _composite_plain(sigma, rgb, sem, z, dl, iv, c, white)
+    torch.cuda.synchronize()
+    for name in ref._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        assert (a is None) == (b is None), name
+        if b is None:
+            continue
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        if name == "weights":
+            assert float((a - b).abs().max()) <= W_ABS, (name, float((a - b).abs().max()))
+        else:
+            rel = float(torch.linalg.vector_norm(a - b)
+                        / torch.linalg.vector_norm(b).clamp_min(1e-30))
+            assert rel <= MAP_REL, (name, rel)
+    if intervals:
+        assert float(got.inst_mass.abs().sum()) > 0 and float(got.sem_fixed.abs().sum()) > 0
+        if zero_rays:  # no interval holds a padded ray's samples
+            assert not bool(got.inst_mass[-zero_rays:].any())
+            assert not bool(got.sem_fixed[-zero_rays:].any())
+
+
+def test_composite_kernel_repeats_bit_for_bit(cuda_device):
+    from panopticnerf_tpu_torch.ops.composite_cuda import composite_cuda
+
+    args = _composite_inputs(cuda_device, 3000, 128, 16, 19, 5, delta=True)
+    sigma, rgb, sem, z, dl, iv = args
+    run = lambda: composite_cuda(sigma, rgb, z, sem_logits=sem, delta=dl, iv=iv, num_classes=19)
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_composite_wrapper_rejects_bad_inputs(cuda_device):
+    from panopticnerf_tpu_torch.ops.composite_cuda import composite_cuda
+
+    sigma, rgb, sem, z, dl, iv = _composite_inputs(cuda_device, 64, 32, 16, 19, 1, delta=True)
+    ok = dict(sem_logits=sem, delta=dl, iv=iv, num_classes=19)
+    composite_cuda(sigma, rgb, z, **ok)
+    widen = lambda times: type(iv)(*[torch.cat([t] * times, 1) for t in iv])
+    composite_cuda(sigma, rgb, z, **dict(ok, iv=widen(2)))  # K = 32, the most V takes
+    bad = [
+        ((sigma.cpu(), rgb.cpu(), z.cpu()), dict(iv=None)),                   # not on the card
+        ((sigma.double(), rgb, z), ok),                                       # dtype
+        ((sigma, rgb[:, :-1].contiguous(), z), ok),                           # shape
+        ((sigma, rgb, z.t().contiguous().t()), ok),                           # not contiguous
+        ((sigma, rgb, z), dict(ok, sem_logits=sem[..., :0].contiguous())),    # C = 0
+        ((sigma, rgb, z), dict(ok, num_classes=0)),                           # C = 0 for the map
+        ((sigma, rgb, z), dict(ok, num_classes=129)),                         # C past 128
+        ((sigma, rgb, z), dict(ok, iv=iv._replace(semantic=iv.semantic.long()))),
+        ((sigma, rgb, z), dict(ok, iv=iv._replace(mask=iv.mask.to(torch.uint8)))),
+        ((sigma, rgb, z), dict(ok, iv=widen(3))),                              # K = 48
+        ((sigma, rgb, z), dict(ok, delta=dl[:, :-1].contiguous())),
+    ]
+    for args, kw in bad:
+        with pytest.raises((ValueError, TypeError)):
+            composite_cuda(*args, **kw)
+
+
+def test_composite_kernel_counts_in_the_render(cuda_device):
+    """A small evaluation render on the card composites every tile and
+    level through V: V launched twice a tile, every ray of both levels
+    counted as composited and as fused; with gradients on, the plain ops
+    run (no launch, nothing fused) and the per-sample extras come back."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.models import make_network
+    from panopticnerf_tpu_torch.render import renderer
+    from panopticnerf_tpu_torch.utils import profiling
+
+    cfg = load_config(None, [
+        "data.synthetic_image_hw", "24,40", "data.synthetic_num_frames", "2",
+        "data.synthetic_num_boxes", "6", "data.max_primitives", "8",
+        "data.max_intervals", "4", "model.trunk_depth", "2", "model.trunk_width", "32",
+        "model.skips", "0", "model.color_width", "16", "model.num_classes", "7",
+        "render.n_samples", "16", "render.n_importance", "16",
+        "render.use_primitives", "true", "render.ray_tile", "256"])
+    torch.manual_seed(0)
+    model = make_network(cfg, cuda_device).eval()
+    ds, _, _ = make_dataset(cfg, cuda_device)
+    o, d = view_rays(ds, 0)
+    bounds = renderer.SceneBounds(ds.bounds_center, ds.bounds_scale)
+    profiling.reset()
+    with torch.no_grad():
+        out = renderer.intersect_and_render(cfg, model, o, d, view_primitives(ds, 0), bounds)
+    torch.cuda.synchronize()
+    tiles = -(-o.shape[0] // 256)
+    assert launches("V") == 2 * tiles
+    assert profiling.calls("render.composite.rays") == 2 * tiles * 256
+    assert profiling.calls("render.composite.rays_fused") == 2 * tiles * 256
+    assert out.sem_fixed is not None and out.inst_mass is not None
+    profiling.reset()
+    iv = renderer.intersect_rays(o[:64], d[:64], view_primitives(ds, 0), cfg.render.near,
+                                 cfg.render.far, cfg.data.max_intervals)
+    with torch.enable_grad():
+        plain = renderer.render_rays(model, o[:64], d[:64], bounds, cfg, iv=iv, train=False)
+    assert launches("V") == 0 and profiling.calls("render.composite.rays_fused") == 0
+    assert profiling.calls("render.composite.rays") == 2 * 64
+    assert plain.sample_inside_k is not None and plain.sample_cnt is not None
+    with torch.no_grad():
+        fused = renderer.render_rays(model, o[:64], d[:64], bounds, cfg, iv=iv, train=False)
+    assert launches("V") == 2
+    assert fused.sample_inside_k is None and fused.sample_cnt is None
+    for name in ("rgb", "depth", "acc", "sem_logits", "sem_fixed", "inst_mass"):
+        torch.testing.assert_close(getattr(fused, name), getattr(plain, name).detach(),
+                                   rtol=1e-5, atol=1e-5)
+    profiling.reset()
