@@ -7,6 +7,14 @@ it. A library that is already built is loaded as it is. The compiler's output (`
 registers, shared memory, spills per kernel) is kept beside it in `.log`. A process's first
 `load` of a library is the span `kernels.load`, and each source nvcc compiles adds one to the
 counter `kernels.built` (utils/profiling.py).
+
+It is also the one seam between the port and its kernels, which the
+`ops/*_cuda.py` wrappers share: `load` sets each entry point's argument
+types once, when the library is loaded; `check` validates a tensor before
+its pointer is passed and `ptr` gives an optional tensor's pointer; `launch`
+calls an entry point on PyTorch's current stream, without synchronising,
+raises `"<kernel> kernel launch failed: <why>"` when it refuses, and then
+adds one to the wrapper's counter `kernels.launch.<id>`.
 """
 
 from __future__ import annotations
@@ -17,6 +25,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import Optional
+
+import torch
 
 from panopticnerf_tpu_torch.utils.profiling import count, span
 
@@ -28,6 +39,11 @@ BUILD_DIR = os.path.join(PKG, "_build")
 # eager PyTorch ops of their plain versions. Never --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+TMA_ENCODE_FAILED = 9001  # kTmaEncodeFailed (csrc/hopper.cuh): not a CUDA error code
+
+# argument types of the entry points' signatures; every entry point returns an int
+P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -97,9 +113,52 @@ def build(name: str) -> str:
     return build_all([name])[name]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; one load per process."""
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; one load per process,
+    which declares each entry point of `signatures` ({entry: [argument
+    types]}, each returning an int)."""
     if name not in _loaded:
         with span("kernels.load"):
-            _loaded[name] = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name))
+        for entry, args in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = args, I
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raises unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """The pointer of an optional tensor (None: a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def launch_failed(kernel: str, err: int) -> RuntimeError:
+    """The error of a launch whose entry point returned `err` (nonzero)."""
+    why = ("a TMA descriptor could not be encoded" if err == TMA_ENCODE_FAILED
+           else f"CUDA error {err}")
+    return RuntimeError(f"{kernel} kernel launch failed: {why}")
+
+
+def launch(fn, dev: torch.device, *args, kernel: str, counter: Optional[str]) -> None:
+    """Calls entry point `fn` on `dev` with `args` and PyTorch's current
+    stream last; raises `launch_failed(kernel, ...)` on a nonzero return,
+    else adds one to `kernels.launch.<counter>` (None: no counter)."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise launch_failed(kernel, err)
+    if counter is not None:
+        count(f"kernels.launch.{counter}")

@@ -10,38 +10,30 @@ sums changed. Inputs: sigma (N, S); rgb (N, S, 3); the learned logits
 intervals `iv` (N, K) or None, with `num_classes` the fixed map's classes;
 all float32 but the intervals' int32 semantic and bool mask, contiguous,
 on one CUDA device, with S >= 1, K <= 32 and C <= 128 (`takes`). Anything
-else raises; nothing falls back. It launches on PyTorch's current stream
-and does not synchronise; each launch adds one to the counter
-`kernels.launch.V` (utils/profiling.py).
+else raises; nothing falls back. It launches through `ops/_nvcc.py`;
+counter `kernels.launch.V`.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops._nvcc import P, I, check, ptr
 from panopticnerf_tpu_torch.ops.composite import CompositeOut
-from panopticnerf_tpu_torch.ops.field_train_cuda import _ptr
 from panopticnerf_tpu_torch.ops.intersect import RayIntervals
-from panopticnerf_tpu_torch.ops.mlp_train_cuda import _check, _launch_failed, _stream
-from panopticnerf_tpu_torch.utils.profiling import count
 
 MAX_INTERVALS = 32   # a lane each
 MAX_CLASSES = 128    # four a lane
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+SIGNATURES = {"composite_launch": [P] * 9 + [I] * 6 + [P] * 8}
 
 
-def load() -> ctypes.CDLL:
+def load():
     """Build (first call only) and load the kernel library."""
-    lib = _nvcc.load("composite")
-    lib.composite_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P] * 8
-    lib.composite_launch.restype = _I
-    return lib
+    return _nvcc.load("composite", SIGNATURES)
 
 
 def takes(samples: int, intervals: int, classes: int) -> bool:
@@ -69,18 +61,18 @@ def composite_cuda(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
             or (iv is not None and (k < 1 or c_fixed < 1))):
         raise ValueError(f"V takes S >= 1, 1 <= K <= {MAX_INTERVALS} and C <= {MAX_CLASSES} "
                          f"(1 <= C with intervals), not S {s}, K {k}, C {c} / {c_fixed}")
-    _check("sigma", sigma, f32, (n, s), dev)
-    _check("rgb", rgb, f32, (n, s, 3), dev)
-    _check("z", z, f32, (n, s), dev)
+    check("sigma", sigma, f32, (n, s), dev)
+    check("rgb", rgb, f32, (n, s, 3), dev)
+    check("z", z, f32, (n, s), dev)
     if sem_logits is not None:
-        _check("sem_logits", sem_logits, f32, (n, s, c), dev)
+        check("sem_logits", sem_logits, f32, (n, s, c), dev)
     if delta is not None:
-        _check("delta", delta, f32, (n, s), dev)
+        check("delta", delta, f32, (n, s), dev)
     if iv is not None:
-        _check("t_in", iv.t_in, f32, (n, k), dev)
-        _check("t_out", iv.t_out, f32, (n, k), dev)
-        _check("semantic", iv.semantic, torch.int32, (n, k), dev)
-        _check("mask", iv.mask, torch.bool, (n, k), dev)
+        check("t_in", iv.t_in, f32, (n, k), dev)
+        check("t_out", iv.t_out, f32, (n, k), dev)
+        check("semantic", iv.semantic, torch.int32, (n, k), dev)
+        check("mask", iv.mask, torch.bool, (n, k), dev)
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     out = CompositeOut(rgb=new(n, 3), depth=new(n), acc=new(n), weights=new(n, s),
                        sem_logits=new(n, c) if c else None,
@@ -88,13 +80,10 @@ def composite_cuda(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
                        inst_mass=new(n, k) if iv is not None else None)
     if n:
         ivp = [None] * 4 if iv is None else [iv.t_in, iv.t_out, iv.semantic, iv.mask]
-        with torch.cuda.device(dev):
-            err = load().composite_launch(
-                sigma.data_ptr(), rgb.data_ptr(), _ptr(sem_logits), z.data_ptr(), _ptr(delta),
-                *[_ptr(t) for t in ivp], n, s, c, k, c_fixed, int(white_bkgd),
-                *[_ptr(t) for t in out[:4]], _ptr(out.sem_logits), _ptr(out.inst_mass),
-                _ptr(out.sem_fixed), _stream(dev))
-        if err != 0:
-            raise _launch_failed("compositing", err)
-        count("kernels.launch.V")
+        _nvcc.launch(
+            load().composite_launch, dev,
+            sigma.data_ptr(), rgb.data_ptr(), ptr(sem_logits), z.data_ptr(), ptr(delta),
+            *[ptr(t) for t in ivp], n, s, c, k, c_fixed, int(white_bkgd),
+            *[ptr(t) for t in out[:4]], ptr(out.sem_logits), ptr(out.inst_mass),
+            ptr(out.sem_fixed), kernel="compositing", counter="V")
     return out

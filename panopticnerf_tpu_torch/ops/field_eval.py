@@ -40,11 +40,15 @@ from torch.nn import functional as F
 
 from panopticnerf_tpu_torch.config import ModelConfig
 from panopticnerf_tpu_torch.ops.encoding import posenc_dim, positional_encoding
-from panopticnerf_tpu_torch.ops.field_train import D_PAD, FieldDims, FieldPacked, pack_field
-from panopticnerf_tpu_torch.ops.field_train_cuda import HEAD_MAX
+from panopticnerf_tpu_torch.ops.field_train import (
+    D_PAD,
+    HEAD_MAX,
+    FieldDims,
+    FieldPacked,
+    pack_field,
+)
 from panopticnerf_tpu_torch.ops.hash_grid import GRID, hash_grid_encode
-from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
-from panopticnerf_tpu_torch.ops.mlp_train_cuda import MAX_LAYERS, WIDTHS
+from panopticnerf_tpu_torch.ops.mlp_train import F_PAD, MAX_LAYERS, WIDTHS
 
 
 def eval_dims(c: ModelConfig) -> Optional[FieldDims]:

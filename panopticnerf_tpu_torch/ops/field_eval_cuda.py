@@ -11,39 +11,29 @@ colour width and class count up to 128, up to 32 layers, encodings of at
 most 10 (points) and 4 (directions) bands, and for a hybrid field (`dims.grid_dim`
 32) the hash grid's features g (P, 32) bf16 that kernel G wrote, which its
 sigma, sem_hidden and feature heads read after h; anything else raises. It
-launches on PyTorch's current stream and does not synchronise; each launch
-adds one to the counter `kernels.launch.E` (utils/profiling.py).
+launches through `ops/_nvcc.py`; counter `kernels.launch.E`.
 `field_eval_encodings_cuda` writes out the encodings as E computes them
 into shared memory, for the test that holds them to `positional_encoding`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops._nvcc import P, I, U, check, ptr
 from panopticnerf_tpu_torch.ops.encoding import posenc_dim
 from panopticnerf_tpu_torch.ops.field_eval import freqs
-from panopticnerf_tpu_torch.ops.field_train import FieldDims, FieldPacked
-from panopticnerf_tpu_torch.ops.field_train_cuda import _ptr, check_packed
-from panopticnerf_tpu_torch.ops.mlp_train_cuda import _check, _launch_failed, _skip_mask, _stream
-from panopticnerf_tpu_torch.utils.profiling import count
+from panopticnerf_tpu_torch.ops.field_train import FieldDims, FieldPacked, check_packed
+from panopticnerf_tpu_torch.ops.mlp_train import skip_mask
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_U = ctypes.c_uint
+SIGNATURES = {"field_eval_launch": [P] * 15 + [I, I, I, I, U] + [I] * 6 + [P, P],
+              "field_eval_encode_launch": [P] * 4 + [I] * 4 + [P]}
 
 
-def load() -> ctypes.CDLL:
+def load():
     """Build (first call only) and load the kernel library."""
-    lib = _nvcc.load("field_eval")
-    lib.field_eval_launch.argtypes = [_P] * 15 + [_I, _I, _I, _I, _U] + [_I] * 6 + [_P, _P]
-    lib.field_eval_launch.restype = _I
-    lib.field_eval_encode_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
-    lib.field_eval_encode_launch.restype = _I
-    return lib
+    return _nvcc.load("field_eval", SIGNATURES)
 
 
 class EvalKernel:
@@ -63,9 +53,9 @@ class EvalKernel:
         check_packed(pk, dims, self.device)
         self.pk, self.dims, self.lib = pk, dims, load()
         self.weights = (pk.wp.data_ptr(), pk.bp.data_ptr(), pk.hw.data_ptr(), pk.hb.data_ptr(),
-                        _ptr(pk.wso), _ptr(pk.bso), pk.wch.data_ptr(), pk.bch.data_ptr(),
+                        ptr(pk.wso), ptr(pk.bso), pk.wch.data_ptr(), pk.bch.data_ptr(),
                         pk.wco.data_ptr(), pk.bco.data_ptr())
-        self.shape = (dims.width, dims.layers, _skip_mask(dims.skips, dims.layers),
+        self.shape = (dims.width, dims.layers, skip_mask(dims.skips, dims.layers),
                       freqs(dims.x_dim), freqs(dims.d_dim), dims.num_classes, dims.cwp, dims.cp,
                       int(dims.use_sem))
 
@@ -75,12 +65,12 @@ class EvalKernel:
         n, rays = pts.shape[0], dirs.shape[0]
         if samples < 1 or n != rays * samples:
             raise ValueError(f"{n} points are not {rays} rays x {samples} samples")
-        _check("pts", pts, f32, (n, 3), dev)
-        _check("dirs", dirs, f32, (rays, 3), dev)
+        check("pts", pts, f32, (n, 3), dev)
+        check("dirs", dirs, f32, (rays, 3), dev)
         if self.dims.grid_dim:
             if grid is None:
                 raise ValueError("a hybrid field's E needs the hash grid's features")
-            _check("grid features", grid, torch.bfloat16, (n, self.dims.grid_dim), dev)
+            check("grid features", grid, torch.bfloat16, (n, self.dims.grid_dim), dev)
         elif grid is not None:
             raise ValueError("grid features given to a field without a hash grid")
         sigma = torch.empty((n,), dtype=f32, device=dev)
@@ -88,13 +78,9 @@ class EvalKernel:
         sem = (torch.empty((n, self.dims.num_classes), dtype=f32, device=dev)
                if self.dims.use_sem else None)
         if n:
-            with torch.cuda.device(dev):
-                err = self.lib.field_eval_launch(
-                    pts.data_ptr(), dirs.data_ptr(), *self.weights, sigma.data_ptr(),
-                    rgb.data_ptr(), _ptr(sem), n, samples, *self.shape, _ptr(grid), _stream(dev))
-            if err != 0:
-                raise _launch_failed("evaluation field", err)
-            count("kernels.launch.E")
+            _nvcc.launch(self.lib.field_eval_launch, dev, pts.data_ptr(), dirs.data_ptr(),
+                         *self.weights, sigma.data_ptr(), rgb.data_ptr(), ptr(sem), n, samples,
+                         *self.shape, ptr(grid), kernel="evaluation field", counter="E")
         return sigma, rgb, sem
 
 
@@ -107,14 +93,11 @@ def field_eval_encodings_cuda(pts: torch.Tensor, dirs: torch.Tensor, samples: in
     if n < 1 or samples < 1 or n != rays * samples or not 0 <= x_freqs <= 10 \
             or not -1 <= d_freqs <= 4:
         raise ValueError("points, samples or bands out of range")
-    _check("pts", pts, torch.float32, (n, 3), pts.device)
-    _check("dirs", dirs, torch.float32, (rays, 3), pts.device)
+    check("pts", pts, torch.float32, (n, 3), pts.device)
+    check("dirs", dirs, torch.float32, (rays, 3), pts.device)
     x_out = torch.empty((n, 64), dtype=torch.bfloat16, device=pts.device)
     d_out = torch.empty_like(x_out)
-    with torch.cuda.device(pts.device):
-        err = load().field_eval_encode_launch(pts.data_ptr(), dirs.data_ptr(), x_out.data_ptr(),
-                                              d_out.data_ptr(), n, samples, x_freqs, d_freqs,
-                                              _stream(pts.device))
-    if err != 0:
-        raise _launch_failed("encoding probe", err)
+    _nvcc.launch(load().field_eval_encode_launch, pts.device, pts.data_ptr(), dirs.data_ptr(),
+                 x_out.data_ptr(), d_out.data_ptr(), n, samples, x_freqs, d_freqs,
+                 kernel="encoding probe", counter=None)
     return x_out, d_out

@@ -59,8 +59,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch.nn import functional as F
 
+from panopticnerf_tpu_torch.ops._nvcc import check
 from panopticnerf_tpu_torch.ops.mlp_train import (
     F_PAD,
+    MAX_LAYERS,
+    WIDTHS,
     pack_trunk,
     trunk_backward_plain,
     trunk_forward_plain,
@@ -69,6 +72,7 @@ from panopticnerf_tpu_torch.ops.mlp_train import (
 
 D_PAD = 32
 CO_PAD = 32
+HEAD_MAX = 128  # largest padded class count / colour width the CUDA kernels take
 
 
 def _round_up(v: int, m: int) -> int:
@@ -150,6 +154,33 @@ class FieldSaved(NamedTuple):
     s: Optional[torch.Tensor]  # (N, SH)
     feat: torch.Tensor  # (N, W)
     r: torch.Tensor     # (N, CWP)
+
+
+def check_packed(pk: FieldPacked, dims: FieldDims, dev: torch.device) -> None:
+    """Checks packed weights against `dims` and the field kernels' limits
+    (C, C' and the evaluation field E)."""
+    w = dims.width
+    if w not in WIDTHS:
+        raise ValueError(f"field width {w} not in {WIDTHS}")
+    if dims.sem_hidden != w // 2:
+        raise ValueError(f"sem_hidden {dims.sem_hidden} != width / 2 = {w // 2}")
+    if dims.cwp > HEAD_MAX or dims.cp > HEAD_MAX:
+        raise ValueError(f"colour width {dims.color_width} / classes {dims.num_classes} "
+                         f"exceed {HEAD_MAX}")
+    if not 1 <= dims.layers <= MAX_LAYERS:
+        raise ValueError(f"{dims.layers} layers outside [1, {MAX_LAYERS}]")
+    bf, f32 = torch.bfloat16, torch.float32
+    check("trunk weights", pk.wp, bf, (dims.layers, w + F_PAD, w), dev)
+    check("trunk biases", pk.bp, f32, (dims.layers, w), dev)
+    check("head weights", pk.hw, bf, (w + dims.grid_dim, dims.ho), dev)
+    check("head biases", pk.hb, f32, (dims.ho,), dev)
+    if dims.use_sem:
+        check("sem_out weights", pk.wso, bf, (dims.sem_hidden, dims.cp), dev)
+        check("sem_out biases", pk.bso, f32, (dims.cp,), dev)
+    check("colour weights", pk.wch, bf, (w + D_PAD, dims.cwp), dev)
+    check("colour biases", pk.bch, f32, (dims.cwp,), dev)
+    check("color_out weights", pk.wco, bf, (dims.cwp, CO_PAD), dev)
+    check("color_out biases", pk.bco, f32, (CO_PAD,), dev)
 
 
 def _params_by_name(params, dims: FieldDims) -> dict:

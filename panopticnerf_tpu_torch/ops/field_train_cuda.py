@@ -8,56 +8,38 @@ Same contracts as `ops.field_train.field_forward_plain` /
 `field_backward_plain`, their plain versions, on the packed layout of
 `ops.field_train`. The kernels take bf16 activations and weights, W in
 {64, 128, 256} with sem_hidden = W / 2, colour width and class count up to
-128, x_enc padded to 64 and d_enc to 32 columns, up to 32 layers; anything
-else raises. They launch on PyTorch's current stream and do not
-synchronise; each launch adds one to its counter, `kernels.launch.C` or
-`kernels.launch.C'` (utils/profiling.py; C' is one launch of the multi-pass
-backward, its recompute included).
+128, x_enc padded to 64 and d_enc to 32 columns, up to 32 layers (the
+limits of `ops.field_train.check_packed`); anything else raises. They
+launch through `ops/_nvcc.py`; counters `kernels.launch.C` and
+`kernels.launch.C'` (C' is one launch of the multi-pass backward, its
+recompute included).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops._nvcc import P, I, U, check, ptr
 from panopticnerf_tpu_torch.ops.field_train import (
     CO_PAD,
     D_PAD,
     FieldDims,
     FieldPacked,
     FieldSaved,
+    check_packed,
 )
-from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
-from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
-    BM,
-    MAX_LAYERS,
-    WIDTHS,
-    _check,
-    _launch_failed,
-    _skip_mask,
-    _stream,
-    weight_splits,
-)
-from panopticnerf_tpu_torch.utils.profiling import count
+from panopticnerf_tpu_torch.ops.mlp_train import BM, F_PAD, skip_mask, weight_splits
 
-HEAD_MAX = 128  # largest padded class count / colour width the kernels take
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_U = ctypes.c_uint
+SIGNATURES = {"field_fwd_launch": [P] * 18 + [I, I, I, U, I, I, I, I, P],
+              "field_bwd_launch": [P] * 33 + [I, I, I, U] + [I] * 7 + [P]}
 
 
-def load() -> ctypes.CDLL:
+def load():
     """Build (first call only) and load the kernel library."""
-    lib = _nvcc.load("field_train")
-    lib.field_fwd_launch.argtypes = [_P] * 18 + [_I, _I, _I, _U, _I, _I, _I, _I, _P]
-    lib.field_fwd_launch.restype = _I
-    lib.field_bwd_launch.argtypes = [_P] * 33 + [_I, _I, _I, _U] + [_I] * 7 + [_P]
-    lib.field_bwd_launch.restype = _I
-    return lib
+    return _nvcc.load("field_train", SIGNATURES)
 
 
 def forward_plan_bytes(n: int, dims: FieldDims) -> int:
@@ -105,37 +87,6 @@ def heads_partials(n: int, dims: FieldDims) -> tuple:
     return 2 * -(-n // BM), dims.ho + dims.cp + dims.cwp + CO_PAD
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def check_packed(pk: FieldPacked, dims: FieldDims, dev: torch.device) -> None:
-    """Checks packed weights against `dims` and the field kernels' limits
-    (C, C' and the evaluation field E)."""
-    w = dims.width
-    if w not in WIDTHS:
-        raise ValueError(f"field width {w} not in {WIDTHS}")
-    if dims.sem_hidden != w // 2:
-        raise ValueError(f"sem_hidden {dims.sem_hidden} != width / 2 = {w // 2}")
-    if dims.cwp > HEAD_MAX or dims.cp > HEAD_MAX:
-        raise ValueError(f"colour width {dims.color_width} / classes {dims.num_classes} "
-                         f"exceed {HEAD_MAX}")
-    if not 1 <= dims.layers <= MAX_LAYERS:
-        raise ValueError(f"{dims.layers} layers outside [1, {MAX_LAYERS}]")
-    bf, f32 = torch.bfloat16, torch.float32
-    _check("trunk weights", pk.wp, bf, (dims.layers, w + F_PAD, w), dev)
-    _check("trunk biases", pk.bp, f32, (dims.layers, w), dev)
-    _check("head weights", pk.hw, bf, (w + dims.grid_dim, dims.ho), dev)
-    _check("head biases", pk.hb, f32, (dims.ho,), dev)
-    if dims.use_sem:
-        _check("sem_out weights", pk.wso, bf, (dims.sem_hidden, dims.cp), dev)
-        _check("sem_out biases", pk.bso, f32, (dims.cp,), dev)
-    _check("colour weights", pk.wch, bf, (w + D_PAD, dims.cwp), dev)
-    _check("colour biases", pk.bch, f32, (dims.cwp,), dev)
-    _check("color_out weights", pk.wco, bf, (dims.cwp, CO_PAD), dev)
-    _check("color_out biases", pk.bco, f32, (CO_PAD,), dev)
-
-
 def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDims) -> int:
     """Checks the inputs and the packed weights against `dims`; -> n."""
     if xp.device.type != "cuda":
@@ -146,12 +97,12 @@ def _validate(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims: FieldDi
     if dims.grid_dim:
         raise ValueError("kernels C / C' take no hash grid features")
     check_packed(pk, dims, xp.device)
-    _check("x", xp, torch.bfloat16, (n, F_PAD), xp.device)
-    _check("d", dp, torch.bfloat16, (n, D_PAD), xp.device)
+    check("x", xp, torch.bfloat16, (n, F_PAD), xp.device)
+    check("d", dp, torch.bfloat16, (n, D_PAD), xp.device)
     return n
 
 
-def _launch_forward(lib, xp, dp, pk: FieldPacked, dims: FieldDims, n: int):
+def _launch_forward(lib, xp, dp, pk: FieldPacked, dims: FieldDims, n: int, counter):
     dev, bf = xp.device, torch.bfloat16
     w = dims.width
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -162,16 +113,14 @@ def _launch_forward(lib, xp, dp, pk: FieldPacked, dims: FieldDims, n: int):
         s=torch.empty((n, dims.sem_hidden), dtype=bf, device=dev) if dims.use_sem else None,
         feat=torch.empty((n, w), dtype=bf, device=dev),
         r=torch.empty((n, dims.cwp), dtype=bf, device=dev))
-    with torch.cuda.device(dev):
-        err = lib.field_fwd_launch(
-            xp.data_ptr(), dp.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
-            pk.hw.data_ptr(), pk.hb.data_ptr(), _ptr(pk.wso), _ptr(pk.bso), pk.wch.data_ptr(),
-            pk.bch.data_ptr(), pk.wco.data_ptr(), pk.bco.data_ptr(), out.data_ptr(), _ptr(sem),
-            saved.acts.data_ptr(), _ptr(saved.s), saved.feat.data_ptr(), saved.r.data_ptr(),
-            n, w, dims.layers, _skip_mask(dims.skips, dims.layers), dims.num_classes, dims.cwp,
-            dims.cp, int(dims.use_sem), _stream(dev))
-    if err != 0:
-        raise _launch_failed("field forward", err)
+    _nvcc.launch(
+        lib.field_fwd_launch, dev,
+        xp.data_ptr(), dp.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
+        pk.hw.data_ptr(), pk.hb.data_ptr(), ptr(pk.wso), ptr(pk.bso), pk.wch.data_ptr(),
+        pk.bch.data_ptr(), pk.wco.data_ptr(), pk.bco.data_ptr(), out.data_ptr(), ptr(sem),
+        saved.acts.data_ptr(), ptr(saved.s), saved.feat.data_ptr(), saved.r.data_ptr(),
+        n, w, dims.layers, skip_mask(dims.skips, dims.layers), dims.num_classes, dims.cwp,
+        dims.cp, int(dims.use_sem), kernel="field forward", counter=counter)
     return out, sem, saved
 
 
@@ -179,9 +128,7 @@ def field_forward_cuda(xp: torch.Tensor, dp: torch.Tensor, pk: FieldPacked, dims
     """Kernel C: xp (N, 64), dp (N, 32) bf16, packed weights -> (out (N, 4)
     f32 = [sigma | rgb logits], sem (N, C) f32 or None, FieldSaved)."""
     n = _validate(xp, dp, pk, dims)
-    res = _launch_forward(load(), xp, dp, pk, dims, n)
-    count("kernels.launch.C")
-    return res
+    return _launch_forward(load(), xp, dp, pk, dims, n, "C")
 
 
 def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
@@ -196,20 +143,20 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
     n = _validate(xp, dp, pk, dims)
     dev, bf, f32 = xp.device, torch.bfloat16, torch.float32
     w, layers = dims.width, dims.layers
-    mask = _skip_mask(dims.skips, layers)
+    mask = skip_mask(dims.skips, layers)
     if dw_dtype not in (bf, f32):
         raise TypeError(f"dW dtype {dw_dtype} is neither bfloat16 nor float32")
-    _check("g_out", g_out, f32, (n, 4), dev)
+    check("g_out", g_out, f32, (n, 4), dev)
     if dims.use_sem:
-        _check("g_sem", g_sem, f32, (n, dims.num_classes), dev)
+        check("g_sem", g_sem, f32, (n, dims.num_classes), dev)
     lib = load()
-    if saved is None:
-        saved = _launch_forward(lib, xp, dp, pk, dims, n)[2]
-    _check("acts", saved.acts, bf, (layers, n, w), dev)
+    if saved is None:  # the recompute is a pass of C' (module docstring), not a launch of C
+        saved = _launch_forward(lib, xp, dp, pk, dims, n, None)[2]
+    check("acts", saved.acts, bf, (layers, n, w), dev)
     if dims.use_sem:
-        _check("s", saved.s, bf, (n, dims.sem_hidden), dev)
-    _check("feat", saved.feat, bf, (n, w), dev)
-    _check("r", saved.r, bf, (n, dims.cwp), dev)
+        check("s", saved.s, bf, (n, dims.sem_hidden), dev)
+    check("feat", saved.feat, bf, (n, w), dev)
+    check("r", saved.r, bf, (n, dims.cwp), dev)
 
     splits, chunk = weight_splits(n)
     blocks = -(-n // BM)
@@ -231,21 +178,18 @@ def field_backward_cuda(xp: torch.Tensor, dp: torch.Tensor, g_out: torch.Tensor,
     dwso = e(sh, cp, dt=dw_dtype) if dims.use_sem else None
     dwch, dwco = e(w + D_PAD, cwp, dt=dw_dtype), e(cwp, CO_PAD, dt=dw_dtype)
     db_h = e(hb_len)
-    with torch.cuda.device(dev):
-        err = lib.field_bwd_launch(
-            xp.data_ptr(), dp.data_ptr(), pk.wp.data_ptr(), pk.hw.data_ptr(), _ptr(pk.wso),
-            pk.wch.data_ptr(), pk.wco.data_ptr(), saved.acts.data_ptr(), _ptr(saved.s),
-            saved.feat.data_ptr(), saved.r.data_ptr(), g_out.data_ptr(), _ptr(g_sem),
-            g_h.data_ptr(), gbuf.data_ptr(), gb_co.data_ptr(), gb_r.data_ptr(), _ptr(gb_sem),
-            gb_ho.data_ptr(), db_part_t.data_ptr(), db_part_h.data_ptr(), gx_part.data_ptr(),
-            dw_part_t.data_ptr(), part.data_ptr(), dx.data_ptr(), dd.data_ptr(), dwp.data_ptr(),
-            dbp.data_ptr(), dhw.data_ptr(), _ptr(dwso), dwch.data_ptr(), dwco.data_ptr(),
-            db_h.data_ptr(),
-            n, w, layers, mask, dims.num_classes, cwp, cp, int(dims.use_sem), splits, chunk,
-            int(dw_dtype == f32), _stream(dev))
-    if err != 0:
-        raise _launch_failed("field backward", err)
-    count("kernels.launch.C'")
+    _nvcc.launch(
+        lib.field_bwd_launch, dev,
+        xp.data_ptr(), dp.data_ptr(), pk.wp.data_ptr(), pk.hw.data_ptr(), ptr(pk.wso),
+        pk.wch.data_ptr(), pk.wco.data_ptr(), saved.acts.data_ptr(), ptr(saved.s),
+        saved.feat.data_ptr(), saved.r.data_ptr(), g_out.data_ptr(), ptr(g_sem),
+        g_h.data_ptr(), gbuf.data_ptr(), gb_co.data_ptr(), gb_r.data_ptr(), ptr(gb_sem),
+        gb_ho.data_ptr(), db_part_t.data_ptr(), db_part_h.data_ptr(), gx_part.data_ptr(),
+        dw_part_t.data_ptr(), part.data_ptr(), dx.data_ptr(), dd.data_ptr(), dwp.data_ptr(),
+        dbp.data_ptr(), dhw.data_ptr(), ptr(dwso), dwch.data_ptr(), dwco.data_ptr(),
+        db_h.data_ptr(),
+        n, w, layers, mask, dims.num_classes, cwp, cp, int(dims.use_sem), splits, chunk,
+        int(dw_dtype == f32), kernel="field backward", counter="C'")
     dhb, dbso, dbch, dbco = torch.split(db_h, [ho, cp, cwp, CO_PAD])
     grads = FieldPacked(dwp, dbp, dhw, dhb, dwso, dbso if dims.use_sem else None, dwch, dbch,
                         dwco, dbco)

@@ -5,9 +5,8 @@
 `(pts (P, 3) float32) -> g (P, 32) bf16` then checks only its points and
 launches: the encoding of `ops.hash_grid.hash_grid_encode` rounded to bf16,
 bit for bit (the kernel keeps the plain version's order of operations and
-contracts no multiply-add). Other tables raise. It launches on PyTorch's current stream and does not
-synchronise; each launch adds one to the counter `kernels.launch.G`
-(utils/profiling.py).
+contracts no multiply-add). Other tables raise. It launches through
+`ops/_nvcc.py`; counter `kernels.launch.G`.
 """
 
 from __future__ import annotations
@@ -17,21 +16,16 @@ import ctypes
 import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops._nvcc import P, I, check
 from panopticnerf_tpu_torch.ops.hash_grid import GRID
-from panopticnerf_tpu_torch.ops.mlp_train_cuda import _check, _launch_failed, _stream
-from panopticnerf_tpu_torch.utils.profiling import count
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+SIGNATURES = {"hash_grid_launch": [P, ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(I),
+                                   I, I, I, P, P]}
 
 
-def load() -> ctypes.CDLL:
+def load():
     """Build (first call only) and load the kernel library."""
-    lib = _nvcc.load("hash_grid")
-    lib.hash_grid_launch.argtypes = [_P, ctypes.POINTER(_P), ctypes.POINTER(_I),
-                                     ctypes.POINTER(_I), _I, _I, _I, _P, _P]
-    lib.hash_grid_launch.restype = _I
-    return lib
+    return _nvcc.load("hash_grid", SIGNATURES)
 
 
 class GridKernel:
@@ -45,22 +39,18 @@ class GridKernel:
         if len(tables) != GRID.levels:
             raise ValueError(f"{len(tables)} tables for {GRID.levels} levels")
         for level, (t, rows) in enumerate(zip(tables, GRID.rows)):
-            _check(f"table {level}", t, torch.float32, (rows, GRID.features), self.device)
+            check(f"table {level}", t, torch.float32, (rows, GRID.features), self.device)
         self.tables, self.lib = list(tables), load()
-        self._ptrs = (_P * GRID.levels)(*[t.data_ptr() for t in self.tables])
-        self._res = (_I * GRID.levels)(*GRID.resolutions)
-        self._dense = (_I * GRID.levels)(*[int(d) for d in GRID.dense])
+        self._ptrs = (P * GRID.levels)(*[t.data_ptr() for t in self.tables])
+        self._res = (I * GRID.levels)(*GRID.resolutions)
+        self._dense = (I * GRID.levels)(*[int(d) for d in GRID.dense])
 
     def __call__(self, pts: torch.Tensor) -> torch.Tensor:
         n = pts.shape[0]
-        _check("pts", pts, torch.float32, (n, 3), self.device)
+        check("pts", pts, torch.float32, (n, 3), self.device)
         out = torch.empty((n, GRID.dim), dtype=torch.bfloat16, device=self.device)
         if n:
-            with torch.cuda.device(self.device):
-                err = self.lib.hash_grid_launch(pts.data_ptr(), self._ptrs, self._res, self._dense,
-                                                GRID.levels, GRID.log2_table, n,
-                                                out.data_ptr(), _stream(self.device))
-            if err != 0:
-                raise _launch_failed("hash grid", err)
-            count("kernels.launch.G")
+            _nvcc.launch(self.lib.hash_grid_launch, self.device, pts.data_ptr(), self._ptrs,
+                         self._res, self._dense, GRID.levels, GRID.log2_table, n, out.data_ptr(),
+                         kernel="hash grid", counter="G")
         return out

@@ -9,40 +9,30 @@ Two wrappers over the one kernel, each replacing a TPU kernel of
   plain version `ops.intersect.intersect_groups_plain`.
 `intersect_plan` gives a launch's lanes per ray and grid;
 `intersect_plan_bytes` the bytes A1 / A2 must move (their byte bound).
-The library is built with nvcc on first use (`ops/_nvcc.py`) and bound
-through ctypes; the kernel launches on PyTorch's current stream and does
-not synchronise. Each launch adds one to its counter, `kernels.launch.A1` or
-`kernels.launch.A2` (utils/profiling.py).
+The kernel launches through `ops/_nvcc.py`; counters `kernels.launch.A1`
+and `kernels.launch.A2`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops._nvcc import P, I, F, check
 from panopticnerf_tpu_torch.ops.intersect import Primitives, RayIntervals
-from panopticnerf_tpu_torch.utils.profiling import count
 
 MAX_K = 32
 SMEM_LIMIT = 48 * 1024  # bytes of shared memory without an opt-in attribute
 THREADS = 256           # threads per block (csrc/intersect.cu kThreads)
 BLOCKS_PER_SM = 4       # blocks of all groups together, per SM, that fill the card
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
+SIGNATURES = {"intersect_rays_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F,
+                                        P, P, P, P, P, I, I, P]}
 
 
-def load() -> ctypes.CDLL:
+def load():
     """Build (first call only) and load the kernel library."""
-    lib = _nvcc.load("intersect")
-    fn = lib.intersect_rays_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                   _P, _P, _P, _P, _P, _I, _I, _P]
-    fn.restype = ctypes.c_int
-    return lib
+    return _nvcc.load("intersect", SIGNATURES)
 
 
 def intersect_plan(g: int, m: int, p: int, k: int, sms: int) -> tuple[int, int]:
@@ -80,20 +70,8 @@ def _sm_count(dev: torch.device) -> int:
     return _sms[i]
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(rays_o: torch.Tensor, rays_d: torch.Tensor, prims: Primitives,
-            near: float, far: float, k: int) -> RayIntervals:
+            near: float, far: float, k: int, counter: str) -> RayIntervals:
     """rays (G, M, 3), tables with a leading G -> RayIntervals (G, M, K)."""
     dev = rays_o.device
     if dev.type != "cuda":
@@ -107,14 +85,14 @@ def _launch(rays_o: torch.Tensor, rays_d: torch.Tensor, prims: Primitives,
     if smem > SMEM_LIMIT:
         raise ValueError(f"primitive table of P={p}, F={f} needs {smem} bytes "
                          f"of shared memory (> {SMEM_LIMIT})")
-    _check("rays_o", rays_o, torch.float32, (g, m, 3), dev)
-    _check("rays_d", rays_d, torch.float32, (g, m, 3), dev)
-    _check("world_to_prim", prims.world_to_prim, torch.float32, (g, p, 3, 4), dev)
-    _check("semantic", prims.semantic, torch.int32, (g, p), dev)
-    _check("instance", prims.instance, torch.int32, (g, p), dev)
-    _check("valid", prims.valid, torch.bool, (g, p), dev)
+    check("rays_o", rays_o, torch.float32, (g, m, 3), dev)
+    check("rays_d", rays_d, torch.float32, (g, m, 3), dev)
+    check("world_to_prim", prims.world_to_prim, torch.float32, (g, p, 3, 4), dev)
+    check("semantic", prims.semantic, torch.int32, (g, p), dev)
+    check("instance", prims.instance, torch.int32, (g, p), dev)
+    check("valid", prims.valid, torch.bool, (g, p), dev)
     if f:
-        _check("cut_planes", prims.cut_planes, torch.float32, (g, p, f, 4), dev)
+        check("cut_planes", prims.cut_planes, torch.float32, (g, p, f, 4), dev)
 
     t_in = torch.empty((g, m, k), dtype=torch.float32, device=dev)
     t_out = torch.empty((g, m, k), dtype=torch.float32, device=dev)
@@ -122,18 +100,14 @@ def _launch(rays_o: torch.Tensor, rays_d: torch.Tensor, prims: Primitives,
     inst = torch.empty((g, m, k), dtype=torch.int32, device=dev)
     mask = torch.empty((g, m, k), dtype=torch.bool, device=dev)
     lanes, blocks = intersect_plan(g, m, p, k, _sm_count(dev)) if g and m else (MAX_K, 1)
-    lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.intersect_rays_launch(
-            rays_o.data_ptr(), rays_d.data_ptr(), prims.world_to_prim.data_ptr(),
-            prims.semantic.data_ptr(), prims.instance.data_ptr(),
-            prims.valid.data_ptr(), prims.cut_planes.data_ptr() if f else None,
-            g, m, p, f, k, float(near), float(far),
-            t_in.data_ptr(), t_out.data_ptr(), sem.data_ptr(), inst.data_ptr(),
-            mask.data_ptr(), lanes, blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"intersect kernel launch failed: CUDA error {err}")
+    _nvcc.launch(
+        load().intersect_rays_launch, dev,
+        rays_o.data_ptr(), rays_d.data_ptr(), prims.world_to_prim.data_ptr(),
+        prims.semantic.data_ptr(), prims.instance.data_ptr(),
+        prims.valid.data_ptr(), prims.cut_planes.data_ptr() if f else None,
+        g, m, p, f, k, float(near), float(far),
+        t_in.data_ptr(), t_out.data_ptr(), sem.data_ptr(), inst.data_ptr(),
+        mask.data_ptr(), lanes, blocks, kernel="intersect", counter=counter)
     return RayIntervals(t_in=t_in, t_out=t_out, semantic=sem, instance=inst, mask=mask)
 
 
@@ -145,8 +119,7 @@ def intersect_rays_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
     if rays_o.dim() != 2:
         raise ValueError(f"rays_o must be (N, 3), got {tuple(rays_o.shape)}")
     one = Primitives(*[None if a is None else a[None] for a in prims])
-    out = _launch(rays_o[None], rays_d[None], one, near, far, k)
-    count("kernels.launch.A1")
+    out = _launch(rays_o[None], rays_d[None], one, near, far, k, "A1")
     return RayIntervals(*[x[0] for x in out])
 
 
@@ -157,6 +130,4 @@ def intersect_groups_cuda(rays_o: torch.Tensor, rays_d: torch.Tensor,
     RayIntervals (G, M, K) (kernel A2: replaces `intersect_groups_pallas`)."""
     if rays_o.dim() != 3:
         raise ValueError(f"rays_o must be (G, M, 3), got {tuple(rays_o.shape)}")
-    out = _launch(rays_o, rays_d, prims, near, far, k)
-    count("kernels.launch.A2")
-    return out
+    return _launch(rays_o, rays_d, prims, near, far, k, "A2")

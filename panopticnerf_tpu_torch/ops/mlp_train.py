@@ -39,6 +39,31 @@ import torch
 
 F_PAD = 64
 
+# The CUDA tile engine's limits on this layout (kernels B / B', and C / C' / E
+# through `ops/field_train.py`)
+WIDTHS = (64, 128, 256)
+MAX_LAYERS = 32
+SPLIT_POINTS = 4096  # points per split of the weight pass (at most MAX_SPLITS splits)
+MAX_SPLITS = 32
+POINT_STEP = 64      # points per ring stage of the weight pass: each split's size is a multiple
+BM = 128             # points per tile of the forward / data pass
+
+
+def skip_mask(skips, layers: int) -> int:
+    """The kernels' bit mask of the skip layers (bit s: layer s reads [h, x_enc])."""
+    if any(not 0 < s < layers for s in skips):
+        raise ValueError(f"skips {skips} must lie in [1, {layers})")
+    return sum(1 << s for s in skips)
+
+
+def weight_splits(n: int) -> tuple:
+    """(splits, chunk) of the split-K weight pass over n points: split s
+    takes points [s * chunk, min(n, (s + 1) * chunk)); chunk is a multiple
+    of POINT_STEP, so that no ring stage of a split reaches into the next."""
+    splits = max(1, min(MAX_SPLITS, -(-n // SPLIT_POINTS)))
+    per_split = -(-n // splits)
+    return splits, -(-per_split // POINT_STEP) * POINT_STEP
+
 
 def pack_trunk(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
                skips: tuple[int, ...], dtype: torch.dtype):

@@ -7,61 +7,33 @@
 Same contracts as `ops.mlp_train.trunk_forward_plain` /
 `trunk_backward_plain`, their plain versions. The kernels take bf16
 activations and weights, W in {64, 128, 256}, x_enc padded to 64 columns
-and up to 32 layers; anything else raises. They launch on PyTorch's current
-stream and do not synchronise; each launch adds one to its counter,
-`kernels.launch.B` or `kernels.launch.B'` (utils/profiling.py; B' is one
-launch of the three-pass backward).
+and up to 32 layers (the limits in `ops.mlp_train`); anything else raises.
+They launch through `ops/_nvcc.py`; counters `kernels.launch.B` and
+`kernels.launch.B'` (B' is one launch of the three-pass backward).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from panopticnerf_tpu_torch.ops import _nvcc
-from panopticnerf_tpu_torch.ops.mlp_train import F_PAD
-from panopticnerf_tpu_torch.utils.profiling import count
+from panopticnerf_tpu_torch.ops._nvcc import P, I, U, check
+from panopticnerf_tpu_torch.ops.mlp_train import (
+    BM,
+    F_PAD,
+    MAX_LAYERS,
+    WIDTHS,
+    skip_mask,
+    weight_splits,
+)
 
-WIDTHS = (64, 128, 256)
-MAX_LAYERS = 32
-SPLIT_POINTS = 4096  # points per split of the weight pass (at most MAX_SPLITS splits)
-MAX_SPLITS = 32
-POINT_STEP = 64      # points per ring stage of the weight pass: each split's size is a multiple
-BM = 128             # points per tile of the forward / data pass
-TMA_ENCODE_FAILED = 9001  # kTmaEncodeFailed (csrc/hopper.cuh): not a CUDA error code
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_U = ctypes.c_uint
+SIGNATURES = {"trunk_fwd_launch": [P, P, P, P, I, I, I, U, P],
+              "trunk_bwd_launch": [P] * 11 + [I, I, I, U, I, I, P]}
 
 
-def load() -> ctypes.CDLL:
+def load():
     """Build (first call only) and load the kernel library."""
-    lib = _nvcc.load("mlp_train")
-    lib.trunk_fwd_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _U, _P]
-    lib.trunk_fwd_launch.restype = _I
-    lib.trunk_bwd_launch.argtypes = [_P] * 11 + [_I, _I, _I, _U, _I, _I, _P]
-    lib.trunk_bwd_launch.restype = _I
-    return lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _skip_mask(skips, layers: int) -> int:
-    if any(not 0 < s < layers for s in skips):
-        raise ValueError(f"skips {skips} must lie in [1, {layers})")
-    return sum(1 << s for s in skips)
+    return _nvcc.load("mlp_train", SIGNATURES)
 
 
 def _dims(xp: torch.Tensor, wp: torch.Tensor):
@@ -78,15 +50,6 @@ def _dims(xp: torch.Tensor, wp: torch.Tensor):
     if n < 1:
         raise ValueError("no points")
     return n, layers, width
-
-
-def weight_splits(n: int) -> tuple:
-    """(splits, chunk) of the split-K weight pass over n points: split s
-    takes points [s * chunk, min(n, (s + 1) * chunk)); chunk is a multiple
-    of POINT_STEP, so that no ring stage of a split reaches into the next."""
-    splits = max(1, min(MAX_SPLITS, -(-n // SPLIT_POINTS)))
-    per_split = -(-n // splits)
-    return splits, -(-per_split // POINT_STEP) * POINT_STEP
 
 
 def forward_plan_bytes(n: int, width: int, layers: int) -> int:
@@ -112,34 +75,19 @@ def backward_plan_bytes(n: int, width: int, layers: int, skips) -> tuple:
     return data, weight
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _launch_failed(kernel: str, err: int) -> RuntimeError:
-    why = ("a TMA descriptor could not be encoded" if err == TMA_ENCODE_FAILED
-           else f"CUDA error {err}")
-    return RuntimeError(f"{kernel} kernel launch failed: {why}")
-
-
 def trunk_forward_cuda(xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
                        skips) -> torch.Tensor:
     """Kernel B: xp (N, 64) bf16, wp (L, W + 64, W) bf16, bp (L, W) f32 ->
     every layer's bf16 activation (L, N, W); the last is the output."""
     n, layers, width = _dims(xp, wp)
     dev = xp.device
-    _check("x", xp, torch.bfloat16, (n, F_PAD), dev)
-    _check("weights", wp, torch.bfloat16, (layers, width + F_PAD, width), dev)
-    _check("biases", bp, torch.float32, (layers, width), dev)
-    mask = _skip_mask(skips, layers)
+    check("x", xp, torch.bfloat16, (n, F_PAD), dev)
+    check("weights", wp, torch.bfloat16, (layers, width + F_PAD, width), dev)
+    check("biases", bp, torch.float32, (layers, width), dev)
+    mask = skip_mask(skips, layers)
     acts = torch.empty((layers, n, width), dtype=torch.bfloat16, device=dev)
-    lib = load()
-    with torch.cuda.device(dev):
-        err = lib.trunk_fwd_launch(xp.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                                   acts.data_ptr(), n, width, layers, mask, _stream(dev))
-    if err != 0:
-        raise _launch_failed("trunk forward", err)
-    count("kernels.launch.B")
+    _nvcc.launch(load().trunk_fwd_launch, dev, xp.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+                 acts.data_ptr(), n, width, layers, mask, kernel="trunk forward", counter="B")
     return acts
 
 
@@ -150,11 +98,11 @@ def trunk_backward_cuda(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
     db (L, W) f32)."""
     n, layers, width = _dims(xp, wp)
     dev = xp.device
-    _check("x", xp, torch.bfloat16, (n, F_PAD), dev)
-    _check("acts", acts, torch.bfloat16, (layers, n, width), dev)
-    _check("g", g, torch.float32, (n, width), dev)
-    _check("weights", wp, torch.bfloat16, (layers, width + F_PAD, width), dev)
-    mask = _skip_mask(skips, layers)
+    check("x", xp, torch.bfloat16, (n, F_PAD), dev)
+    check("acts", acts, torch.bfloat16, (layers, n, width), dev)
+    check("g", g, torch.float32, (n, width), dev)
+    check("weights", wp, torch.bfloat16, (layers, width + F_PAD, width), dev)
+    mask = skip_mask(skips, layers)
     splits, chunk = weight_splits(n)
     tiles = -(-n // BM)
     gbuf = torch.empty((layers, n, width), dtype=torch.bfloat16, device=dev)
@@ -166,13 +114,9 @@ def trunk_backward_cuda(xp: torch.Tensor, acts: torch.Tensor, g: torch.Tensor,
     dx = torch.empty((n, F_PAD), dtype=torch.bfloat16, device=dev)
     dwp = torch.empty((layers, width + F_PAD, width), dtype=torch.bfloat16, device=dev)
     dbp = torch.empty((layers, width), dtype=torch.float32, device=dev)
-    lib = load()
-    with torch.cuda.device(dev):
-        err = lib.trunk_bwd_launch(
-            xp.data_ptr(), wp.data_ptr(), acts.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
-            db_part.data_ptr(), gx_part.data_ptr(), dw_part.data_ptr(), dx.data_ptr(),
-            dwp.data_ptr(), dbp.data_ptr(), n, width, layers, mask, splits, chunk, _stream(dev))
-    if err != 0:
-        raise _launch_failed("trunk backward", err)
-    count("kernels.launch.B'")
+    _nvcc.launch(load().trunk_bwd_launch, dev,
+                 xp.data_ptr(), wp.data_ptr(), acts.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
+                 db_part.data_ptr(), gx_part.data_ptr(), dw_part.data_ptr(), dx.data_ptr(),
+                 dwp.data_ptr(), dbp.data_ptr(), n, width, layers, mask, splits, chunk,
+                 kernel="trunk backward", counter="B'")
     return dx, dwp, dbp

@@ -5,11 +5,11 @@
 view's rays are padded to a multiple of `render.ray_tile` x W, and rank r
 renders tiles r, r + W, r + 2W, ... (the tiles JAX's sharded map gives
 device r), after intersecting its own rays (kernel A1 on the card, once
-per view on every rank). The per-ray maps are then gathered, so every
-rank holds the whole view, as JAX replicates them to every host. Each
-tile is the tile `render_image_rays` renders, with the same rays,
-intervals and zero padding, so the maps equal the single-process
-render's.
+per view on every rank), through the renderer's own tile loop
+(`render_tiles`). The per-ray maps are then gathered, so every rank holds
+the whole view, as JAX replicates them to every host. Each tile is the
+tile `render_image_rays` renders, with the same rays, intervals and zero
+padding, so the maps equal the single-process render's.
 """
 
 from __future__ import annotations
@@ -19,15 +19,13 @@ from typing import Optional
 import torch
 
 from panopticnerf_tpu_torch.config import Config
-from panopticnerf_tpu_torch.models.eval_field import eval_field
-from panopticnerf_tpu_torch.ops.intersect import Primitives, RayIntervals, intersect_rays
+from panopticnerf_tpu_torch.ops.intersect import Primitives, intersect_rays
 from panopticnerf_tpu_torch.parallel.distributed import World
 from panopticnerf_tpu_torch.render.renderer import (
-    N_RAY_FIELDS,
     RenderOut,
     SceneBounds,
     eval_render_cfg,
-    render_rays,
+    render_tiles,
 )
 
 
@@ -53,19 +51,11 @@ def render_image_rays_sharded(model, rays_o, rays_d, bounds: SceneBounds, cfg: C
         for x in iv:  # padding rows get the zero intervals render_image_rays pads with
             x[n_real:] = 0
 
-    model = eval_field(model, cfg.model, dev)  # bound once for the view's tiles
-    parts = []
-    for s in range(0, len(idx), tile):
-        iv_t = RayIntervals(*[x[s:s + tile] for x in iv]) if iv is not None else None
-        out = render_rays(model, ro[s:s + tile], rd[s:s + tile], bounds, rcfg, iv=iv_t,
-                          train=False)
-        parts.append(out[:N_RAY_FIELDS])
     fields = []
-    for i in range(N_RAY_FIELDS):
-        if parts[0][i] is None:
+    for mine in render_tiles(model, ro, rd, bounds, rcfg, iv):  # (n_steps * tile, ...)
+        if mine is None:
             fields.append(None)
             continue
-        mine = torch.cat([p[i] for p in parts])                 # (n_steps * tile, ...)
         every = world.all_gather(mine)                          # (W, n_steps * tile, ...)
         every = every.reshape((w, n_steps, tile) + mine.shape[1:]).transpose(0, 1)
         fields.append(every.reshape((-1,) + mine.shape[1:])[:n])

@@ -11,9 +11,9 @@ from a `torch.Generator` or, for replaying a reference's draws, from a
 `RenderDraws`. The evaluation branch keeps the render.eval_keep_samples
 best-weighted fine depths when that is set (`ops.sampling.topm_eval_select`).
 `render_image_rays` renders a whole view as a loop over tiles of
-`render.ray_tile` rays; `intersect_and_render` intersects first, and every
-full-image render of the port goes through it (over the ranks of a
-distributed world, `parallel/render.py`).
+`render.ray_tile` rays (`render_tiles`, which the tile-sharded render of
+`parallel/render.py` runs too); `intersect_and_render` intersects first,
+and every full-image render of the port goes through it.
 
 Spans (utils/profiling.py): `render.view` around `intersect_and_render`,
 `render.intersect` inside it, and per tile and level
@@ -245,31 +245,41 @@ def eval_render_cfg(cfg: Config) -> Config:
 
 
 @torch.no_grad()
+def render_tiles(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
+                 iv: Optional[RayIntervals]) -> list:
+    """The evaluation render of rays (and intervals) whose count is a
+    multiple of `render.ray_tile`, tile by tile, with `cfg` the
+    `eval_render_cfg` of the view: the evaluation field is bound once for
+    all the tiles (`eval_field` gives a bound field back as it is); -> the
+    N_RAY_FIELDS per-ray fields (None where the render gives none),
+    concatenated over the tiles."""
+    tile = cfg.render.ray_tile
+    model = eval_field(model, cfg.model, rays_o.device)
+    tiles = []
+    for s in range(0, rays_o.shape[0], tile):
+        iv_t = RayIntervals(*[x[s:s + tile] for x in iv]) if iv is not None else None
+        out = render_rays(model, rays_o[s:s + tile], rays_d[s:s + tile], bounds, cfg,
+                          iv=iv_t, train=False)
+        tiles.append(out[:N_RAY_FIELDS])  # per-sample extras dropped
+    return [None if tiles[0][i] is None else torch.cat([t[i] for t in tiles])
+            for i in range(N_RAY_FIELDS)]
+
+
+@torch.no_grad()
 def render_image_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
                       iv: Optional[RayIntervals] = None) -> RenderOut:
     """Full-image render: pad rays (and intervals) with zeros to a tile
     multiple, render tile by tile, drop the per-sample extras and the
     padding. Returns a RenderOut with leading dim = n_rays."""
     cfg = eval_render_cfg(cfg)
-    tile = cfg.render.ray_tile
     n = rays_o.shape[0]
-    n_pad = (-n) % tile
+    n_pad = (-n) % cfg.render.ray_tile
     count("render.rays", n)
     count("render.rays_padded", n_pad)
     pad = lambda a: torch.cat([a, a.new_zeros((n_pad,) + a.shape[1:])]) if n_pad else a
-    ro, rd = pad(rays_o), pad(rays_d)
     iv_p = RayIntervals(*[pad(x) for x in iv]) if iv is not None else None
-    model = eval_field(model, cfg.model, rays_o.device)  # bound once for the view's tiles
-
-    tiles = []
-    for s in range(0, n + n_pad, tile):
-        iv_t = RayIntervals(*[x[s:s + tile] for x in iv_p]) if iv_p is not None else None
-        out = render_rays(model, ro[s:s + tile], rd[s:s + tile], bounds, cfg,
-                          iv=iv_t, train=False)
-        tiles.append(out[:N_RAY_FIELDS])  # per-sample extras dropped
-    fields = [None if tiles[0][i] is None else torch.cat([t[i] for t in tiles])[:n]
-              for i in range(N_RAY_FIELDS)]
-    return RenderOut(*fields)
+    fields = render_tiles(model, pad(rays_o), pad(rays_d), bounds, cfg, iv_p)
+    return RenderOut(*[None if f is None else f[:n] for f in fields])
 
 
 def intersect_and_render(cfg: Config, model, rays_o, rays_d, prims: Optional[Primitives],

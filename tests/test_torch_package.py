@@ -1,8 +1,9 @@
 """Package-level checks of the PyTorch port: it imports no JAX (nor flax,
 optax, orbax, nor any module of the JAX package) and no PIL (the card's
-machine has none), and its config schema is
-the JAX package's, field for field."""
+machine has none), its kernel wrappers launch only through `ops/_nvcc.py`,
+and its config schema is the JAX package's, field for field."""
 
+import ast
 import dataclasses
 import glob
 import os
@@ -57,6 +58,58 @@ def test_chip_smoke_fails_without_cuda():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+OPS = os.path.join(REPO, "panopticnerf_tpu_torch", "ops")
+WRAPPERS = sorted(os.path.basename(f) for f in glob.glob(os.path.join(OPS, "*_cuda.py")))
+
+
+def _cuda_imports(nodes) -> list:
+    """The `*_cuda` modules that the import statements among `nodes` name."""
+    names = []
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names += [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+    return sorted({n for n in names if n.endswith("_cuda")})
+
+
+def _launch_work(tree) -> list:
+    """What only the launch seam may do, as the code (not the docstrings) of
+    `tree` does it: call `count`, read `.cuda_stream`, assign `.argtypes`,
+    define a tensor-check, pointer or stream helper."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            f = node.func
+            if (f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)) == "count":
+                found.append("count")
+        elif isinstance(node, ast.Attribute) and node.attr == "cuda_stream":
+            found.append("cuda_stream")
+        elif (isinstance(node, ast.Attribute) and node.attr == "argtypes"
+              and isinstance(node.ctx, ast.Store)):
+            found.append("argtypes")
+        elif isinstance(node, ast.FunctionDef) and node.name.strip("_") in ("check", "ptr",
+                                                                            "stream"):
+            found.append(node.name)
+    return sorted(set(found))
+
+
+@pytest.mark.parametrize("fname", WRAPPERS + ["field_eval.py", "_nvcc.py"])
+def test_kernels_launch_through_one_seam(fname):
+    """No `ops/*_cuda.py` imports another, `ops/field_eval.py` imports none
+    at module level, and neither counts a launch, reads the stream, declares
+    an entry point or checks a tensor itself: `ops/_nvcc.py` does all four."""
+    tree = ast.parse(open(os.path.join(OPS, fname)).read())
+    if fname == "_nvcc.py":
+        assert _launch_work(tree) == ["argtypes", "check", "count", "cuda_stream", "ptr"]
+        return
+    assert len(WRAPPERS) == 6, WRAPPERS
+    own = fname[:-len(".py")]
+    nodes = ast.walk(tree) if fname in WRAPPERS else tree.body
+    assert [m for m in _cuda_imports(nodes) if m.rsplit(".", 1)[-1] != own] == []
+    assert _launch_work(tree) == []
 
 
 def _schema(cls):

@@ -60,7 +60,7 @@ from panopticnerf_tpu_torch.parallel import (
     maybe_init_distributed,
     resolve_world,
 )
-from panopticnerf_tpu_torch.render import RenderDraws, SceneBounds, render_rays
+from panopticnerf_tpu_torch.render import RenderDraws, SceneBounds, render_rays, renderer
 from panopticnerf_tpu_torch.train import StepDraws, make_train_state, make_train_step
 from panopticnerf_tpu_torch.train.checkpoint import all_steps
 from panopticnerf_tpu_torch.train.step import draw_step
@@ -135,6 +135,46 @@ def test_world_of_one_render_and_evaluate(tmp_path):
     for a, b in zip(want_maps, maps):
         assert (a is None and b is None) or torch.equal(a, b)
     assert _same_scores(want, got)
+
+
+class _Bound:
+    """What the recording `eval_field` below binds: the model, evaluated as it is."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, *args, **kwargs):
+        return self.model(*args, **kwargs)
+
+
+def test_both_renders_bind_the_field_once_per_view(tmp_path, monkeypatch):
+    """The single-process render and the tile-sharded one (one rank) ask
+    `renderer.eval_field` for the model once per view, and each of the
+    view's 3 tiles then gets that bound field back as it is; the sharded
+    maps equal the single-process maps bit for bit."""
+    cfg = load_config(None, engine_opts(tmp_path))  # 16 x 24 rays: 3 tiles of 128
+    ds = build_synthetic_dataset(cfg, "cpu", seed=0)
+    model = make_network(cfg, "cpu")
+    init_params(model, torch.Generator().manual_seed(0))
+    asked = []
+    monkeypatch.setattr(renderer, "eval_field", lambda m, c, d: asked.append(m) or (
+        m if isinstance(m, _Bound) else _Bound(m)))
+    world = _world_of_one(tmp_path)
+    runs = []
+    try:
+        for w in (None, world):
+            maps = []
+            for view in (0, 1):
+                asked.clear()
+                maps.append(engine._render_view(cfg, model, ds, view, w))
+                assert asked[0] is model and len(asked) == 4
+                assert all(isinstance(a, _Bound) and a is asked[1] for a in asked[1:])
+            runs.append(maps)
+    finally:
+        world.close()
+    for single, sharded in zip(*runs):
+        for a, b in zip(single, sharded):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.parametrize("prims,n_importance,noise", [("true", "8", "0.0"), ("true", "8", "1.0"),

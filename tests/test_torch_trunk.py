@@ -3,6 +3,9 @@ fused field adapter against the JAX package's Pallas versions in interpret
 mode, plus `init_params` against flax's initialisers. Small shapes: widths
 32-64, up to 8 layers, a few hundred points."""
 
+import contextlib
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,16 +21,16 @@ from panopticnerf_tpu_torch.config import load_config
 from panopticnerf_tpu_torch.convert import flatten, params_from_flax, params_to_flax
 from panopticnerf_tpu_torch.models import init_params, make_network
 from panopticnerf_tpu_torch.models.fused_apply import FusedTrainAdapter, fused_field_apply
-from panopticnerf_tpu_torch.ops.mlp_train import fused_trunk_train
-from panopticnerf_tpu_torch.ops.mlp_train_cuda import (
+from panopticnerf_tpu_torch.ops import _nvcc
+from panopticnerf_tpu_torch.ops._nvcc import TMA_ENCODE_FAILED
+from panopticnerf_tpu_torch.ops.mlp_train import (
     MAX_SPLITS,
     POINT_STEP,
-    TMA_ENCODE_FAILED,
-    _launch_failed,
-    backward_plan_bytes,
-    forward_plan_bytes,
+    fused_trunk_train,
     weight_splits,
 )
+from panopticnerf_tpu_torch.ops.mlp_train_cuda import backward_plan_bytes, forward_plan_bytes
+from panopticnerf_tpu_torch.utils import profiling
 
 
 def _trunk_inputs(n, layers, width, f, skips, seed):
@@ -194,13 +197,23 @@ def test_weight_splits_cover_every_point_once(n):
 @pytest.mark.parametrize("kernel", ["trunk backward", "trunk forward"])
 @pytest.mark.parametrize("err,why", [(TMA_ENCODE_FAILED, "a TMA descriptor could not be encoded"),
                                      (1, "CUDA error 1")])
-def test_backward_launch_failure_names_its_cause(err, why, kernel):
-    """A refused launch (backward or forward) raises, and says whether a
-    TMA descriptor or CUDA refused it (the entry points' own code is not a
-    CUDA error)."""
-    e = _launch_failed(kernel, err)
-    assert isinstance(e, RuntimeError)
-    assert str(e) == f"{kernel} kernel launch failed: {why}"
+def test_backward_launch_failure_names_its_cause(monkeypatch, err, why, kernel):
+    """A refused launch (backward or forward) raises from the shared launch
+    call, says whether a TMA descriptor or CUDA refused it (the entry
+    points' own code is not a CUDA error), and counts no launch; an accepted
+    one counts one. The entry point gets the current stream last."""
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=7))
+    got = []
+    entry = lambda *args: got.append(args) or err
+    profiling.reset()
+    with pytest.raises(RuntimeError) as e:
+        _nvcc.launch(entry, torch.device("cpu"), 3, 5, kernel=kernel, counter="B'")
+    assert str(e.value) == f"{kernel} kernel launch failed: {why}"
+    assert got == [(3, 5, 7)] and profiling.calls("kernels.launch.B'") == 0
+    _nvcc.launch(lambda *args: 0, torch.device("cpu"), kernel=kernel, counter="B'")
+    assert profiling.calls("kernels.launch.B'") == 1
+    profiling.reset()
 
 
 @pytest.mark.parametrize("n", [1, 131072, 262144])
