@@ -17,9 +17,10 @@ Phases (any failure raises; the exit code is then non-zero and no result
 line is printed):
   1. card, power limit, torch / CUDA / nvcc versions;
   2. build of csrc/intersect.cu, csrc/mlp_train.cu, csrc/field_train.cu,
-     csrc/field_eval.cu, csrc/hash_grid.cu and csrc/composite.cu, one nvcc each, run together
-     (timed; ptxas registers / shared memory / spills; the forward kernels B, C and E, C''s
-     heads data pass and V must not spill, nor have ptxas serialize the wgmma chains of
+     csrc/field_eval.cu, csrc/hash_grid.cu, csrc/composite.cu and csrc/sample.cu, one nvcc
+     each, run together (timed; ptxas registers / shared memory / spills; the forward kernels
+     B, C and E, C''s heads data pass, V and Z must not spill, nor have ptxas serialize the
+     wgmma chains of
      B, C, C''s heads data pass or E at W = 128 and 256);
   3. kernel vs plain version on every synthetic_flagship view
      (N = 33,088 rays, P = 32, K = 16, F = 0) and on a cut-plane case
@@ -34,8 +35,9 @@ line is printed):
      with artifacts/torch/synthetic_flagship_10000.npz — render time per
      view, PSNR / mIoU / PQ beside artifacts/torch/
      synthetic_flagship_10000_jax_eval.json, and the kernels' launch counts:
-     A1 once per view rendered, E (the evaluation field) and V (the
-     compositing) once per tile and level of every view; (b) E against its plain version on the
+     A1 once per view rendered, E (the evaluation field), V (the
+     compositing) and Z (the sampling) once per tile and level of every
+     view; (b) E against its plain version on the
      checkpoint's coarse and fine fields at the points of one view's first
      tile: per output the share of values that differ and the relative
      Frobenius error within EVAL_SHARE / EVAL_REL, a second call equal bit
@@ -48,7 +50,7 @@ line is printed):
      without the grid's columns and the plain hybrid model, the bounds;
      then GRID_VIEWS 188x704 views of a KITTI-360 demo tree through the
      evaluation entry (`intersect_and_render`) with the counters cleared
-     just before: G, E and V each launched 2 x tiles a view, G encoding and E
+     just before: G, E, V and Z each launched 2 x tiles a view, G encoding and E
      evaluating every field point, the maps within a tenth of the cell
      kitti360-grid-render's limits of the plain hybrid model's; (d) kernel V
      (csrc/composite.cu) against the plain compositing ops at the render
@@ -57,6 +59,16 @@ line is printed):
      outputs with 19 logits): every output within COMPOSITE_W_ABS /
      COMPOSITE_REL, a second call bit for bit, V's and the plain ops' times
      and V's device time beside its bound (its own bytes at HBM's rate);
+     (e) kernel Z (csrc/sample.cu) at the render cells' shapes (the same
+     tree's view, 33,088 rays, K = 16): the coarse pass (48 + 16) against
+     `guided_z`, the fine pass (64 + 64, weights V composites from seeded
+     field outputs) against `sample_pdf` + `merge_z`, both bit for bit
+     against the plain ops with their sums in Z's order and within
+     tests/test_torch_cuda.py's ceilings against the plain ops as they are
+     (`tests/torch_sampling_order.against_plain`; rays where the two orders
+     place a position in another segment or bin counted apart), a second
+     call bit for bit; Z's time (events and device time) and the plain
+     chain's, beside Z's bound (its own bytes at HBM's rate);
   6. kernel A2 (grouped intersection) vs its plain version on 20 training
      batches (G = 8 groups of M = 256 rays, K = 16) and on a cut-plane
      case, bit for bit; A2 and plain times, A2's device and host time as
@@ -92,7 +104,8 @@ line is printed):
      trunk, 200 in field, 100 in hybrid: ms/step, rays/s, peak memory,
      falling finite loss, exact launch counts (A2 = steps; trunk: B = B' =
      2 x steps; field: C = C' = 2 x steps; hybrid: C' = 2 x steps; every
-     other count 0); then `run_evaluate` on the checkpoint it wrote;
+     other count, Z's among them, 0); then `run_evaluate` on the checkpoint
+     it wrote;
  11. the engine around the step, mode trunk, with train.ep_iter 50,
      save_ep 2, eval_ep 2: (a) a 200-step `run_train` into a temporary
      model_dir: step checkpoints at 100 and 200, in-training evaluations
@@ -265,6 +278,11 @@ COMPOSITE_REPLACES = "none: the JAX package composites with plain XLA ops"
 # the order of the sums differs): a weight's largest |gap|, a map's relative
 # Frobenius error
 COMPOSITE_W_ABS, COMPOSITE_REL = 1e-6, 1e-5
+SAMPLE_SOURCE = "panopticnerf_tpu_torch/csrc/sample.cu"
+SAMPLE_REPLACES = "none: the JAX package samples with plain XLA ops"
+# phase 5 (e): rays where the two orders of the sums place a position in another
+# segment (coarse) or bin (fine), as shares of the rays (tests/test_torch_cuda.py's)
+SAMPLE_FLIPS = (0.01, 0.05)
 C_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:310"
 C2_REPLACES = "panopticnerf_tpu/ops/pallas_field_train.py:345"
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
@@ -901,10 +919,11 @@ def grid_view_check(dev, tmp):
     configs/torch/kitti360_grid.yaml (seeded lecun weights, biases drawn in
     N(0, 0.05), tables uniform in +-1, where the grid moves every map), the
     program's counters cleared just before; the same views with
-    `renderer.eval_field` giving back the plain hybrid model. Checks G and E
-    each launched 2 x tiles a view, `render.grid.points` and
+    `renderer.eval_field` giving back the plain hybrid model. Checks G, E, V
+    and Z each launched 2 x tiles a view, `render.grid.points` and
     `render.field.points_fused` equal to `render.field.points`, and each
-    view's gaps within GRID_VIEW_GAP. -> {"G": launches, "E": launches}."""
+    view's gaps within GRID_VIEW_GAP. -> {"G": launches, "E": ..., "V": ...,
+    "Z": ...}."""
     from panopticnerf_tpu_torch.config import load_config
     from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
     from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
@@ -938,7 +957,7 @@ def grid_view_check(dev, tmp):
     profiling.reset()
     outs = render()
     torch.cuda.synchronize()
-    launches = {k: profiling.calls(f"kernels.launch.{k}") for k in ("G", "E", "V")}
+    launches = {k: profiling.calls(f"kernels.launch.{k}") for k in ("G", "E", "V", "Z")}
     points = {k: profiling.calls(f"render.{k}")
               for k in ("field.points", "field.points_fused", "grid.points")}
     keep = renderer.eval_field
@@ -956,13 +975,14 @@ def grid_view_check(dev, tmp):
     print(f"grid (c), main path: {len(views)} views of {ds.images.shape[1]}x"
           f"{ds.images.shape[2]} ({rays} rays, {tiles} tiles of {cfg.render.ray_tile}) through "
           f"intersect_and_render, counters cleared before: launches G {launches['G']}, E "
-          f"{launches['E']}, V {launches['V']} (2 x tiles x views = {2 * tiles * len(views)}); "
+          f"{launches['E']}, V {launches['V']}, Z {launches['Z']} (2 x tiles x views = "
+          f"{2 * tiles * len(views)}); "
           "points "
           + ", ".join(f"{k} {v}" for k, v in points.items())
           + "; gaps against the plain hybrid model (mean |rgb|, relative depth, relative "
           "logits) " + "; ".join(", ".join(f"{x:.3e}" for x in g) for g in gaps)
           + f" (ceilings {GRID_VIEW_GAP})")
-    check(launches["G"] == launches["E"] == launches["V"] == 2 * tiles * len(views),
+    check(set(launches.values()) == {2 * tiles * len(views)},
           f"hybrid views: launches {launches}, expected {2 * tiles * len(views)} each")
     check(points["field.points"] > 0
           and points["field.points"] == points["field.points_fused"] == points["grid.points"],
@@ -1051,6 +1071,98 @@ def composite_phase(dev, tmp):
     del ds
     torch.cuda.empty_cache()
     return out
+
+
+def sampling_phase(dev, tmp):
+    """5 (e): kernel Z (csrc/sample.cu) at the render cells' shapes: the first
+    33,088 rays of a 188x704 view of a two-frame KITTI-360 demo tree and their
+    A1 intervals (K = 16); the coarse pass (48 + 16) and the fine pass (64 +
+    64) on its depths, with the weights V composites from seeded field
+    outputs (sigma N(0, 3)). Z equal bit for bit to the plain ops with their
+    sums in Z's order and to a second call, and within the card test's
+    ceilings of the plain ops as they are (tests/torch_sampling_order.py:
+    rays where the orders place a position in another segment or bin within
+    SAMPLE_FLIPS); Z's time (events and device time) and the plain chain's
+    beside Z's bound (its own bytes at HBM's rate). -> {"err", "ms",
+    "plain_ms", "bound"} of both passes together."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_sampling_order import KernelZOrder, against_plain
+
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.ops import sampling
+    from panopticnerf_tpu_torch.ops.composite_cuda import composite_cuda
+    from panopticnerf_tpu_torch.ops.intersect import RayIntervals, intersect_rays
+    from panopticnerf_tpu_torch.ops.sampling_cuda import fine_z_cuda, guided_z_cuda
+
+    root = f"{tmp}/sample_tree"
+    write_demo_tree(root, n_frames=2, hw=KITTI_HW, n_boxes=8, seed=3, n_concave=2, device=dev)
+    cfg = load_config(KITTI_CFG, ["data.root", root, "data.frame_start", "0",
+                                  "data.frame_num", "2"])
+    ds, _, _ = make_dataset(cfg, dev)
+    o, d = (t[:33088] for t in view_rays(ds, 0))
+    rays = o.shape[0]
+    rc = cfg.render
+    k, s, m, bg = cfg.data.max_intervals, rc.n_samples, rc.n_importance, rc.bg_sample_frac
+    iv = intersect_rays(o, d, view_primitives(ds, 0), rc.near, rc.far, k)
+    iv = RayIntervals(*[t.contiguous() for t in iv])
+    coarse = lambda: guided_z_cuda(iv, s, rc.near, rc.far, bg)
+    z = coarse()
+    g = torch.Generator(dev).manual_seed(5)
+    sigma = torch.randn(rays, s, device=dev, generator=g) * 3.0
+    w = composite_cuda(sigma, torch.rand(rays, s, 3, device=dev, generator=g), z).weights
+    fine = lambda: fine_z_cuda(z, w, m)
+    got_c, got_f = coarse(), fine()
+    again_c, again_f = coarse(), fine()
+
+    def plain_coarse():
+        return sampling.guided_z(iv, s, rc.near, rc.far, False, bg)
+
+    def plain_fine():
+        z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+        return sampling.merge_z(z, sampling.sample_pdf(z_mid, w[:, 1:-1], m, False))
+
+    keep = sampling.torch
+    sampling.torch = KernelZOrder()
+    try:
+        own_c, own_f = plain_coarse(), plain_fine()
+    finally:
+        sampling.torch = keep
+    r = against_plain(iv, s, bg, w, m, rc.near, rc.far)
+    torch.cuda.synchronize()
+    same = torch.equal(got_c, again_c) and torch.equal(got_f, again_f)
+    own = torch.equal(got_c, own_c) and torch.equal(got_f, own_f)
+    ms = [time_ms(lambda: (coarse(), fine())) for _ in range(2)]
+    plain_ms = [time_ms(lambda: (plain_coarse(), plain_fine()), reps=5) for _ in range(2)]
+    dev_c = device_ms(coarse, "sample_coarse_kernel", reps=10)
+    dev_f = device_ms(fine, "sample_fine_kernel", reps=10)
+    moved_c = nbytes(iv.t_in, iv.t_out, iv.mask, got_c)
+    moved_f = nbytes(z, w, got_f)
+    bnd = bound(0, moved_c + moved_f)
+    inside = float(iv.mask.any(-1).float().mean())
+    print(f"sampling (e): Z at {rays} rays, K = {k} ({inside:.3f} of the rays hit a primitive), "
+          f"{s} coarse ({sampling.guided_split(s, bg)}) + {m} fine: bit for bit with the plain "
+          f"ops in Z's order: {own}; a second call bit for bit: {same}; against the plain ops "
+          f"as they are: coarse largest |dz| {r['coarse_gap']:.3e} (ceiling "
+          f"{r['coarse_ceiling']:.3e}; {r['coarse_flips']} rays with a segment flipped, largest "
+          f"{r['coarse_gap_all']:.3e}), fine {r['fine_gap']:.3e} (over its ceiling by at most "
+          f"{r['fine_over']:.3e}; ceilings {r['fine_ceiling_min']:.3e}-"
+          f"{r['fine_ceiling_max']:.3e}; {r['fine_flips']} rays with a bin or the rule "
+          f"flipped, largest {r['fine_gap_all']:.3e}); Z {ms[0]:.4f} / {ms[1]:.4f} ms (device "
+          f"coarse {dev_c:.4f} + fine {dev_f:.4f}), the plain chain {plain_ms[0]:.4f} / "
+          f"{plain_ms[1]:.4f} ms (events around the calls, medians); bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}: {moved_c} + {moved_f} bytes), {100 * bnd[0] / (dev_c + dev_f):.1f} % of "
+          "it on the device")
+    check(same, "Z: a second call differs")
+    check(own, "Z differs from the plain ops with their sums in its order")
+    check(r["coarse_gap"] <= r["coarse_ceiling"] and r["fine_over"] <= 0.0
+          and r["coarse_flips"] <= SAMPLE_FLIPS[0] * rays
+          and r["fine_flips"] <= SAMPLE_FLIPS[1] * rays, f"Z off the plain ops: {r}")
+    del ds
+    torch.cuda.empty_cache()
+    return {"err": max(r["coarse_gap"], r["fine_gap"]), "ms": min(ms), "plain_ms": min(plain_ms),
+            "bound": bnd}
 
 
 def field_phase(cfg, enc, model, dev):
@@ -1265,7 +1377,7 @@ def train_phase(cfg, dev, engine, mode):
     then an evaluation of the checkpoint it wrote."""
     import dataclasses
 
-    counters = ("A2", "B", "B'", "C", "C'")
+    counters = ("A2", "B", "B'", "C", "C'", "Z")  # Z, the evaluation's sampling: never
     steps = TRAIN_STEPS[mode]
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = dataclasses.replace(with_mode(cfg, mode), model_dir=tmp, record_dir=tmp)
@@ -2781,6 +2893,7 @@ def main():
         hash_grid_cuda,
         intersect_cuda,
         mlp_train_cuda,
+        sampling_cuda,
     )
     from panopticnerf_tpu_torch.ops.intersect import intersect_rays_plain
 
@@ -2796,7 +2909,7 @@ def main():
     # 2. build: one nvcc per source, run together
     libs = {name: _nvcc.library_path(name)
             for name in ("intersect", "mlp_train", "field_train", "field_eval", "hash_grid",
-                         "composite")}
+                         "composite", "sample")}
     existed = {name: os.path.exists(path) for name, path in libs.items()}
     t0 = time.perf_counter()
     _nvcc.build_all(libs)
@@ -2811,9 +2924,11 @@ def main():
     field_eval_cuda.load()
     hash_grid_cuda.load()
     composite_cuda.load()
-    for line in ptxas_summary(libs["composite"][:-3] + ".log"):
-        print(f"  ptxas composite: {line}")
-        check(line.endswith("spills 0/0 B"), f"V spills: {line}")
+    sampling_cuda.load()
+    for name, kernel in (("composite", "V"), ("sample", "Z")):
+        for line in ptxas_summary(libs[name][:-3] + ".log"):
+            print(f"  ptxas {name}: {line}")
+            check(line.endswith("spills 0/0 B"), f"{kernel} spills: {line}")
     for name in ("mlp_train", "field_train", "field_eval"):
         for line in ptxas_summary(libs[name][:-3] + ".log"):
             print(f"  ptxas {name}: {line}")
@@ -2875,19 +2990,19 @@ def main():
     zero_counts()
     res = engine.run_evaluate(cfg, dev, log=lambda *a: None)
     launches, e_launches = launch_counts()["A1"], launch_counts(("E",))["E"]
-    v_launches = launch_counts(("V",))["V"]
+    v_launches, z_launches = launch_counts(("V",))["V"], launch_counts(("Z",))["Z"]
     secs = res["render_seconds"]
     tiles = -(-ds.images.shape[1] * ds.images.shape[2] // cfg.render.ray_tile)
     print(f"run_evaluate: {len(res['views'])} views, render s/view "
           + " ".join(f"{s:.3f}" for s in secs)
           + f" (median {np.median(secs):.3f}, first view includes warm-up); "
-          f"kernel launches A1 {launches}, E {e_launches}, V {v_launches} ({tiles} tiles x 2 "
-          "levels a view)")
+          f"kernel launches A1 {launches}, E {e_launches}, V {v_launches}, Z {z_launches} "
+          f"({tiles} tiles x 2 levels a view)")
     check(launches == len(res["views"]),
           f"kernel launched {launches} times for {len(res['views'])} views")
-    check(e_launches == v_launches == 2 * tiles * len(res["views"]),
-          f"E / V launched {e_launches} / {v_launches} times for {len(res['views'])} views of "
-          f"{tiles} tiles")
+    check(e_launches == v_launches == z_launches == 2 * tiles * len(res["views"]),
+          f"E / V / Z launched {e_launches} / {v_launches} / {z_launches} times for "
+          f"{len(res['views'])} views of {tiles} tiles")
     with open(REF_JSON) as fh:
         ref = json.load(fh)
     check(sorted(ref["views"]) == sorted(res["views"]),
@@ -2905,6 +3020,7 @@ def main():
     ev_grid = grid_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ev_comp = composite_phase(dev, tmp)
+        ev_sample = sampling_phase(dev, tmp)
 
     # 6-10. the training slice
     from panopticnerf_tpu_torch.data import make_dataset
@@ -2990,6 +3106,8 @@ def main():
               ev_grid["G"]["bound"]),
         entry("volume_composite", COMPOSITE_SOURCE, COMPOSITE_REPLACES, v_launches,
               ev_comp["err"], ev_comp["ms"], ev_comp["plain_ms"], ev_comp["bound"]),
+        entry("sample", SAMPLE_SOURCE, SAMPLE_REPLACES, z_launches, ev_sample["err"],
+              ev_sample["ms"], ev_sample["plain_ms"], ev_sample["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,13 +23,18 @@ compositing, the fixed map); counters `render.rays` and
 `render.rays_padded` (the zero rays that fill the last tile), and in the
 evaluation branch `render.field.points` (every point a field evaluates),
 `render.field.points_fused` (those kernel E evaluates),
-`render.composite.rays` (every ray composited, per level) and
-`render.composite.rays_fused` (those kernel V composites).
+`render.composite.rays` (every ray composited, per level),
+`render.composite.rays_fused` (those kernel V composites),
+`render.sample.rays` (every ray sampled, per level) and
+`render.sample.rays_fused` (those kernel Z samples).
 
-On a CUDA device without gradients the evaluation branch composites each
-level with kernel V (`ops/composite_cuda.py`: the weights, the maps, the
-instance mass and the fixed map in one launch) where its inputs fit the
-kernel; training, the CPU and other inputs run the plain ops.
+On a CUDA device without gradients the evaluation branch samples each level
+with kernel Z (`ops/sampling_cuda.py`: the guided coarse depths in one
+launch, the fine depths merged with them in another) and composites it with
+kernel V (`ops/composite_cuda.py`: the weights, the maps, the instance mass
+and the fixed map in one launch) where its inputs fit the kernels; training,
+the CPU and other inputs run the plain ops (`ops/sampling.py`, the
+stratified depths without primitives among them).
 """
 
 from __future__ import annotations
@@ -51,6 +56,12 @@ from panopticnerf_tpu_torch.ops.intersect import (
     intersect_rays,
     labeled_containment,
     samples_in_intervals,
+)
+from panopticnerf_tpu_torch.ops.sampling_cuda import (
+    fine_z_cuda,
+    guided_z_cuda,
+    takes_coarse,
+    takes_fine,
 )
 from panopticnerf_tpu_torch.utils.profiling import count, span
 
@@ -113,6 +124,15 @@ def _fused_composite_takes(sigma, sem, iv: Optional[RayIntervals], num_classes: 
     return takes_composite(sigma.shape[-1], k, classes)
 
 
+def _fused_sampling_takes(t: torch.Tensor, perturb: bool, shapes_taken: bool) -> bool:
+    """Whether an evaluation level samples through kernel Z
+    (`ops/sampling_cuda.py`): its input `t` on a CUDA device, gradients off,
+    no jitter, at shapes Z takes (`shapes_taken`). The choice reads only its
+    inputs."""
+    return (t.device.type == "cuda" and not torch.is_grad_enabled() and not perturb
+            and shapes_taken)
+
+
 def _composite_level(model, rays_o, rays_d, z, bounds: SceneBounds, level: int,
                      iv: Optional[RayIntervals], num_classes: int, white_bkgd: bool,
                      noise_std: float = 0.0, noise: Optional[torch.Tensor] = None,
@@ -163,9 +183,10 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     random numbers come from `draws` where given, else from `generator`.
     Without `train` and without gradients, on a CUDA device, the fields
     whose shape kernel E takes evaluate through it (`models.eval_field`),
-    and each level composites through kernel V where it takes the level's
-    inputs; the per-sample extras `sample_inside_k` and `sample_cnt` are
-    then None (only the training loss reads them).
+    each level samples through kernel Z and composites through kernel V
+    where they take the level's inputs; the per-sample extras
+    `sample_inside_k` and `sample_cnt` are then None (only the training loss
+    reads them).
     """
     rc = cfg.render
     n = rays_o.shape[0]
@@ -177,17 +198,27 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     noise_std = rc.raw_noise_std if train else 0.0
     dr = draws if draws is not None else RenderDraws()
 
+    evaluate = not train
     with span("render.sample.coarse"):
+        if evaluate:
+            count("render.sample.rays", n)
         if iv is not None and rc.use_primitives:
-            z = sampling.guided_z(iv, rc.n_samples, rc.near, rc.far, perturb,
-                                  rc.bg_sample_frac, generator=generator, u_in=dr.coarse,
-                                  u_bg=dr.bg)
+            split = sampling.guided_split(rc.n_samples, rc.bg_sample_frac)
+            if evaluate and _fused_sampling_takes(
+                    iv.t_in, perturb, takes_coarse(iv.t_in.shape[-1], *split)):
+                count("render.sample.rays_fused", n)
+                dense = RayIntervals(*[t.contiguous() for t in iv])
+                z = guided_z_cuda(dense, rc.n_samples, rc.near, rc.far, rc.bg_sample_frac)
+            else:
+                z = sampling.guided_z(iv, rc.n_samples, rc.near, rc.far, perturb,
+                                      rc.bg_sample_frac, generator=generator, u_in=dr.coarse,
+                                      u_bg=dr.bg)
         else:
             z = sampling.stratified_z(n, rc.n_samples, rc.near, rc.far, perturb, dev,
                                       generator=generator, u=dr.coarse)
     out_c, sem_c, lab_c, cnt_c = _composite_level(
         model, rays_o, rays_d, z, bounds, 0, iv, num_classes, rc.white_bkgd,
-        noise_std, dr.noise_coarse, generator, evaluate=not train)
+        noise_std, dr.noise_coarse, generator, evaluate=evaluate)
 
     def pack(out, sem_samples, inside_k, cnt, z_used, coarse=None):
         return RenderOut(
@@ -207,20 +238,30 @@ def render_rays(model, rays_o, rays_d, bounds: SceneBounds, cfg: Config,
     # --- hierarchical fine pass: bins are the coarse midpoints, masses the
     # interior coarse weights ---
     with span("render.sample.fine"):
-        z_mid = 0.5 * (z[:, 1:] + z[:, :-1])                        # (N, S-1)
-        w_interior = out_c.weights[:, 1:-1].detach()                # (N, S-2), no gradient
-        z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, perturb,
-                                     generator=generator, u_fine=dr.fine)
-        z_all = sampling.merge_z(z, z_fine)
+        if evaluate:
+            count("render.sample.rays", n)
+        # forward-only keep-M: the fine field queries only the samples with
+        # coarse-weight support, composited with the full set's deltas
+        keep = evaluate and 0 < rc.eval_keep_samples < z.shape[1] + rc.n_importance
+        fused = evaluate and _fused_sampling_takes(
+            z, perturb, takes_fine(z.shape[1], rc.n_importance))
+        if fused:
+            count("render.sample.rays_fused", n)
+            z_all = fine_z_cuda(z.contiguous(), out_c.weights.contiguous(), rc.n_importance)
+        if keep or not fused:
+            z_mid = 0.5 * (z[:, 1:] + z[:, :-1])                        # (N, S-1)
+            w_interior = out_c.weights[:, 1:-1].detach()                # (N, S-2), no gradient
+        if not fused:
+            z_fine = sampling.sample_pdf(z_mid, w_interior, rc.n_importance, perturb,
+                                         generator=generator, u_fine=dr.fine)
+            z_all = sampling.merge_z(z, z_fine)
         delta_f = None
-        if not train and 0 < rc.eval_keep_samples < z_all.shape[1]:
-            # forward-only keep-M: the fine field queries only the samples with
-            # coarse-weight support, composited with the full set's deltas
+        if keep:
             z_all, delta_f = sampling.topm_eval_select(z_all, z_mid, w_interior,
                                                        rc.eval_keep_samples)
     out_f, sem_f, lab_f, cnt_f = _composite_level(
         model, rays_o, rays_d, z_all, bounds, 1, iv, num_classes, rc.white_bkgd,
-        noise_std, dr.noise_fine, generator, delta=delta_f, evaluate=not train)
+        noise_std, dr.noise_fine, generator, delta=delta_f, evaluate=evaluate)
     coarse = pack(out_c, sem_c, lab_c, cnt_c, z)
     return pack(out_f, sem_f, lab_f, cnt_f, z_all, coarse=coarse)
 

@@ -17,6 +17,7 @@ from panopticnerf_tpu_torch.ops.intersect import (
     intersect_rays_plain,
 )
 from panopticnerf_tpu_torch.utils.profiling import calls
+from torch_sampling_order import KernelZOrder, against_plain
 from torch_scenes import random_boxes, random_rays
 
 pytestmark = pytest.mark.cuda
@@ -1285,4 +1286,297 @@ def test_composite_kernel_counts_in_the_render(cuda_device):
     for name in ("rgb", "depth", "acc", "sem_logits", "sem_fixed", "inst_mass"):
         torch.testing.assert_close(getattr(fused, name), getattr(plain, name).detach(),
                                    rtol=1e-5, atol=1e-5)
+    profiling.reset()
+
+
+# ------------------------------------------------------------- kernel Z
+# The evaluation render's sampling (csrc/sample.cu behind ops/sampling_cuda.py)
+# against the plain ops of ops/sampling.py. Z differs from them only in the
+# order of three sums (the cdf of the union segments, the sum of the weights,
+# the cdf of the pdf), so: on inputs where every such sum is exact it equals
+# them bit for bit; with those sums taken in Z's order (`KernelZOrder`) it
+# equals them bit for bit on any input; against them as they are, it lies
+# within the ceilings PERF.md derives from the sums' order.
+
+Z_PAD = float(np.float32(1e-5))  # sample_pdf's 1e-5 as its float32 ops see it
+Z_NEAR, Z_FAR = 0.5, 40.0
+
+
+def _sampling_intervals(device, n, k, seed, dyadic=True):
+    """(N, K) intervals in [Z_NEAR, Z_FAR] as A1 hands them over (entry
+    sorted, misses at BIG, masked, last); on a 2^-8 grid when `dyadic`, so
+    that every sum of their lengths is exact in any order. Rows of every
+    kind, by ray index mod 8: random (overlapping, nested, disjoint,
+    zero-length), 1 touching (each interval starts where the one before
+    ends), 2 no hit (all masked), 3 zero-padded (all zero and unmasked, a
+    padded tile's rays)."""
+    from panopticnerf_tpu_torch.ops.intersect import RayIntervals
+
+    g = torch.Generator().manual_seed(seed)
+    q = (lambda t: torch.round(t * 256) / 256) if dyadic else (lambda t: t)
+    span = Z_FAR - Z_NEAR
+    kind = torch.arange(n) % 8
+    t_in = q(Z_NEAR + (span - 4.0) * torch.rand(n, k, generator=g))
+    length = q(4.0 * torch.rand(n, k, generator=g))
+    length[torch.rand(n, k, generator=g) < 0.1] = 0.0
+    steps = q(torch.rand(n, k, generator=g) * (span - 1.0) / k)
+    starts = Z_NEAR + torch.cumsum(steps, 1) - steps
+    t_in = torch.where((kind == 1)[:, None], starts, t_in)
+    length = torch.where((kind == 1)[:, None], steps, length)
+    t_out = t_in + length
+    mask = (torch.rand(n, k, generator=g) < 0.8) & (kind != 2)[:, None]
+    t_in, t_out = torch.where(mask, t_in, BIG), torch.where(mask, t_out, BIG)
+    order = torch.argsort(t_in, dim=1, stable=True)
+    t_in, t_out, mask = (torch.gather(t, 1, order) for t in (t_in, t_out, mask))
+    pad = kind == 3
+    t_in[pad], t_out[pad], mask[pad] = 0.0, 0.0, False
+    sem = torch.full((n, k), -1, dtype=torch.int32)
+    put = lambda t: t.to(device).contiguous()
+    return RayIntervals(put(t_in), put(t_out), put(sem), put(sem.clone()), put(mask))
+
+
+def _dyadic_weights(n, s, seed):
+    """(N, S) weights whose interior (columns 1 .. S - 2, B of them) makes
+    every sum of sample_pdf exact in any order: w + 1e-5 in float32 is
+    m 2^q exactly, with integers m summing to 2^24, so the sum is 2^(24 + q),
+    the pdf m 2^-24, and every partial sum of either a float32 value."""
+    import math
+
+    rng = np.random.default_rng(seed)
+    b = s - 2
+    unit = 2.0 ** max(-38, round(math.log2(3e-5 * b)) - 24)
+    lo = math.ceil(Z_PAD / unit)                    # w >= 0
+    hi = math.floor((2.0 ** -14 + Z_PAD) / unit)    # w < 2^-14: a float32 multiple of 2^-38
+    rest = 2 ** 24 - b * lo
+    p = rng.dirichlet(np.full(b, 20.0), size=n)
+    r = np.floor(p * rest).astype(np.int64)
+    r[np.arange(b)[None, :] < (rest - r.sum(1))[:, None]] += 1
+    m = lo + r
+    assert (m <= hi).all() and (m.sum(1) == 2 ** 24).all()
+    w_in = m * unit - Z_PAD
+    w32 = w_in.astype(np.float32)
+    assert (w32.astype(np.float64) == w_in).all()
+    assert ((w32 + np.float32(Z_PAD)).astype(np.float64) == m * unit).all()
+    w = rng.random((n, s)).astype(np.float32)
+    w[:, 1:-1] = w32
+    return torch.from_numpy(w)
+
+
+def _coarse_depths(n, s, seed, dyadic=True, unsorted=0):
+    """(N, S) sorted coarse depths in [Z_NEAR, Z_FAR]; on a quarter-metre grid
+    when `dyadic` (repeated depths: empty bins, fine depths equal to coarse
+    ones, ties in the merge); the last `unsorted` rows shuffled."""
+    g = torch.Generator().manual_seed(seed)
+    z = Z_NEAR + (Z_FAR - Z_NEAR) * torch.rand(n, s, generator=g)
+    if dyadic:
+        z = torch.round(z * 4) / 4
+    z = z.sort(1).values
+    if unsorted:
+        z[-unsorted:] = z[-unsorted:][:, torch.randperm(s, generator=g)]
+    return z
+
+
+def _sparse_weights(n, s, seed):
+    """(N, S) weights as a render gives them: most rays a few bins of mass
+    near a surface and the rest ~0, some uniform, some all zero."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.rand(n, s, generator=g) * (torch.rand(n, s, generator=g) < 0.1)
+    w = w / w.sum(1, keepdim=True).clamp_min(1.0)
+    kind = torch.arange(n) % 8
+    w[kind == 4] = 0.0
+    w[kind == 5] = 1.0 / s
+    return w
+
+
+def _plain_fine(z, w, m):
+    """The evaluation render's plain fine depths (render_rays before Z)."""
+    from panopticnerf_tpu_torch.ops import sampling
+
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    return sampling.merge_z(z, sampling.sample_pdf(z_mid, w[:, 1:-1], m, False))
+
+
+@pytest.mark.parametrize("k,s,bg", [(16, 64, 0.25), (1, 64, 0.25), (32, 64, 0.25),
+                                    (16, 48, 0.25), (16, 64, 0.0), (8, 9, 0.25),
+                                    (16, 128, 0.25)])
+def test_sample_coarse_bit_for_bit_on_dyadic_intervals(cuda_device, k, s, bg):
+    """Z's coarse pass equals guided_z bit for bit where the union's sums are
+    exact (the shipped 48 + 16 at K = 1, 16, 32; other splits; no
+    background, whose depths stay unmerged)."""
+    from panopticnerf_tpu_torch.ops import sampling
+    from panopticnerf_tpu_torch.ops.sampling_cuda import guided_z_cuda
+
+    iv = _sampling_intervals(cuda_device, 2000, k, seed=k * 1000 + s)
+    before = launches("Z")
+    got = guided_z_cuda(iv, s, Z_NEAR, Z_FAR, bg)
+    assert launches("Z") == before + 1
+    ref = sampling.guided_z(iv, s, Z_NEAR, Z_FAR, False, bg)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.equal(got, ref), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("s,m,unsorted", [(64, 64, 0), (64, 64, 40), (128, 64, 0), (3, 1, 0),
+                                          (64, 128, 0), (37, 5, 7)])
+def test_sample_fine_bit_for_bit_on_dyadic_inputs(cuda_device, s, m, unsorted):
+    """Z's fine pass equals sample_pdf + merge_z bit for bit where every sum
+    is exact: dyadic weights, depths on a grid with repeats (empty bins and
+    ties between the merged lists), some rows out of order (the merge's
+    count of every pair)."""
+    from panopticnerf_tpu_torch.ops.sampling_cuda import fine_z_cuda
+
+    n = 2000
+    z = _coarse_depths(n, s, seed=s + m, unsorted=unsorted).to(cuda_device)
+    w = _dyadic_weights(n, s, seed=s * m).to(cuda_device)
+    got = fine_z_cuda(z, w, m)
+    ref = _plain_fine(z, w, m)
+    torch.cuda.synchronize()
+    assert got.shape == (n, s + m) and torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("k,s,m", [(16, 64, 64), (32, 64, 64), (4, 48, 96)])
+def test_sample_bit_for_bit_in_its_own_order(cuda_device, monkeypatch, k, s, m):
+    """On seeded random inputs (no grid), the plain ops with their sums taken
+    in Z's order equal Z bit for bit: both passes, and keep-M on Z's depths."""
+    from panopticnerf_tpu_torch.ops import sampling
+    from panopticnerf_tpu_torch.ops.sampling_cuda import fine_z_cuda, guided_z_cuda
+
+    n = 4096
+    iv = _sampling_intervals(cuda_device, n, k, seed=7 + k, dyadic=False)
+    z = guided_z_cuda(iv, s, Z_NEAR, Z_FAR, 0.25)
+    w = _sparse_weights(n, s, seed=k).to(cuda_device)
+    z_all = fine_z_cuda(z, w, m)
+    monkeypatch.setattr(sampling, "torch", KernelZOrder())
+    ref = sampling.guided_z(iv, s, Z_NEAR, Z_FAR, False, 0.25)
+    ref_all = _plain_fine(z, w, m)
+    z_mid, w_int = 0.5 * (z[:, 1:] + z[:, :-1]), w[:, 1:-1]
+    keep = sampling.topm_eval_select(z_all, z_mid, w_int, s)
+    keep_ref = sampling.topm_eval_select(ref_all, z_mid, w_int, s)
+    torch.cuda.synchronize()
+    assert torch.equal(z, ref), float((z - ref).abs().max())
+    assert torch.equal(z_all, ref_all), float((z_all - ref_all).abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(keep, keep_ref))
+
+
+def test_sample_against_the_plain_ops_within_the_order_ceiling(cuda_device):
+    """On seeded random inputs, Z against the plain ops as they are: every
+    depth within the ceiling that the sums' order allows, but on the few
+    rays where the two orders put a position into another segment or bin,
+    or decide the 1e-5 rule otherwise (both derived and found in
+    `torch_sampling_order.against_plain`)."""
+    iv = _sampling_intervals(cuda_device, 4096, 16, seed=3, dyadic=False)
+    w = _sparse_weights(4096, 64, seed=5).to(cuda_device)
+    r = against_plain(iv, 64, 0.25, w, 64, Z_NEAR, Z_FAR)
+    print("Z against the plain ops:", r)
+    assert r["coarse_gap"] <= r["coarse_ceiling"], r
+    assert r["fine_over"] <= 0.0, r
+    assert r["coarse_flips"] <= 4096 // 100 and r["fine_flips"] <= 4096 // 20, r
+
+
+def test_sample_kernel_repeats_bit_for_bit(cuda_device):
+    from panopticnerf_tpu_torch.ops.sampling_cuda import fine_z_cuda, guided_z_cuda
+
+    iv = _sampling_intervals(cuda_device, 20000, 16, seed=1, dyadic=False)
+    w = _sparse_weights(20000, 64, seed=2).to(cuda_device)
+    a = guided_z_cuda(iv, 64, Z_NEAR, Z_FAR)
+    b = guided_z_cuda(iv, 64, Z_NEAR, Z_FAR)
+    fa, fb = fine_z_cuda(a, w, 64), fine_z_cuda(a, w, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(fa, fb)
+
+
+def test_sample_wrapper_rejects_bad_inputs(cuda_device):
+    from panopticnerf_tpu_torch.ops.sampling_cuda import fine_z_cuda, guided_z_cuda
+
+    iv = _sampling_intervals(cuda_device, 64, 16, seed=1)
+    z = _coarse_depths(64, 64, seed=1).to(cuda_device)
+    w = _dyadic_weights(64, 64, seed=1).to(cuda_device)
+    guided_z_cuda(iv, 64, Z_NEAR, Z_FAR)
+    fine_z_cuda(z, w, 64)
+    widen = lambda times: type(iv)(*[torch.cat([t] * times, 1) for t in iv])
+    guided_z_cuda(widen(2), 64, Z_NEAR, Z_FAR)  # K = 32, the most Z takes
+    bad_coarse = [
+        (iv._replace(t_in=iv.t_in.cpu(), t_out=iv.t_out.cpu(), mask=iv.mask.cpu()), 64),
+        (iv._replace(t_in=iv.t_in.double()), 64),
+        (iv._replace(mask=iv.mask.to(torch.uint8)), 64),
+        (iv._replace(t_out=iv.t_out[:, :-1].contiguous()), 64),
+        (iv._replace(t_in=iv.t_in.t().contiguous().t()), 64),
+        (widen(3), 64),                                   # K = 48
+        (iv, 1),                                          # S_in 0
+        (iv, 1100),                                       # S past 1024
+    ]
+    for args in bad_coarse:
+        with pytest.raises((ValueError, TypeError)):
+            guided_z_cuda(*args, Z_NEAR, Z_FAR)
+    bad_fine = [
+        (z.cpu(), w.cpu(), 64),
+        (z.double(), w, 64),
+        (z, w.half(), 64),
+        (z, w[:, :-1].contiguous(), 64),
+        (z.t().contiguous().t(), w, 64),
+        (z[:, :2].contiguous(), w[:, :2].contiguous(), 64),  # S 2
+        (z, w, 0),
+        (z, w, 961),                                         # S + M past 1024
+    ]
+    for args in bad_fine:
+        with pytest.raises((ValueError, TypeError)):
+            fine_z_cuda(*args)
+
+
+def test_sample_kernel_counts_in_the_render(cuda_device):
+    """A small evaluation render on the card samples every tile and level
+    through Z: Z launched twice a tile, every ray of both levels counted as
+    sampled and as fused; keep-M runs on Z's depths; with gradients on the
+    plain ops run (no launch, nothing fused) and give the same depths within
+    the ceiling; the training render never launches Z."""
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset, view_primitives, view_rays
+    from panopticnerf_tpu_torch.models import make_network
+    from panopticnerf_tpu_torch.render import renderer
+    from panopticnerf_tpu_torch.utils import profiling
+
+    opts = ["data.synthetic_image_hw", "24,40", "data.synthetic_num_frames", "2",
+            "data.synthetic_num_boxes", "6", "data.max_primitives", "8",
+            "data.max_intervals", "4", "model.trunk_depth", "2", "model.trunk_width", "32",
+            "model.skips", "0", "model.color_width", "16", "model.num_classes", "7",
+            "render.n_samples", "16", "render.n_importance", "16",
+            "render.use_primitives", "true", "render.ray_tile", "256"]
+    cfg = load_config(None, opts)
+    torch.manual_seed(0)
+    model = make_network(cfg, cuda_device).eval()
+    ds, _, _ = make_dataset(cfg, cuda_device)
+    o, d = view_rays(ds, 0)
+    bounds = renderer.SceneBounds(ds.bounds_center, ds.bounds_scale)
+    tiles = -(-o.shape[0] // 256)
+    for keep in (0, 20):
+        kcfg = load_config(None, opts + ["render.eval_keep_samples", str(keep)])
+        profiling.reset()
+        with torch.no_grad():
+            out = renderer.intersect_and_render(kcfg, model, o, d, view_primitives(ds, 0), bounds)
+        torch.cuda.synchronize()
+        assert launches("Z") == launches("V") == 2 * tiles
+        assert profiling.calls("render.sample.rays") == 2 * tiles * 256
+        assert profiling.calls("render.sample.rays_fused") == 2 * tiles * 256
+        assert bool(torch.isfinite(out.rgb).all())
+    profiling.reset()
+    iv = renderer.intersect_rays(o[:64], d[:64], view_primitives(ds, 0), cfg.render.near,
+                                 cfg.render.far, cfg.data.max_intervals)
+    with torch.enable_grad():
+        plain = renderer.render_rays(model, o[:64], d[:64], bounds, cfg, iv=iv, train=False)
+    assert launches("Z") == 0 and profiling.calls("render.sample.rays_fused") == 0
+    assert profiling.calls("render.sample.rays") == 2 * 64
+    with torch.no_grad():
+        fused = renderer.render_rays(model, o[:64], d[:64], bounds, cfg, iv=iv, train=False)
+    assert launches("Z") == 2
+    ceil = (4 * 4 + 4) * 2.0 ** -24 * cfg.render.far  # against_plain's coarse ceiling, K = 4
+    assert float((fused.coarse.z - plain.coarse.z).abs().max()) <= ceil
+    torch.testing.assert_close(fused.z, plain.z.detach(), rtol=1e-4, atol=1e-4)
+    profiling.reset()
+    with torch.enable_grad():
+        renderer.render_rays(model, o[:64], d[:64], bounds, cfg, iv=iv, train=True,
+                             generator=torch.Generator(cuda_device).manual_seed(0))
+    with torch.no_grad():  # a training render without gradients still samples plainly
+        renderer.render_rays(model, o[:64], d[:64], bounds, cfg, iv=iv, train=True,
+                             generator=torch.Generator(cuda_device).manual_seed(0))
+    assert launches("Z") == 0 and profiling.calls("render.sample.rays") == 0
     profiling.reset()

@@ -105,7 +105,7 @@ def test_kernels_launch_through_one_seam(fname):
     if fname == "_nvcc.py":
         assert _launch_work(tree) == ["argtypes", "check", "count", "cuda_stream", "ptr"]
         return
-    assert len(WRAPPERS) == 6, WRAPPERS
+    assert len(WRAPPERS) == 7, WRAPPERS
     own = fname[:-len(".py")]
     nodes = ast.walk(tree) if fname in WRAPPERS else tree.body
     assert [m for m in _cuda_imports(nodes) if m.rsplit(".", 1)[-1] != own] == []
