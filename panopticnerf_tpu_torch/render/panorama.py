@@ -6,6 +6,12 @@ Rays of an (H, W) equirect grid from one camera centre: azimuth theta in
 the OpenCV camera frame (y down). The panorama intersects its H x W world
 rays against the view's primitive table (kernel A1 on the card, with the
 view's cut planes) and renders them tile by tile, like any full image.
+
+Spans (utils/profiling.py): `render.panorama` around `render_panorama`, the
+renderer's `render.view` inside it, and `render.panorama.rays` around the
+rays' making; counter `render.panorama.pixels`, the panorama's H x W pixels,
+one ray each (a host number: nothing is read from the device; a counter of
+the span's own name would share its row of the table).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from panopticnerf_tpu_torch.render.renderer import (
     SceneBounds,
     intersect_and_render,
 )
+from panopticnerf_tpu_torch.utils.profiling import count, span
 
 
 def panorama_rays(position: torch.Tensor, rotation: torch.Tensor, h: int, w: int):
@@ -45,8 +52,11 @@ def render_panorama(model, ds: DeviceDataset, view: int, hw: tuple[int, int],
     orientation, against `view`'s primitive table (its tiles over the
     ranks of a distributed `world`)."""
     h, w = hw
-    c2w = ds.c2w[view]
-    o, d = panorama_rays(c2w[:, 3], c2w[:, :3], h, w)
-    prims = view_primitives(ds, view) if cfg.render.use_primitives else None
-    return intersect_and_render(cfg, model, o, d, prims,
-                                SceneBounds(ds.bounds_center, ds.bounds_scale), world)
+    with span("render.panorama"):
+        count("render.panorama.pixels", h * w)
+        c2w = ds.c2w[view]
+        with span("render.panorama.rays"):
+            o, d = panorama_rays(c2w[:, 3], c2w[:, :3], h, w)
+        prims = view_primitives(ds, view) if cfg.render.use_primitives else None
+        return intersect_and_render(cfg, model, o, d, prims,
+                                    SceneBounds(ds.bounds_center, ds.bounds_scale), world)

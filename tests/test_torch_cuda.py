@@ -940,6 +940,7 @@ def test_hash_grid_wrapper_rejects_bad_inputs(cuda_device):
 
 @pytest.mark.parametrize("change,rays,samples", [
     ({"num_classes": 19}, 1001, 128),  # the fine field of kitti360_grid
+    ({"num_classes": 19}, 2047, 64),  # the 8x256 coarse of kitti360_360_grid, 64-sample tiles
     ({"num_classes": 19, "trunk_depth": 4, "trunk_width": 64, "skips": (), "color_width": 64},
      2047, 64),  # its 4x64 proposal coarse
     ({"num_classes": 8, "trunk_width": 128, "color_width": 64, "use_semantic": False}, 33, 37),
@@ -1090,6 +1091,72 @@ def test_grid_render_view_against_the_plain_model(cuda_device, tmp_path):
                                                                      encoded)
     gaps = _view_gaps(out, ref)
     assert all(x <= lim for x, lim in zip(gaps, (1e-5, 5e-6, 3e-4))), gaps
+    assert bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.sem_logits).all())
+
+
+def test_grid_panorama_against_the_plain_model(cuda_device, tmp_path):
+    """A 64x128 equirect panorama (`render_panorama`) of configs/torch/kitti360_360_grid.yaml
+    (both fields 8x256 with a hash grid; its two sequences, fisheye) from a demo-tree view:
+    G then E on both levels against the plain hybrid model within a tenth of the benchmark's
+    kitti360 limits; G and E launched once per tile and level; every point encoded and
+    fused; the rays behind and above the camera meet no primitive. The panorama's spans
+    `render.panorama` and `render.panorama.rays` open once, `render.view` inside the first,
+    and `render.panorama.pixels` counts its H x W rays."""
+    import os
+
+    from panopticnerf_tpu_torch.config import load_config
+    from panopticnerf_tpu_torch.data import make_dataset
+    from panopticnerf_tpu_torch.data.demo_tree import write_demo_tree
+    from panopticnerf_tpu_torch.models import init_params, make_network
+    from panopticnerf_tpu_torch.render import renderer, render_panorama
+    from panopticnerf_tpu_torch.utils import profiling
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = str(tmp_path / "tree")
+    # the pool on the card (stream_window 0): evaluation renders from the resident pool
+    cfg = load_config(os.path.join(repo, "configs", "torch", "kitti360_360_grid.yaml"),
+                      ["data.root", root, "data.frame_num", "2", "data.frame_start", "0",
+                       "data.stream_window", "0"])
+    for i, sq in enumerate(cfg.data.sequences):
+        write_demo_tree(root, n_frames=2, hw=(94, 352), n_boxes=8, seed=i, seq=sq, fisheye=True,
+                        n_concave=2, device=cuda_device)
+    ds, _, _ = make_dataset(cfg, cuda_device)
+    model = make_network(cfg, cuda_device).eval()
+    init_params(model, torch.Generator(cuda_device).manual_seed(11))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.05, generator=torch.Generator(cuda_device).manual_seed(len(name)))
+            elif ".table_" in name:
+                p.uniform_(-1.0, 1.0, generator=torch.Generator(cuda_device).manual_seed(len(name)))
+    hw = (64, 128)
+    n = hw[0] * hw[1]
+    profiling.reset()
+    with torch.no_grad():
+        out = render_panorama(model, ds, 1, hw, cfg)
+    snap = profiling.snapshot()
+    counts = (launches("E"), launches("G"), profiling.calls("render.field.points"),
+              profiling.calls("render.field.points_fused"), profiling.calls("render.grid.points"))
+    assert snap[("render.panorama", None)]["calls"] == 1
+    assert snap[("render.panorama.rays", "render.panorama")]["calls"] == 1
+    assert snap[("render.view", "render.panorama")]["calls"] == 1
+    assert profiling.calls("render.panorama.pixels") == n
+    profiling.reset()
+    keep = renderer.eval_field
+    renderer.eval_field = lambda m, c, dv: m
+    try:
+        with torch.no_grad():
+            ref = render_panorama(model, ds, 1, hw, cfg)
+    finally:
+        renderer.eval_field = keep
+    torch.cuda.synchronize()
+    tiles = -(-n // cfg.render.ray_tile)
+    e, g, points, fused, encoded = counts
+    assert e == g == 2 * tiles and points == fused == encoded == n * (64 + 128), counts
+    gaps = _view_gaps(out, ref)
+    assert all(x <= lim for x, lim in zip(gaps, (1e-5, 5e-6, 3e-4))), gaps
+    hit = (out.inst_ids >= 0).any(-1).float().mean()
+    assert 0 < float(hit) < 1
     assert bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.sem_logits).all())
 
 
