@@ -828,7 +828,9 @@ def grid_phase(dev):
     without the grid's columns) and of the plain hybrid model; G's device
     time; G's bound (its own I/O, 12 bytes in and 64 out a point, at HBM's
     rate, against ~60 f32 operations a point and level at the f32 peak) and
-    E's. -> {"G": ..., "E": ...} at the benchmark's fine tile."""
+    E's; the 128-byte lines and 32-byte sectors a point G's warp loads touch
+    over the 16 levels (`gather_footprint`), one thread a point against G's
+    lane pairs. -> {"G": ..., "E": ...} at the benchmark's fine tile."""
     import dataclasses
 
     from panopticnerf_tpu_torch.config import load_config
@@ -836,7 +838,7 @@ def grid_phase(dev):
     from panopticnerf_tpu_torch.ops.field_eval import eval_dims, field_eval_plain, pack_eval
     from panopticnerf_tpu_torch.ops.field_eval_cuda import EvalKernel
     from panopticnerf_tpu_torch.ops.hash_grid import GRID, hash_grid_encode
-    from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
+    from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel, gather_footprint
     from panopticnerf_tpu_torch.utils.profiling import calls
 
     fine_cfg = load_config(GRID_CFG_FILE).model
@@ -886,6 +888,8 @@ def grid_phase(dev):
               f"E with the grid's features off its plain version: {shares} {rels}")
         g_ms = [time_ms(lambda: gk(pts)) for _ in range(2)]
         g_dev = device_ms(lambda: gk(pts), "hash_grid_kernel")
+        foot = {paired: [sum(f[j] for f in gather_footprint(pts, paired)) / n for j in (0, 1)]
+                for paired in (False, True)}
         g_plain = time_ms(lambda: hash_grid_encode(pts, tables).to(torch.bfloat16), reps=3)
         e_ms = [time_ms(lambda: ek(pts, dirs, s, g)) for _ in range(2)]
         e0_ms = [time_ms(lambda: ek_nogrid(pts, dirs, s)) for _ in range(2)]
@@ -897,9 +901,12 @@ def grid_phase(dev):
         print(f"grid (c), {level} {cfg.trunk_depth}x{cfg.trunk_width}, {rays} rays x {s}: G bit "
               f"for bit against its plain encoding: {exact}; G {g_ms[0]:.4f} / {g_ms[1]:.4f} ms "
               f"(device {g_dev:.4f}), plain encoding {g_plain:.4f} ms, bound {g_bound[0]:.4f} ms "
-              f"({g_bound[1]}); E with features {e_ms[0]:.4f} / {e_ms[1]:.4f} ms, E without "
-              f"{e0_ms[0]:.4f} / {e0_ms[1]:.4f} ms, plain hybrid model {m_plain:.4f} ms, E's "
-              f"bound {e_bound[0]:.4f} ms ({e_bound[1]}); E against its plain version: share of "
+              f"({g_bound[1]}); G's loads a point over the levels: lane pairs "
+              f"{foot[True][0]:.2f} lines / {foot[True][1]:.2f} sectors, one thread a point "
+              f"{foot[False][0]:.2f} / {foot[False][1]:.2f}; E with features {e_ms[0]:.4f} / "
+              f"{e_ms[1]:.4f} ms, E without {e0_ms[0]:.4f} / {e0_ms[1]:.4f} ms, plain hybrid "
+              f"model {m_plain:.4f} ms, E's bound {e_bound[0]:.4f} ms ({e_bound[1]}); E against "
+              "its plain version: share of "
               "values that differ " + ", ".join(f"{k} {v:.2e}" for k, v in shares.items())
               + "; relative Frobenius error " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
               + f"; max |d| {err:.3e}")

@@ -13,8 +13,9 @@ each field once.
 
 A hybrid field (a hash grid beside the MLP, model.hash_grid) runs
 kernel G on its tables first, per tile and level (span
-`render.grid.<level>` inside the renderer's `render.field.<level>`; counter
-`render.grid.points`, the points G encodes), and E reads G's features.
+`render.grid.<level>` inside the renderer's `render.field.<level>`; counters
+`render.grid.points`, the points G encodes, and `render.grid.points_paired`,
+those it encodes with lane-paired gathers), and E reads G's features.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ class EvalField:
     `field(pts, viewdirs, level=...)`, pts (N, S, 3), viewdirs (N, 1, 3)):
     kernel E at the levels in `dims` (after kernel G where the field has a
     hash grid), the model at the others. Counts the points E evaluates
-    (`render.field.points_fused`) and those G encodes
-    (`render.grid.points`). Lives for one
+    (`render.field.points_fused`), those G encodes (`render.grid.points`)
+    and those it encodes with paired gathers (`render.grid.points_paired`;
+    0 where the grid is not G, as on the CPU). Lives for one
     evaluation render, whose weights do not change: each level's packing
     is looked up once."""
 
@@ -84,6 +86,8 @@ class EvalField:
         if grid_fn is not None:
             with span(f"render.grid.{('coarse', 'fine')[lv]}"):
                 count("render.grid.points", n * s)
+                paired = getattr(grid_fn, "paired", False)
+                count("render.grid.points_paired", n * s if paired else 0)
                 grid = grid_fn(flat)
         sigma, rgb, sem = field(flat, viewdirs.reshape(n, 3).contiguous(), s, grid)
         return (sigma.reshape(n, s), rgb.reshape(n, s, 3),

@@ -898,17 +898,58 @@ def _grid_points(device, n, seed):
     return pts
 
 
-def test_hash_grid_kernel_bit_for_bit(cuda_device):
+def _grid_case_points(device, case):
+    """The points of a G case: "n1" / "n15" / "n300001" that many points (inside and outside
+    the cube, on its faces, at cell corners), which leave lanes of G's last warp past the
+    end; "rays" 2047 seeded rays x 128 sorted samples in the render's ray-major order, whose
+    lane pairs share lines; "integer" points whose finest-level coordinates (N = 2048) are
+    exact integers, t = 0 on every axis; "line_edge" points in cells with kx mod 16 = 15 at
+    every level, whose x-neighbour rows cross a 128-byte line."""
+    from panopticnerf_tpu_torch.ops.hash_grid import GRID
+
+    g = torch.Generator(device).manual_seed(7)
+    if case.startswith("n"):
+        n = int(case[1:])
+        if n >= 6:
+            return _grid_points(device, n, 3)
+        return torch.rand(n, 3, device=device, generator=g) * 2 - 1
+    if case == "rays":
+        o = (torch.rand(2047, 1, 3, device=device, generator=g) * 2 - 1) * 0.3
+        d = torch.nn.functional.normalize(torch.randn(2047, 1, 3, device=device, generator=g),
+                                          dim=-1)
+        t = torch.rand(2047, 128, 1, device=device, generator=g).sort(dim=1).values * 1.5
+        return (o + d * t).reshape(-1, 3).contiguous()
+    if case == "integer":
+        k = torch.randint(0, 2049, (20_000, 3), device=device, generator=g)
+        pts = k.float() / 1024.0 - 1.0  # u = k / 2048, exact
+        assert torch.equal(((pts + 1.0) / 2.0) * 2048.0, k.float())
+        return pts
+    assert case == "line_edge"
+    out = []
+    for res in GRID.resolutions:
+        q = torch.randint(0, res // 16, (2000, 1), device=device, generator=g)
+        rest = torch.rand(2000, 2, device=device, generator=g)
+        ux = (16 * q + 15 + torch.rand(2000, 1, device=device, generator=g) * 0.999) / res
+        out.append(torch.cat([ux, rest], dim=1) * 2 - 1)
+    pts = torch.cat(out).contiguous()
+    res = torch.tensor(GRID.resolutions, device=device).repeat_interleave(2000)
+    kx = torch.floor((pts[:, 0] + 1.0) / 2.0 * res).long()
+    assert bool(((kx % 16) == 15).float().mean() > 0.99)
+    return pts
+
+
+@pytest.mark.parametrize("case", ["n1", "n15", "n300001", "rays", "integer", "line_edge"])
+def test_hash_grid_kernel_bit_for_bit(cuda_device, case):
     """Kernel G equals the plain encoding rounded to bf16, bit for bit (the
-    plain version's order of operations, no contraction), at every level of
-    the grid (dense and hashed), for points inside and outside the cube;
-    one launch counted."""
+    plain version's order of operations, no contraction, through the lane
+    pairs' exchange), at every level of the grid (dense and hashed), on
+    each case of `_grid_case_points`; one launch counted."""
     from panopticnerf_tpu_torch.ops.hash_grid import hash_grid_encode
     from panopticnerf_tpu_torch.ops.hash_grid_cuda import GridKernel
 
     _, net = _grid_case(cuda_device, {"num_classes": 19}, 3)
     tables = [t.detach() for t in net.grid.tables()]
-    pts = _grid_points(cuda_device, 300_001, 3)
+    pts = _grid_case_points(cuda_device, case)
     before = launches("G")
     got = GridKernel(tables, cuda_device)(pts)
     assert launches("G") == before + 1
